@@ -1,0 +1,24 @@
+"""Hand-written Hopper kernels (CUDA C++ in ``csrc/``) with their plain
+PyTorch versions beside them; ``ops.py`` dispatches by device.
+
+Each CUDA wrapper keeps a plain ``launches`` counter that it bumps only where
+it launches its kernel, so a run can show that a path went through them.
+"""
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import w4a16_matmul as _w4
+
+#: kernel name → CUDA wrapper carrying the ``launches`` counter
+WRAPPERS = {
+    "w4a16_matmul": _w4.w4a16_matmul_cuda,
+    "gqa_paged_decode": _pa.gqa_paged_attention_cuda,
+    "gqa_paged_prefill": _pa.gqa_paged_prefill_cuda,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

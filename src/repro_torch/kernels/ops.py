@@ -1,0 +1,68 @@
+"""Public kernel entry points, dispatched by the tensors' device (port of
+``repro/kernels/ops.py``).
+
+There is no backend string: a CPU tensor takes the kernel's plain PyTorch
+version, a CUDA tensor launches the hand-written kernel or raises.  Nothing
+falls back from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.quantize import QuantizedTensor
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import w4a16_matmul as _w4
+
+# W4A8 token-count gate, kept from the reference: below this many rows the
+# GEMM is memory-bound and stays A16 even when A8 is requested.
+A8_MIN_TOKENS = 16
+
+
+def _resolve_act(act: str, rows: int) -> str:
+    if act not in ("a16", "a8"):
+        raise ValueError(f"act must be 'a16' or 'a8', got {act!r}")
+    if act == "a8" and rows >= A8_MIN_TOKENS:
+        raise NotImplementedError(
+            "the W4A8 kernel body (reference kernel B5) is not ported yet "
+            "(ROADMAP.md queue A item 8)")
+    return "a16"
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"no kernel route for device {t.device}")
+
+
+def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+                 act: str = "a16") -> torch.Tensor:
+    """Quantized linear contraction ``x @ dequant(qt)`` (K1)."""
+    _resolve_act(act, math.prod(x.shape[:-1]))
+    if _route(x) == "cpu":
+        return _w4.w4a16_matmul_plain(x, qt)
+    return _w4.w4a16_matmul_cuda(x, qt)
+
+
+def gqa_paged_attention(q, k_pool, v_pool, table, lengths, *,
+                        sm_scale: float) -> torch.Tensor:
+    """Paged GQA decode attention (K2): q[B,Hkv,grp,Dh] → f32 [B,Hkv,grp,Dv]."""
+    if _route(q) == "cpu":
+        return _pa.gqa_paged_attention_plain(q, k_pool, v_pool, table,
+                                             lengths, sm_scale=sm_scale)
+    return _pa.gqa_paged_attention_cuda(q, k_pool, v_pool, table, lengths,
+                                        sm_scale=sm_scale)
+
+
+def gqa_paged_prefill(q, k_suf, v_suf, k_pool, v_pool, table, prefix_len,
+                      chunk_len, *, sm_scale: float) -> torch.Tensor:
+    """Paged GQA chunked-prefill attention (K3): q[B,T,Hkv,grp,Dh] → f32
+    [B,T,Hkv,grp,Dv]."""
+    if _route(q) == "cpu":
+        return _pa.gqa_paged_prefill_plain(
+            q, k_suf, v_suf, k_pool, v_pool, table, prefix_len, chunk_len,
+            sm_scale=sm_scale)
+    return _pa.gqa_paged_prefill_cuda(
+        q, k_suf, v_suf, k_pool, v_pool, table, prefix_len, chunk_len,
+        sm_scale=sm_scale)

@@ -1,0 +1,38 @@
+"""Model facade, dense subset (port of ``repro/models/api.py``).
+
+``init_model`` defaults to the GPU and raises when there is no card; pass
+``device="cpu"`` explicitly to build on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import lm as LM
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """Random-weight params for ``cfg`` from a seeded ``torch.Generator``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return LM.init_lm(gen, cfg.check())
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device):
+    """Per-layer KV pools ``[num_pages, page_size, Hkv, Dh]`` for the
+    engine's block-table pager (``serving/kv_cache.py``)."""
+    return LM.init_paged_cache(cfg, num_pages, page_size, device)
+
+
+def prefill_chunk_fn(params, batch, cache, table_rows, start_len, chunk_len,
+                     cfg: ModelConfig, *, last_idx=None):
+    return LM.lm_prefill_chunk(params, batch["tokens"], cache, start_len,
+                               chunk_len, table_rows, cfg, last_idx=last_idx)
+
+
+def decode_paged_fn(params, batch, cache, table_rows, cfg: ModelConfig):
+    return LM.lm_decode_paged(params, batch["token"], cache,
+                              batch["position"], table_rows, cfg)

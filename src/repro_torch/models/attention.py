@@ -1,0 +1,240 @@
+"""GQA attention (port of the GQA half of ``repro/models/attention.py``).
+
+Caches: the contiguous decode cache is ``{"k"/"v": [B, S, Hkv, Dh],
+"lens": [B]}``; the paged pools are ``{"k"/"v": [num_pages, page_size, Hkv,
+Dh]}`` shared across slots, addressed through ``table_rows[B, P]`` (dead
+entries point at the trash page 0).
+
+Where the reference scatters functionally and relies on ``donate_argnums``
+so XLA reuses the pool buffers, the port writes the new KV rows into the
+pool tensors in place.
+
+``cfg.paged_attn_impl``: ``"auto"`` runs the paged-attention kernels through
+``kernels.ops`` (their plain versions for CPU tensors); ``"gather"`` is the
+dense page-gather oracle, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    d, h, hkv, dh, dt = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.hdim, cfg.tdtype)
+    return {"wq": L.init_linear(gen, d, h * dh, dt),
+            "wk": L.init_linear(gen, d, hkv * dh, dt),
+            "wv": L.init_linear(gen, d, hkv * dh, dt),
+            "wo": L.init_linear(gen, h * dh, d, dt)}
+
+
+def _qkv(p, x, positions, cfg: ModelConfig):
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
+    q = L.apply_linear(p["wq"], x).reshape(b, t, h, dh)
+    k = L.apply_linear(p["wk"], x).reshape(b, t, hkv, dh)
+    v = L.apply_linear(p["wv"], x).reshape(b, t, hkv, dh)
+    q = L.apply_rope(q, positions, theta=cfg.rope_theta)
+    k = L.apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, k_valid=None, *,
+                      causal: bool = True, q_chunk: int = 2048,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over ``[q_chunk, kv_chunk]`` score blocks.
+    q[B,T,H,Dh], k/v[B,S,Hkv,D*] → [B,T,H,Dv] in q's dtype."""
+    b, t, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    grp = h // hkv
+    scale = dh ** -0.5
+    if k_valid is None:
+        k_valid = torch.ones(b, s, dtype=torch.bool, device=q.device)
+    q_chunk, kv_chunk = min(q_chunk, t), min(kv_chunk, s)
+    outs = []
+    for q0 in range(0, t, q_chunk):
+        qq = q[:, q0:q0 + q_chunk].to(torch.float32)
+        qc = qq.shape[1]
+        qq = qq.reshape(b, qc, hkv, grp, dh)
+        qp = q_pos[:, q0:q0 + q_chunk]
+        m = torch.full((b, hkv, grp, qc), NEG_INF, device=q.device)
+        l = torch.zeros((b, hkv, grp, qc), device=q.device)
+        acc = torch.zeros((b, hkv, grp, qc, dv), device=q.device)
+        for k0 in range(0, s, kv_chunk):
+            kk = k[:, k0:k0 + kv_chunk].to(torch.float32)
+            vv = v[:, k0:k0 + kv_chunk].to(torch.float32)
+            mask = k_valid[:, None, None, None, k0:k0 + kv_chunk]
+            if causal:
+                kp = k_pos[:, k0:k0 + kv_chunk]
+                mask = mask & (kp[:, None, None, None, :]
+                               <= qp[:, None, None, :, None])
+            sc = torch.einsum("bqhgd,bkhd->bhgqk", qq, kk) * scale
+            sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                       p, vv)
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))         # [B,qc,Hkv,grp,Dv]
+    return torch.cat(outs, dim=1).reshape(b, t, h, dv).to(q.dtype)
+
+
+def gqa_prefill(p, x, positions, cfg: ModelConfig, *, causal: bool = True
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention (calibration / teacher-forced forward)."""
+    b, t, _ = x.shape
+    q, k, v = _qkv(p, x, positions, cfg)
+    out = chunked_attention(q, k, v, positions, positions, causal=causal)
+    y = L.apply_linear(p["wo"], out.reshape(b, t, -1))
+    lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    return y, {"k": k, "v": v, "lens": lens}
+
+
+def _attend_rows(qh, k_rows, v_rows, valid, scale):
+    """One-token attention of qh[B,Hkv,grp,Dh] against k/v[B,S,Hkv,D*]."""
+    sc = torch.einsum("bhgd,bshd->bhgs", qh.to(torch.float32),
+                      k_rows.to(torch.float32)) * scale
+    sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
+    pattn = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", pattn, v_rows.to(torch.float32))
+
+
+def gqa_decode(p, x, positions, cache, cfg: ModelConfig):
+    """One-token decode against a contiguous [B, Smax] cache (updated in
+    place).  x: [B, 1, D]."""
+    b = x.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
+    q, k, v = _qkv(p, x, positions, cfg)
+    slot = cache["lens"].long()
+    bidx = torch.arange(b, device=x.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    kpos = torch.arange(cache["k"].shape[1], device=x.device)
+    valid = kpos[None, :] <= slot[:, None]
+    out = _attend_rows(q.reshape(b, hkv, h // hkv, dh), cache["k"],
+                       cache["v"], valid, dh ** -0.5)
+    cache["lens"] += 1
+    y = L.apply_linear(p["wo"], out.reshape(b, 1, h * dh).to(x.dtype))
+    return y, cache
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, smax: int, device):
+    shp = (batch, smax, cfg.num_kv_heads, cfg.hdim)
+    return {"k": torch.zeros(shp, dtype=cfg.tdtype, device=device),
+            "v": torch.zeros(shp, dtype=cfg.tdtype, device=device),
+            "lens": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+# ------------------------------------------------------------------ paged ---
+def gather_pages(pool: torch.Tensor, table_rows: torch.Tensor) -> torch.Tensor:
+    """pool[NP, PS, ...] + table_rows[B, P] → dense [B, P*PS, ...] rows in
+    logical order (the reference gather; the kernels never build this)."""
+    g = pool[table_rows.long()]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+
+def _chunk_positions(start_len: torch.Tensor, t: int) -> torch.Tensor:
+    return start_len.long()[:, None] + torch.arange(
+        t, device=start_len.device)[None, :]
+
+
+def _scatter_chunk(pool, updates, table_rows, start_len, chunk_len):
+    """Write a [B, T, ...] chunk of raw KV rows into the pools in place at
+    logical positions start_len[b] + t; padded rows (t >= chunk_len[b]) land
+    on the trash page."""
+    b, t = next(iter(updates.values())).shape[:2]
+    ps = pool[next(iter(updates))].shape[1]
+    n_pages = table_rows.shape[1]
+    pos = _chunk_positions(start_len, t)
+    valid = torch.arange(t, device=pos.device)[None, :] \
+        < chunk_len.long()[:, None]
+    lpage = torch.clamp(pos // ps, max=n_pages - 1)
+    pg = torch.where(valid, table_rows.long().gather(1, lpage),
+                     torch.zeros_like(lpage))
+    off = pos % ps
+    for name, rows in updates.items():
+        pool[name][pg, off] = rows.to(pool[name].dtype)
+
+
+def gqa_prefill_chunk(p, x, pool, table_rows, start_len, chunk_len,
+                      cfg: ModelConfig):
+    """Chunked prefill straight against the paged pools: row b's token t sits
+    at position start_len[b] + t.  The chunk's KV is written into the pages
+    first; attention reads the start_len prefix rows from the pools and the
+    chunk's own K/V raw.  Returns (y, pool)."""
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
+    grp = h // hkv
+    positions = _chunk_positions(start_len, t)
+    q, k, v = _qkv(p, x, positions, cfg)
+    _scatter_chunk(pool, {"k": k, "v": v}, table_rows, start_len, chunk_len)
+    scale = dh ** -0.5
+    if cfg.paged_attn_impl == "auto":
+        out = kops.gqa_paged_prefill(
+            q.reshape(b, t, hkv, grp, dh).to(torch.float32).contiguous(),
+            k.contiguous(), v.contiguous(), pool["k"], pool["v"], table_rows,
+            start_len, chunk_len, sm_scale=scale).reshape(b, t, h, -1)
+    else:
+        pk = gather_pages(pool["k"], table_rows)
+        pv = gather_pages(pool["v"], table_rows)
+        s = pk.shape[1]
+        kpos_pre = torch.arange(s, device=x.device)[None].expand(b, s)
+        tt = torch.arange(t, device=x.device)[None, :]
+        k_valid = torch.cat([kpos_pre < start_len.long()[:, None],
+                             tt < chunk_len.long()[:, None]], dim=1)
+        out = chunked_attention(
+            q, torch.cat([pk.to(k.dtype), k], dim=1),
+            torch.cat([pv.to(v.dtype), v], dim=1), positions,
+            torch.cat([kpos_pre, positions], dim=1), k_valid, causal=True)
+    y = L.apply_linear(p["wo"], out.reshape(b, t, -1).to(x.dtype).contiguous())
+    return y, pool
+
+
+def gqa_decode_paged(p, x, positions, pool, table_rows, write_pos,
+                     cfg: ModelConfig):
+    """One-token decode against the paged pools; write_pos[B] is the logical
+    position the new token lands at.  Returns (y, pool)."""
+    b = x.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
+    q, k, v = _qkv(p, x, positions, cfg)
+    ps = pool["k"].shape[1]
+    wp = write_pos.long()
+    bidx = torch.arange(b, device=x.device)
+    pg = table_rows.long()[bidx, wp // ps]
+    off = wp % ps
+    # idle slots' table rows all point at the trash page: their writes
+    # collide there harmlessly
+    pool["k"][pg, off] = k[:, 0].to(pool["k"].dtype)
+    pool["v"][pg, off] = v[:, 0].to(pool["v"].dtype)
+    qh = q.reshape(b, hkv, h // hkv, dh)
+    scale = dh ** -0.5
+    if cfg.paged_attn_impl == "auto":
+        out = kops.gqa_paged_attention(
+            qh.to(torch.float32).contiguous(), pool["k"], pool["v"],
+            table_rows, (write_pos + 1).to(torch.int32), sm_scale=scale)
+    else:
+        k_rows = gather_pages(pool["k"], table_rows)
+        v_rows = gather_pages(pool["v"], table_rows)
+        valid = torch.arange(k_rows.shape[1], device=x.device)[None, :] \
+            <= wp[:, None]
+        out = _attend_rows(qh, k_rows, v_rows, valid, scale)
+    y = L.apply_linear(p["wo"], out.reshape(b, 1, h * dh).to(x.dtype))
+    return y, pool
+
+
+def init_gqa_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
+                       device) -> Dict[str, torch.Tensor]:
+    shp = (num_pages, page_size, cfg.num_kv_heads, cfg.hdim)
+    return {"k": torch.zeros(shp, dtype=cfg.tdtype, device=device),
+            "v": torch.zeros(shp, dtype=cfg.tdtype, device=device)}

@@ -1,0 +1,120 @@
+"""The port's CUDA kernels (K1 W4A16 GEMM, K2 paged decode, K3 paged
+chunked prefill) against their plain PyTorch versions on the card.
+
+Marked ``cuda``: skipped where there is no GPU.  Run on the GPU machine with
+``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
+
+Tolerances, relative to the largest |reference| value: f32 outputs 1e-5
+(sums in another order); K1 with bf16 activations 1e-2 (its output is
+rounded to bf16).  Dead table entries point at a trash page filled with NaN:
+the kernels must never read it (the plain versions are given a clean copy).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.core.quantize import quantize
+from repro_torch.device import strict_fp32_matmul
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import w4a16_matmul as W4
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    strict_fp32_matmul()
+    return torch.device("cuda")
+
+
+def _rel_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("xdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("t,ci,co,g", [(1, 256, 96, 32), (5, 128, 48, 16),
+                                       (21, 512, 200, 128), (4, 4096, 11008, 128),
+                                       (64, 11008, 4096, 128)])
+def test_w4a16_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
+    gen = torch.Generator(device=dev).manual_seed(t + co)
+    w = torch.randn(ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=g, dtype=sdt)
+    x = torch.randn(t, ci, generator=gen, device=dev).to(xdt)
+    before = W4.w4a16_matmul_cuda.launches
+    y = ops.w4a16_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert W4.w4a16_matmul_cuda.launches == before + 1
+    assert y.dtype == xdt and tuple(y.shape) == (t, co)
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y, W4.w4a16_matmul_plain(x, qt)) <= tol
+
+
+def _paged(dev, dt, b, grp, lengths, ps=16, hkv=4, dh=128, pages=5, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + b * pages
+    kp = torch.randn(n_pages, ps, hkv, dh, generator=gen, device=dev).to(dt)
+    vp = torch.randn(n_pages, ps, hkv, dh, generator=gen, device=dev).to(dt)
+    table = torch.zeros(b, pages, dtype=torch.int32)
+    perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    k = 0
+    for i, n in enumerate(lengths):
+        live = -(-int(n) // ps)
+        table[i, :live] = torch.from_numpy(perm[k:k + live].astype(np.int32))
+        k += live
+    return kp, vp, table.to(dev)
+
+
+def _poison_trash(pool):
+    bad = pool.clone()
+    bad[0] = float("nan")
+    return bad
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grp", [1, 3, 8])
+def test_decode_kernel_matches_plain(dev, dt, grp):
+    lengths = torch.tensor([1, 17, 80, 33, 0], dtype=torch.int32, device=dev)
+    b = len(lengths)
+    kp, vp, table = _paged(dev, dt, b, grp, lengths.tolist(), seed=grp)
+    q = torch.randn(b, 4, grp, 128, device=dev)
+    ref = PA.gqa_paged_attention_plain(q, kp, vp, table, lengths,
+                                       sm_scale=128 ** -0.5)
+    out = ops.gqa_paged_attention(q, _poison_trash(kp), _poison_trash(vp),
+                                  table, lengths, sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 1e-5
+    assert not out[-1].any()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grp,t", [(1, 8), (3, 33), (1, 64)])
+def test_prefill_kernel_matches_plain(dev, dt, grp, t):
+    prefix = torch.tensor([0, 5, 16, 40, 0], dtype=torch.int32, device=dev)
+    chunk = torch.tensor([t, 3, t - 1, 0, 0], dtype=torch.int32, device=dev)
+    b = len(prefix)
+    kp, vp, table = _paged(dev, dt, b, grp,
+                           (prefix + chunk).tolist(), seed=10 + grp)
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q = torch.randn(b, t, 4, grp, 128, generator=gen, device=dev)
+    ks = torch.randn(b, t, 4, 128, generator=gen, device=dev).to(dt)
+    vs = torch.randn(b, t, 4, 128, generator=gen, device=dev).to(dt)
+    ref = PA.gqa_paged_prefill_plain(q, ks, vs, kp, vp, table, prefix, chunk,
+                                     sm_scale=128 ** -0.5)
+    out = ops.gqa_paged_prefill(q, ks, vs, _poison_trash(kp),
+                                _poison_trash(vp), table, prefix, chunk,
+                                sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 1e-5
+    assert not out[4].any()
+
+
+def test_launch_counters_reset(dev):
+    K.reset_launch_counts()
+    assert set(K.launch_counts().values()) == {0}
