@@ -8,16 +8,24 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
 
 1. setup — card name and power limit, torch/CUDA versions, kernel build time
    (one nvcc per source, in parallel);
-2. kernels — K1 (W4A16 GEMM), K2 (paged decode), K3 (paged chunked prefill)
-   against their plain PyTorch versions at the main path's shapes, in f32 and
-   bf16, with CUDA-event times beside the plain version's, one PyTorch
-   library call's (never used by the port) and the card's bound;
-3. main path — codellama-7b at full width with random seeded weights:
-   SmoothQuant+ quantize-on-load in f32 (G=128), then 8 requests (prompts of
-   32-200 tokens, 16 new tokens, batch 4, greedy) through the serving engine
-   with every launch counter read; one prefill and one decode step checked
-   against the same step on the dequantized weights with the dense-gather
-   attention oracle;
+2. kernels — K1 (W4A16 GEMM), K2 (paged decode), K3 (paged chunked prefill),
+   B5 (W4A8 GEMM) and the int8-pool branches of K2/K3 against their plain
+   PyTorch versions at the paths' shapes, with CUDA-event times beside the
+   plain version's, one PyTorch library call's (never used by the port) and
+   the card's bound;
+3. paths — codellama-7b at full width with random seeded weights, 8 requests
+   (prompts of 32-200 tokens, 16 new tokens, batch 4, greedy), every launch
+   counter set to 0 just before and read just after each path:
+   path 1 — SmoothQuant+ quantize-on-load in f32 (G=128) through the serve
+   entry, fp pools, A16; one prefill and one decode step checked against
+   the same step on the dequantized weights with the dense-gather oracle;
+   path 2 — seeded hot channels injected into the embedding, quantize-on-load
+   with the W4A8 eligibility pass, then the engine with int8 KV pools and
+   ``act_quant="a8_prefill"`` (``max_prefill_tokens=128``); its launch
+   counts must equal the counts predicted from the A8 flags and the
+   engine's chunk log; step checks (a) int8-pool steps vs the gather
+   oracle, (b) decode under a8_prefill bitwise equal to a16, (c) an A8
+   prefill chunk within a stated bound of A16;
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -26,6 +34,8 @@ TF32 is disabled for matmuls and convolutions: f32 work is full f32.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -40,6 +50,7 @@ if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
              "run it from a checkout of the repository")
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 if not torch.cuda.is_available():
@@ -50,11 +61,14 @@ from repro_torch.core.quantize import dequantize, quantize  # noqa: E402
 from repro_torch.device import strict_fp32_matmul  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import w4a16_matmul as W4  # noqa: E402
+from repro_torch.models import lm as LM  # noqa: E402
 
 HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA-core f32 (the kernels' route)
-              torch.bfloat16: 989e12}
+              torch.bfloat16: 989e12,
+              torch.int8: 1979e12}    # int8 tensor cores
 L2_BYTES = 50 * 2 ** 20
 DEV = torch.device("cuda")
 RESULTS = {"kernels": {}, "rows": []}
@@ -115,146 +129,215 @@ def record(kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, by):
 
 
 # --------------------------------------------------------------- kernels ---
-def check_k1():
-    print("K1 w4a16_matmul (replaces repro/kernels/w4a16_matmul.py:_kernel)")
+def _check_gemm(name, cuda_fn, plain_fn, ts, a8):
+    """K1 (``a8=False``) or B5 at the paths' GEMM shapes, G=128, f32 and
+    bf16 X.  For B5 group 0 holds zeros whose int8 fold needs the clip."""
     rows = {}
     for ci, co in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        gen = torch.Generator(device=DEV).manual_seed(ci + co)
+        gen = torch.Generator(device=DEV).manual_seed(ci + co + 5 * a8)
         w = torch.randn(ci, co, generator=gen, device=DEV) * ci ** -0.5
         for dt in (torch.float32, torch.bfloat16):
             qt = quantize(w, group_size=128, dtype=dt)
+            if a8:
+                zeros = qt.zeros.clone()
+                zeros[0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
+                qt = dataclasses.replace(qt, zeros=zeros)
             n_copy = max(1, math.ceil(2 * L2_BYTES / qt.nbytes_quant()))
             qts = [qt] + [qt.map(torch.clone) for _ in range(n_copy - 1)]
             w_lib = dequantize(qt, torch.bfloat16)
             libs = [w_lib] + [w_lib.clone() for _ in range(
                 max(0, math.ceil(2 * L2_BYTES / w_lib.nbytes) - 1))]
-            for t in (4, 64, 512):
+            for t in ts:
                 x = torch.randn(t, ci, generator=gen, device=DEV).to(dt)
-                ref = W4.w4a16_matmul_plain(x, qt)
-                y = W4.w4a16_matmul_cuda(x, qt)
+                ref = plain_fn(x, qt)
+                y = cuda_fn(x, qt)
                 torch.cuda.synchronize()
                 scale = max(1.0, float(ref.float().abs().max()))
                 tol = (1e-5 if dt == torch.float32 else 1e-2) * scale
-                ms = time_ms([lambda q=q: W4.w4a16_matmul_cuda(x, q)
-                              for q in qts])
-                plain = time_ms([lambda q=q: W4.w4a16_matmul_plain(x, q)
-                                 for q in qts])
+                # B5's time is its wrapper's: activation quantization + kernel
+                ms = time_ms([lambda q=q: cuda_fn(x, q) for q in qts])
+                plain = time_ms([lambda q=q: plain_fn(x, q) for q in qts])
                 xb = x.to(torch.bfloat16)
                 lib = time_ms([lambda m=m: torch.matmul(xb, m) for m in libs])
                 el = x.element_size()
-                nbytes = (t * ci * el + qt.nbytes_quant() + t * co * el)
-                bnd, by = bound(nbytes, 2.0 * t * ci * co, dt)
-                case = f"T={t} {ci}x{co} G=128 {str(dt)[6:]}"
-                rows[(t, ci, co, dt)] = record("w4a16_matmul", case,
-                                               max_err(y, ref), tol, ms,
-                                               plain, lib, bnd, by)
+                # B5 reads int8 codes and a scale per token, at the int8 rate
+                nbytes = ((t * ci + t * 4) if a8 else t * ci * el) \
+                    + qt.nbytes_quant() + t * co * el
+                bnd, by = bound(nbytes, 2.0 * t * ci * co,
+                                torch.int8 if a8 else dt)
+                case = (f"T={t} {ci}x{co} G=128{' clip-group' if a8 else ''} "
+                        f"{str(dt)[6:]}")
+                rows[(t, ci, co, dt)] = record(name, case, max_err(y, ref),
+                                               tol, ms, plain, lib, bnd, by)
             del qts, libs
     return rows
 
 
-def _paged_inputs(b, hkv, grp, lengths, dt, ps=16, seed=0):
+def check_k1():
+    print("K1 w4a16_matmul (replaces repro/kernels/w4a16_matmul.py:_kernel)")
+    return _check_gemm("w4a16_matmul", W4.w4a16_matmul_cuda,
+                       W4.w4a16_matmul_plain, (4, 64, 512), False)
+
+
+def check_b5():
+    print("B5 w4a8_matmul (replaces repro/kernels/w4a16_matmul.py:"
+          "_kernel_a8)")
+    return _check_gemm("w4a8_matmul", W4.w4a8_matmul_cuda,
+                       W4.w4a8_matmul_plain, (64, 512), True)
+
+
+def _paged_inputs(b, hkv, lengths, kind, ps=16, seed=0):
+    """Pools for ``lengths`` (one trash page 0 + shuffled live pages) of
+    ``kind`` — f32, bf16, or int8 codes with f32 row scales: the plain
+    version's clean (k, v, k_scale, v_scale), the kernel's copy with the
+    trash page poisoned (NaN; int8: codes -128 and NaN scales), the table,
+    and the generator for the rest of the case."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     pages = [-(-n // ps) for n in lengths]
     n_pages = 1 + sum(pages)
-    kp = torch.randn(n_pages, ps, hkv, 128, generator=gen, device=DEV).to(dt)
-    vp = torch.randn(n_pages, ps, hkv, 128, generator=gen, device=DEV).to(dt)
-    p_max = max(max(pages), 1)
+    shp = (n_pages, ps, hkv, 128)
+    if kind == torch.int8:
+        clean = tuple(torch.randint(-127, 128, shp, generator=gen, device=DEV,
+                                    dtype=torch.int8) for _ in range(2)) \
+            + tuple(torch.rand(shp[:3], generator=gen, device=DEV) * 0.03
+                    + 1e-3 for _ in range(2))
+    else:
+        clean = tuple(torch.randn(shp, generator=gen, device=DEV).to(kind)
+                      for _ in range(2)) + (None, None)
+    bad = tuple(None if t is None else t.clone() for t in clean)
+    for t in bad:
+        if t is not None:
+            t[0] = -128 if t.dtype == torch.int8 else float("nan")
     perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(
-        seed))[:] + 1
-    table = torch.zeros(b, p_max, dtype=torch.int32)
+        seed)) + 1
+    table = torch.zeros(b, max(max(pages), 1), dtype=torch.int32)
     k = 0
     for i, n in enumerate(pages):
         table[i, :n] = perm[k:k + n].to(torch.int32)
         k += n
-    return kp, vp, table.to(DEV), gen
+    return clean, bad, table.to(DEV), gen
 
 
-def _dense(pool, table, rows):
-    """Gathered dense [B, Hkv, rows, D] view for the library yardstick."""
+def _dense(pool, scales, table, rows):
+    """Gathered (dequantized) dense [B, Hkv, rows, D] for the library
+    yardstick."""
     g = PA._gather(pool, table)[:, :rows]
+    if scales is not None:
+        g = g.float() * PA._gather(scales, table)[:, :rows, :, None]
     return g.permute(0, 2, 1, 3).contiguous()
+
+
+def _row_bytes(pools):
+    """Bytes of one pool row and head, K and V (int8: with their scales)."""
+    k, v, ks, _ = pools
+    return k.shape[-1] * k.element_size() + v.shape[-1] * v.element_size() \
+        + (8 if ks is not None else 0)
+
+
+def _pool_label(kind):
+    return "int8 pools" if kind == torch.int8 else str(kind)[6:]
 
 
 def check_k2():
     print("K2 gqa_paged_decode (replaces repro/kernels/paged_attention.py:"
-          "_gqa_kernel)")
+          "_gqa_kernel; fp pools and the int8 branch)")
     rows = {}
     lengths = [1024, 700, 333, 17]
     b, hkv = 4, 32
     for grp in (1, 8):
-        for dt in (torch.float32, torch.bfloat16):
-            kp, vp, table, gen = _paged_inputs(b, hkv, grp, lengths, dt,
-                                               seed=grp)
+        for kind in (torch.float32, torch.bfloat16, torch.int8):
+            clean, bad, table, gen = _paged_inputs(b, hkv, lengths, kind,
+                                                   seed=grp)
+            quant = kind == torch.int8
+            name = "gqa_paged_decode_int8" if quant else "gqa_paged_decode"
+            kern = (PA.gqa_paged_attention_int8_cuda if quant
+                    else PA.gqa_paged_attention_cuda)
             lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
             q = torch.randn(b, hkv, grp, 128, generator=gen, device=DEV)
             sc = 128 ** -0.5
-            ref = PA.gqa_paged_attention_plain(q, kp, vp, table, lens,
-                                               sm_scale=sc)
-            out = PA.gqa_paged_attention_cuda(q, kp, vp, table, lens,
-                                              sm_scale=sc)
+            kargs = (q, bad[0], bad[1], table, lens) + (bad[2:] if quant
+                                                        else ())
+            pargs = (q, clean[0], clean[1], table, lens, *clean[2:])
+            ref = PA.gqa_paged_attention_plain(*pargs, sm_scale=sc)
+            out = kern(*kargs, sm_scale=sc)
             torch.cuda.synchronize()
+            require(bool(torch.isfinite(out).all()),
+                    f"{name} read the trash page")
             tol = 1e-5 * max(1.0, float(ref.abs().max()))
-            ms = time_ms([lambda: PA.gqa_paged_attention_cuda(
-                q, kp, vp, table, lens, sm_scale=sc)])
+            ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
             plain = time_ms([lambda: PA.gqa_paged_attention_plain(
-                q, kp, vp, table, lens, sm_scale=sc)])
+                *pargs, sm_scale=sc)])
             s = max(lengths)
-            kd = _dense(kp, table, s).repeat_interleave(grp, dim=1)
-            vd = _dense(vp, table, s).repeat_interleave(grp, dim=1)
+            kd = _dense(clean[0], clean[2], table, s).repeat_interleave(
+                grp, dim=1)
+            vd = _dense(clean[1], clean[3], table, s).repeat_interleave(
+                grp, dim=1)
             mask = (torch.arange(s, device=DEV)[None, :]
                     < lens[:, None].long())[:, None, None, :]
-            qd = q.reshape(b, hkv * grp, 1, 128).to(dt)
+            qd = q.reshape(b, hkv * grp, 1, 128).to(kd.dtype)
             lib = time_ms([lambda: torch.nn.functional.
                            scaled_dot_product_attention(qd, kd, vd,
                                                         attn_mask=mask)])
-            el = kp.element_size()
             live = sum(lengths)
-            nbytes = (q.numel() * 4 + live * hkv * 256 * el
+            nbytes = (q.numel() * 4 + live * hkv * _row_bytes(clean)
                       + table.numel() * 4 + b * 4 + out.numel() * 4)
             flops = 2.0 * live * hkv * grp * 256
-            bnd, by = bound(nbytes, flops, dt)
-            case = f"B=4 Hkv=32 grp={grp} lens={lengths} {str(dt)[6:]}"
-            rows[(grp, dt)] = record("gqa_paged_decode", case,
-                                     max_err(out, ref), tol, ms, plain, lib,
-                                     bnd, by)
+            # int8 codes meet f32 queries: f32 arithmetic, f32 rate
+            bnd, by = bound(nbytes, flops, torch.float32 if quant else kind)
+            case = f"B=4 Hkv=32 grp={grp} lens={lengths} {_pool_label(kind)}"
+            rows[(grp, kind)] = record(name, case, max_err(out, ref), tol,
+                                       ms, plain, lib, bnd, by)
     return rows
 
 
 def check_k3():
     print("K3 gqa_paged_prefill (replaces repro/kernels/paged_attention.py:"
-          "_gqa_prefill_kernel)")
+          "_gqa_prefill_kernel; fp pools and the int8 branch)")
     rows = {}
     b, hkv, grp = 4, 32, 1
+    kinds = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.int8, torch.float32), (torch.int8, torch.bfloat16))
     for t in (64, 256):
         for prefix in ([0, 0, 0, 0], [256, 130, 64, 0]):
             chunk = [t, t - 7, t // 2, 1]
-            for dt in (torch.float32, torch.bfloat16):
-                kp, vp, table, gen = _paged_inputs(
-                    b, hkv, grp, [p + c for p, c in zip(prefix, chunk)], dt,
+            for kind, sdt in kinds:
+                clean, bad, table, gen = _paged_inputs(
+                    b, hkv, [p + c for p, c in zip(prefix, chunk)], kind,
                     seed=t + prefix[0])
+                quant = kind == torch.int8
+                name = ("gqa_paged_prefill_int8" if quant
+                        else "gqa_paged_prefill")
+                kern = (PA.gqa_paged_prefill_int8_cuda if quant
+                        else PA.gqa_paged_prefill_cuda)
                 pl = torch.tensor(prefix, dtype=torch.int32, device=DEV)
                 cl = torch.tensor(chunk, dtype=torch.int32, device=DEV)
                 q = torch.randn(b, t, hkv, grp, 128, generator=gen,
                                 device=DEV)
                 ks = torch.randn(b, t, hkv, 128, generator=gen,
-                                 device=DEV).to(dt)
+                                 device=DEV).to(sdt)
                 vs = torch.randn(b, t, hkv, 128, generator=gen,
-                                 device=DEV).to(dt)
+                                 device=DEV).to(sdt)
                 sc = 128 ** -0.5
-                args = (q, ks, vs, kp, vp, table, pl, cl)
-                ref = PA.gqa_paged_prefill_plain(*args, sm_scale=sc)
-                out = PA.gqa_paged_prefill_cuda(*args, sm_scale=sc)
+                kargs = (q, ks, vs, bad[0], bad[1], table, pl, cl) \
+                    + (bad[2:] if quant else ())
+                pargs = (q, ks, vs, clean[0], clean[1], table, pl, cl,
+                         *clean[2:])
+                ref = PA.gqa_paged_prefill_plain(*pargs, sm_scale=sc)
+                out = kern(*kargs, sm_scale=sc)
                 torch.cuda.synchronize()
+                require(bool(torch.isfinite(out).all()),
+                        f"{name} read the trash page")
                 tol = 1e-5 * max(1.0, float(ref.abs().max()))
-                ms = time_ms([lambda: PA.gqa_paged_prefill_cuda(
-                    *args, sm_scale=sc)])
+                ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
                 plain = time_ms([lambda: PA.gqa_paged_prefill_plain(
-                    *args, sm_scale=sc)])
+                    *pargs, sm_scale=sc)])
                 s = max(prefix)
-                kd = torch.cat([_dense(kp, table, s),
-                                ks.permute(0, 2, 1, 3)], dim=2).contiguous()
-                vd = torch.cat([_dense(vp, table, s),
-                                vs.permute(0, 2, 1, 3)], dim=2).contiguous()
+                kd = _dense(clean[0], clean[2], table, s)
+                vd = _dense(clean[1], clean[3], table, s)
+                kd = torch.cat([kd, ks.to(kd.dtype).permute(0, 2, 1, 3)],
+                               dim=2).contiguous()
+                vd = torch.cat([vd, vs.to(vd.dtype).permute(0, 2, 1, 3)],
+                               dim=2).contiguous()
                 kv = torch.arange(s, device=DEV)
                 j = torch.arange(t, device=DEV)
                 pre = (kv[None, None, :] < pl.long()[:, None, None]).expand(
@@ -263,23 +346,24 @@ def check_k3():
                     & (j[None, None, :] < cl.long()[:, None, None])
                 mask = torch.cat([pre, suf], dim=-1)[:, None]
                 qd = q.reshape(b, t, hkv, 128).permute(0, 2, 1, 3).to(
-                    dt).contiguous()
+                    kd.dtype).contiguous()
                 lib = time_ms([lambda: torch.nn.functional.
                                scaled_dot_product_attention(
                                    qd, kd, vd, attn_mask=mask)])
-                el = kp.element_size()
                 keys = sum(p * t + sum(min(i + 1, c) for i in range(t))
                            for p, c in zip(prefix, chunk))
-                nbytes = (q.numel() * 4 + (ks.numel() + vs.numel()) * el
-                          + sum(prefix) * hkv * 256 * el + table.numel() * 4
-                          + 2 * b * 4 + out.numel() * 4)
+                nbytes = (q.numel() * 4 + (ks.numel() + vs.numel())
+                          * ks.element_size()
+                          + sum(prefix) * hkv * _row_bytes(clean)
+                          + table.numel() * 4 + 2 * b * 4 + out.numel() * 4)
                 flops = 2.0 * keys * hkv * grp * 256
-                bnd, by = bound(nbytes, flops, dt)
-                case = (f"B=4 T={t} Hkv=32 prefix={prefix} chunk="
-                        f"{chunk} {str(dt)[6:]}")
-                rows[(t, sum(prefix) > 0, dt)] = record(
-                    "gqa_paged_prefill", case, max_err(out, ref), tol, ms,
-                    plain, lib, bnd, by)
+                bnd, by = bound(nbytes, flops,
+                                torch.float32 if quant else kind)
+                case = (f"B=4 T={t} Hkv=32 prefix={prefix} chunk={chunk} "
+                        f"{_pool_label(kind)}, {str(sdt)[6:]} suffix")
+                rows[(t, sum(prefix) > 0, kind, sdt)] = record(
+                    name, case, max_err(out, ref), tol, ms, plain, lib, bnd,
+                    by)
     return rows
 
 
@@ -298,30 +382,43 @@ def dequantized_params(params):
     return conv(params)
 
 
-@torch.no_grad()
-def check_step_against_plain(eng, prompt):
-    """One prefill chunk and one decode step through the kernels, against the
-    same steps on the dequantized weights with the dense-gather oracle."""
-    from repro_torch.models import lm as LM
+def _fresh_pool(cfg, ps, n_tokens):
+    pages = -(-(n_tokens + 1) // ps)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=DEV)[None]
+    return LM.init_paged_cache(cfg, pages + 1, ps, DEV), table
 
-    cfg, ps = eng.cfg, eng.PS
-    pages = -(-(len(prompt) + 1) // ps)
-    table = torch.arange(1, pages + 1, dtype=torch.int32,
-                         device=DEV)[None]
+
+@torch.no_grad()
+def _prefill_step(params, cfg, ps, prompt):
+    """One prefill chunk of the whole prompt into fresh pages."""
+    pool, table = _fresh_pool(cfg, ps, len(prompt))
     toks = torch.as_tensor(prompt, dtype=torch.int32, device=DEV)[None]
     start = torch.zeros(1, dtype=torch.int32, device=DEV)
     clen = torch.tensor([len(prompt)], dtype=torch.int32, device=DEV)
-    plain_params = dequantized_params(eng.params)
+    logits, pool = LM.lm_prefill_chunk(params, toks, pool, start, clen,
+                                       table, cfg)
+    return logits, pool, table
+
+
+@torch.no_grad()
+def _decode_step(params, cfg, pool, table, prompt):
+    """One decode step after the prompt (the pool is updated in place)."""
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=DEV)
+    nxt = torch.tensor([[int(prompt[-1])]], dtype=torch.int32, device=DEV)
+    return LM.lm_decode_paged(params, nxt, pool, pos, table, cfg)[0]
+
+
+def check_step_against_plain(params, cfg, ps, prompt):
+    """One prefill chunk and one decode step through the kernels, against the
+    same steps on the dequantized weights with the dense-gather oracle (each
+    over its own pools of ``cfg``'s kind: fp, or int8 under kv_quant)."""
+    plain_params = dequantized_params(params)
     logits = {}
-    for name, params, c in (("kernel", eng.params, cfg),
-                            ("plain", plain_params,
-                             cfg.with_(paged_attn_impl="gather"))):
-        pool = LM.init_paged_cache(c, pages + 1, ps, DEV)
-        pre, pool = LM.lm_prefill_chunk(params, toks, pool, start, clen,
-                                        table, c)
-        nxt = torch.tensor([[int(prompt[-1])]], dtype=torch.int32, device=DEV)
-        dec, _ = LM.lm_decode_paged(params, nxt, pool, clen, table, c)
-        logits[name] = (pre, dec)
+    for name, prm, c in (("kernel", params, cfg),
+                         ("plain", plain_params,
+                          cfg.with_(paged_attn_impl="gather"))):
+        pre, pool, table = _prefill_step(prm, c, ps, prompt)
+        logits[name] = (pre, _decode_step(prm, c, pool, table, prompt))
     del plain_params
     errs = []
     for i, step in enumerate(("prefill", "decode")):
@@ -337,10 +434,10 @@ def check_step_against_plain(eng, prompt):
     return errs
 
 
-def profile_decode(eng, reqs, steps=8):
-    """Where a decode step's time goes, after the counted run: the main
-    path's first four prompts again; one engine step prefills them all and
-    starts decoding, then ``steps`` pure decode steps (batch 4) run under
+def profile_decode(eng, reqs, key, steps=8):
+    """Where a decode step's time goes, after the counted run: the path's
+    first four prompts again; engine steps run until all four have finished
+    prefill, then ``steps`` pure decode steps (batch 4) run under
     torch.profiler."""
     from repro_torch.serving.engine import Request
 
@@ -348,10 +445,13 @@ def profile_decode(eng, reqs, steps=8):
            torch.profiler.ProfilerActivity.CUDA]
     for r in reqs[:4]:
         eng.submit(Request(uid=100 + r.uid, prompt=r.prompt,
-                           max_tokens=steps + 2))
+                           max_tokens=steps + 8))
     eng.step()
-    require(eng.stats.steps > 0 and not eng.queue,
-            "profile window did not start decoding")
+    while any(r is not None and eng.pos[i] < eng.pref_target[i]
+              for i, r in enumerate(eng.slots)):
+        eng.step()
+    require(not eng.queue and all(r is not None for r in eng.slots),
+            "profile window did not start decoding all four slots")
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.perf_counter()
@@ -372,8 +472,8 @@ def profile_decode(eng, reqs, steps=8):
           f"per step (busy share {busy / wall:.3f})")
     for r in rows:
         print(f"    {r['device_s']:.4f}s {r['calls']:6d}x  {r['name']}")
-    RESULTS["profile"] = dict(decode_steps=steps, wall_s=wall,
-                              device_busy_s=busy, top=rows)
+    RESULTS[key] = dict(decode_steps=steps, wall_s=wall, device_busy_s=busy,
+                        top=rows)
 
 
 def main_path():
@@ -413,7 +513,8 @@ def main_path():
           f"served {st.completed} requests in {res['serve_s']:.2f}s: "
           f"{tok_s:.1f} decode tok/s, TTFT p50 {statistics.median(ttft):.3f}s "
           f"max {ttft[-1]:.3f}s, peak memory {peak / 2 ** 30:.2f} GiB")
-    errs = check_step_against_plain(eng, reqs[0].prompt)
+    errs = check_step_against_plain(eng.params, eng.cfg, eng.PS,
+                                    reqs[0].prompt)
     RESULTS["main_path"] = dict(
         launches=counts, decode_steps=st.steps,
         prefill_batches=st.prefill_batches, decoded_tokens=st.decoded_tokens,
@@ -422,7 +523,140 @@ def main_path():
         boot_s=res["boot_s"], alpha=res["report"].alpha,
         peak_mem_bytes=peak, prefill_logit_err=errs[0],
         decode_logit_err=errs[1])
-    profile_decode(eng, reqs)
+    profile_decode(eng, reqs, "profile")
+    return counts
+
+
+def inject_hot_channels(params, cfg, seed=0, hot_scale=100.0):
+    """The hot channels of ``benchmarks/common.py:outlier_model``, without
+    JAX: d_model/32 seeded embedding channels scaled by ``hot_scale``, so
+    that some layers' post-smoothing inputs fail the A8 threshold."""
+    rng = np.random.default_rng(seed)
+    hot = np.ones(cfg.d_model, np.float32)
+    hot[rng.choice(cfg.d_model, size=max(2, cfg.d_model // 32),
+                   replace=False)] = hot_scale
+    params["embed"]["table"].mul_(torch.from_numpy(hot).to(DEV)[None, :])
+
+
+def path2_step_checks(params, cfg, ps, prompt, n_elig, qcfg):
+    """(a) int8-pool steps vs the gather oracle on dequantized weights;
+    (b) on one pool, a decode step under a8_prefill is bitwise equal to the
+    one under a16 (the token gate keeps decode on K1); (c) a prefill chunk
+    under a8_prefill vs a16: finite, 0 < relative L2 difference <= the
+    first-order sum of the per-linear errors the eligibility pass admitted,
+    a8_threshold x (eligible linears per layer) x layers."""
+    a16 = cfg.with_(act_quant="a16")
+    print("  (a) kv_quant, a16: one prefill + one decode step vs the "
+          "gather oracle")
+    errs = check_step_against_plain(params, a16, ps, prompt)
+    l16, pool, table = _prefill_step(params, a16, ps, prompt)
+    pool8 = {"layers": [{k: v.clone() for k, v in lp.items()}
+                        for lp in pool["layers"]]}
+    d16 = _decode_step(params, a16, pool, table, prompt)
+    d8 = _decode_step(params, cfg, pool8, table, prompt)
+    require(torch.equal(d16, d8),
+            "(b) decode logits under a8_prefill differ from a16")
+    print("  (b) decode step under a8_prefill bitwise equal to a16: True")
+    l8, _, _ = _prefill_step(params, cfg, ps, prompt)
+    require(bool(torch.isfinite(l8).all()), "(c) A8 prefill logits not finite")
+    rel = float((l8 - l16).norm() / l16.norm())
+    lim = qcfg.a8_threshold * n_elig * cfg.num_layers
+    print(f"  (c) prefill chunk ({len(prompt)} tokens) a8_prefill vs a16: "
+          f"relative L2 difference {rel:.4g} (bound {lim:.4g} = "
+          f"{qcfg.a8_threshold} x {n_elig} x {cfg.num_layers}), argmax "
+          f"{int(l8.argmax())} vs {int(l16.argmax())}")
+    require(0.0 < rel <= lim, "(c) A8 prefill logits outside the bound")
+    return dict(prefill_logit_err=errs[0], decode_logit_err=errs[1],
+                a8_vs_a16_prefill_rel_l2=rel, a8_rel_bound=lim)
+
+
+def path2():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.calibration import synthetic_calibration_set
+    from repro_torch.models import api
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            load_or_quantize)
+
+    print("path 2: codellama-7b full width, hot channels, SmoothQuant+ with "
+          "the W4A8 eligibility pass, int8 KV pools, act_quant=a8_prefill, "
+          "8 requests", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("codellama-7b").with_(dtype="float32")
+    qcfg = QuantConfig(group_size=128)
+    params = api.init_model(cfg, seed=0, device=DEV)
+    inject_hot_channels(params, cfg)
+    calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, rep = load_or_quantize(params, cfg, calib, qcfg)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    flags = rep.a8_eligibility
+    n_elig = sum(flags.values())
+    print(f"  PTQ alpha={rep.alpha:.2f} in {ptq_s:.1f}s (both calibration "
+          f"passes); A8 flags {flags}; worst errors "
+          f"{ {k: round(v, 5) for k, v in rep.a8_errors.items()} }")
+    require(n_elig >= 1, "no A8-eligible linear")
+    cfg2 = cfg.with_(kv_quant=True, act_quant="a8_prefill")
+    eng = ServingEngine(params, cfg2, batch_size=4, max_seq=256,
+                        page_size=16, max_prefill_tokens=128, seed=0,
+                        device=DEV)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 201, 8)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, int(n)
+                                               ).astype(np.int32),
+                    max_tokens=16) for i, n in enumerate(lens)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    nl = cfg.num_layers
+    a8_pred = sum(n_elig * nl for rows, _ in st.chunk_rows
+                  if rows >= ops.A8_MIN_TOKENS)
+    pred = {"w4a8_matmul": a8_pred,
+            "w4a16_matmul": 7 * nl * (st.steps + st.prefill_batches)
+            - a8_pred,
+            "gqa_paged_decode_int8": nl * st.steps,
+            "gqa_paged_prefill_int8": nl * st.prefill_batches,
+            "gqa_paged_decode": 0, "gqa_paged_prefill": 0}
+    print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
+          f"prefill batches {st.prefill_batches} (rows, max prefix_len) "
+          f"{st.chunk_rows}")
+    require(all(r.finish_reason in ("completed", "length") for r in reqs),
+            "path 2: a request did not finish")
+    require(all(len(r.output) == 16 or r.finish_reason == "completed"
+                for r in reqs), "path 2: a request stopped early without EOS")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+            "path 2: token out of range")
+    require(counts == pred, "path 2: launch counts differ from the "
+            "prediction")
+    require(counts["w4a8_matmul"] > 0, "path 2: no A8 launch")
+    require(any(start > 0 for _, start in st.chunk_rows),
+            "path 2: no chunk read int8 prefix pages")
+    tok_s = st.decoded_tokens / serve_s
+    ttft = sorted(r.first_token_t - r.arrival_t for r in reqs)
+    print(f"  served {st.completed} requests in {serve_s:.2f}s: "
+          f"{tok_s:.1f} decode tok/s, TTFT p50 {statistics.median(ttft):.3f}s "
+          f"max {ttft[-1]:.3f}s, peak memory {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    RESULTS["path2"] = dict(
+        launches=counts, predicted=pred, decode_steps=st.steps,
+        prefill_batches=st.prefill_batches, chunk_rows=list(st.chunk_rows),
+        decoded_tokens=st.decoded_tokens,
+        prefilled_tokens=st.prefilled_tokens, serve_s=serve_s,
+        decode_tok_s=tok_s, ttft_s=ttft, ptq_s=ptq_s, alpha=rep.alpha,
+        a8_eligibility=flags, a8_errors=rep.a8_errors, peak_mem_bytes=peak)
+    RESULTS["path2"].update(path2_step_checks(eng.params, cfg2, eng.PS,
+                                              reqs[0].prompt, n_elig, qcfg))
+    profile_decode(eng, reqs, "path2_profile")
     return counts
 
 
@@ -437,26 +671,43 @@ def main():
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     build_s = _build.build_all()
-    print(f"kernel build: {build_s:.1f}s (nvcc, sm_90a, 3 sources in "
-          "parallel)", flush=True)
+    print(f"kernel build: {build_s:.1f}s (nvcc, sm_90a, "
+          f"{len(_build.SOURCES)} sources in parallel)", flush=True)
     RESULTS.update(card=card, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s)
 
-    k1, k2, k3 = check_k1(), check_k2(), check_k3()
-    counts = main_path()
+    k1, b5, k2, k3 = check_k1(), check_b5(), check_k2(), check_k3()
+    counts1 = main_path()
+    gc.collect()
+    torch.cuda.empty_cache()        # path 1's engine and params are gone
+    counts2 = path2()
 
-    # one row per kernel: its main-path shape, in the main path's f32
+    # one row per kernel: its path's shape in the paths' f32, and its
+    # launches on the path that runs it
     picks = {
-        "w4a16_matmul": (k1[(4, 4096, 11008, torch.float32)],
+        "w4a16_matmul": (k1[(4, 4096, 11008, torch.float32)], counts1,
                          "csrc/w4a16_matmul.cu",
                          "src/repro/kernels/w4a16_matmul.py:72"),
-        "gqa_paged_decode": (k2[(1, torch.float32)],
+        "gqa_paged_decode": (k2[(1, torch.float32)], counts1,
                              "csrc/gqa_paged_decode.cu",
                              "src/repro/kernels/paged_attention.py:65"),
-        "gqa_paged_prefill": (k3[(256, False, torch.float32)],
+        "gqa_paged_prefill": (k3[(256, False, torch.float32, torch.float32)],
+                              counts1,
                               "csrc/gqa_paged_prefill.cu",
                               "src/repro/kernels/paged_attention.py:315"),
+        "w4a8_matmul": (b5[(512, 4096, 11008, torch.float32)], counts2,
+                        "csrc/w4a8_matmul.cu",
+                        "src/repro/kernels/w4a16_matmul.py:94"),
+        "gqa_paged_decode_int8": (k2[(1, torch.int8)], counts2,
+                                  "csrc/gqa_paged_decode.cu",
+                                  "src/repro/kernels/paged_attention.py:65"),
+        "gqa_paged_prefill_int8": (k3[(256, True, torch.int8, torch.float32)],
+                                   counts2,
+                                   "csrc/gqa_paged_prefill.cu",
+                                   "src/repro/kernels/paged_attention.py:315"),
     }
+    for name, (_, counts, _, _) in picks.items():
+        require(counts[name] > 0, f"{name} was not launched on its path")
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/{src}", "replaces": rep,
@@ -464,7 +715,7 @@ def main():
          "ms": row["ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
          "library_ms": row["library_ms"], "case": row["case"]}
-        for name, (row, src, rep) in picks.items()]}
+        for name, (row, counts, src, rep) in picks.items()]}
     RESULTS["kernels"] = line["kernels"]
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -33,16 +33,27 @@ class ModelConfig:
     tie_embeddings: bool = False
     attn_bias: bool = False
     dtype: str = "bfloat16"
+    # int8 KV page pools with per-(position, head) f32 scales
     kv_quant: bool = False
     attn_impl: str = "chunked"
     # "auto": the paged-attention kernels for CUDA tensors, their plain
     # versions for CPU tensors; "gather": the dense page-gather oracle
     paged_attn_impl: str = "auto"
+    # "a16" | "a8_prefill": prefill-chunk GEMMs of A8-eligible layers take
+    # per-token int8 activations (the W4A8 kernel); decode stays A16 through
+    # the token-count gate in kernels.ops
     act_quant: str = "a16"
 
     @property
     def hdim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def act_kernel(self) -> str:
+        """The ``act=`` that model code hands to ``kernels.ops``; the ops
+        gate (the weight's ``a8`` flag and the row count) decides whether the
+        A8 body runs."""
+        return "a8" if self.act_quant == "a8_prefill" else "a16"
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -56,19 +67,11 @@ class ModelConfig:
         if self.mixer != "attention" or self.family != "dense":
             raise NotImplementedError(
                 f"mixer={self.mixer!r}/family={self.family!r}: only the dense "
-                "attention decoder is ported (ROADMAP.md queue A items 9-10)")
-        if self.kv_quant:
-            raise NotImplementedError(
-                "kv_quant=True: int8 page pools in the paged-attention "
-                "kernels are not ported yet (ROADMAP.md queue B item 'kv_quant')")
-        if self.act_quant != "a16":
-            raise NotImplementedError(
-                f"act_quant={self.act_quant!r}: W4A8 prefill is not ported "
-                "yet (ROADMAP.md queue A item 8, kernel B5)")
+                "attention decoder is ported (ROADMAP.md queue A items 7-8)")
         if self.attn_impl != "chunked":
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r}: the flash kernel is not "
-                "ported yet (ROADMAP.md queue B item 4, kernel B4)")
+                "ported yet (ROADMAP.md queue B item 6, kernel B4)")
         if self.paged_attn_impl not in ("auto", "gather"):
             raise ValueError(
                 f"paged_attn_impl={self.paged_attn_impl!r}: expected 'auto' "
@@ -88,3 +91,6 @@ class QuantConfig:
     group_size: int = 128
     skip_lm_head: bool = True
     alpha: Optional[float] = None      # None → use searched value
+    # W4A8 eligibility: a smoothing group whose worst post-smoothing
+    # per-token int8 round-trip error exceeds this stays A16
+    a8_threshold: float = 0.015

@@ -1,15 +1,18 @@
-"""End-to-end SmoothQuant+ PTQ: calibrate → search α → smooth → group-wise
-int4 RTN (port of ``repro/core/apply.py``, A16).
+"""End-to-end SmoothQuant+ PTQ: calibrate → search α → smooth → W4A8
+eligibility pass → group-wise int4 RTN (port of ``repro/core/apply.py``).
 
 The port smooths and quantizes the given params *in place*: each fp weight
 is replaced by its :class:`QuantizedTensor` as soon as it is quantized, so
 the f32 7B model never exists twice and its fp linear weights are freed.
-The W4A8 second calibration pass and the PTQ artifact wait for later slices.
+The reference flags one ``a8`` per stacked ``[L, ...]`` tensor (one bad
+layer vetoes the stack); the port keeps one dict per layer and stamps that
+same flag on the path in every layer.  The PTQ artifact waits for a later
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -28,6 +31,11 @@ class PTQReport:
     quantized_paths: List[Tuple[Any, ...]]
     fp_bytes: int
     quant_bytes: int
+    # W4A8: per weight path ("layers/mixer/wq/w", as the reference names its
+    # stacked paths) the eligibility flag and the worst post-smoothing
+    # per-token int8 round-trip error that decided it
+    a8_eligibility: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    a8_errors: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def quantizable_paths(cfg: ModelConfig) -> List[Tuple[Any, ...]]:
@@ -43,10 +51,48 @@ def _fit_group(ci: int, group_size: int) -> int:
     return max(g, 2)
 
 
+def _report_key(wp: Tuple[Any, ...]) -> str:
+    return "/".join(map(str, SM.BLOCK + wp))
+
+
+def derive_a8_eligibility(col: C.StatsCollector, cfg: ModelConfig,
+                          qcfg: QuantConfig
+                          ) -> Tuple[Dict[Tuple[Any, ...], bool],
+                                     Dict[str, float]]:
+    """Per-weight-path W4A8 eligibility from *post-smoothing* stats: every
+    weight of a smoothing group shares one input, so the group's worst
+    per-token int8 round-trip error — max over batches and over depth —
+    must stay within ``qcfg.a8_threshold``.  A group with no stats is
+    ineligible.  Returns ``(per-layer path → bool, report key → error)``."""
+    amap: Dict[Tuple[Any, ...], bool] = {}
+    errors: Dict[str, float] = {}
+    for g in SM.smoothing_groups(cfg):
+        errs = [v for (blk, _lidx, sub), v in col.a8_err.items()
+                if blk == SM.BLOCK and sub == g.stats_sub]
+        worst = max(errs) if errs else float("inf")
+        ok = bool(worst <= qcfg.a8_threshold)
+        for wp in g.weights:
+            amap[wp] = ok
+            errors[_report_key(wp)] = worst
+    return amap, errors
+
+
+def _tree_a8_flags(qparams, cfg: ModelConfig) -> Dict[str, bool]:
+    """The ``a8`` flags actually stamped on the tree, one per path (set only
+    if it is set on that path in every layer)."""
+    return {_report_key(wp): all(bool(SM.tget(lp, wp).a8)
+                                 for lp in qparams["layers"])
+            for wp in quantizable_paths(cfg)}
+
+
 @torch.no_grad()
-def quantize_params(params, cfg: ModelConfig, qcfg: QuantConfig):
+def quantize_params(params, cfg: ModelConfig, qcfg: QuantConfig, *,
+                    a8_map: Optional[Dict[Tuple[Any, ...], bool]] = None):
     """Replace every quantizable linear weight with a QuantizedTensor, in
-    place.  Returns (params, paths, fp_bytes, quant_bytes)."""
+    place.  ``a8_map`` (from :func:`derive_a8_eligibility`) stamps each
+    weight's ``a8`` flag, paths missing from it ineligible; ``None`` keeps
+    the permissive default.  Returns (params, paths, fp_bytes,
+    quant_bytes)."""
     fp_bytes = quant_bytes = 0
     done = []
     for i, layer in enumerate(params["layers"]):
@@ -56,6 +102,8 @@ def quantize_params(params, cfg: ModelConfig, qcfg: QuantConfig):
             qt = quantize(w, group_size=_fit_group(w.shape[-2],
                                                    qcfg.group_size),
                           dtype=cfg.tdtype)
+            if a8_map is not None:
+                qt = dataclasses.replace(qt, a8=bool(a8_map.get(wp, False)))
             parent[wp[-1]] = qt
             fp_bytes += w.numel() * 2
             quant_bytes += qt.nbytes_quant()
@@ -70,8 +118,11 @@ def smoothquant_plus(params, cfg: ModelConfig,
                      verbose: bool = False) -> Tuple[Any, PTQReport]:
     """The SmoothQuant+ recipe (paper §3.1.3), in place on ``params``:
     calibrate channel max |X|, grid-search one global α (or take
-    ``qcfg.alpha``), smooth, then 4-bit group-wise RTN."""
-    col = C.collect_stats(params, cfg, list(calibration_batches))
+    ``qcfg.alpha``), smooth, then 4-bit group-wise RTN.  A second
+    calibration pass over the *smoothed* model measures each layer's
+    per-token int8 activation error and stamps the W4A8 ``a8`` flags."""
+    batches = list(calibration_batches)     # consumed twice
+    col = C.collect_stats(params, cfg, batches)
     if qcfg.alpha is not None:
         res = S.SearchResult(
             alpha=qcfg.alpha,
@@ -84,8 +135,13 @@ def smoothquant_plus(params, cfg: ModelConfig,
     smoothed, _ = SM.smooth_model(params, cfg, col, res.alpha)
     if not qcfg.enabled:
         return smoothed, PTQReport(res.alpha, res.loss, res.losses, [], 0, 0)
-    qparams, paths, fpb, qb = quantize_params(smoothed, cfg, qcfg)
-    return qparams, PTQReport(res.alpha, res.loss, res.losses, paths, fpb, qb)
+    col2 = C.collect_stats(smoothed, cfg, batches)
+    a8_map, a8_errors = derive_a8_eligibility(col2, cfg, qcfg)
+    qparams, paths, fpb, qb = quantize_params(smoothed, cfg, qcfg,
+                                              a8_map=a8_map)
+    return qparams, PTQReport(res.alpha, res.loss, res.losses, paths, fpb, qb,
+                              a8_eligibility=_tree_a8_flags(qparams, cfg),
+                              a8_errors=a8_errors)
 
 
 def rtn_baseline(params, cfg: ModelConfig, qcfg: QuantConfig = QuantConfig()):

@@ -5,7 +5,10 @@ The calibration batches run through the fp model layer by layer; each layer's
 weight tensors are registered (by ``id``) with a context collector, and
 :func:`repro_torch.models.layers.apply_linear` reports its input when it sees
 a registered weight.  Stats keys are the reference's:
-``(("layers",), (layer_idx,), weight_subpath)``.
+``(("layers",), (layer_idx,), weight_subpath)``.  Beside the channel max
+|X| the collector keeps, per key, the worst per-token int8 round-trip error
+of the input (:func:`repro_torch.core.quantize.a8_roundtrip_error`), the
+W4A8 eligibility statistic.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quantize import a8_roundtrip_error
 
 StatKey = Tuple[Tuple[str, ...], Tuple[int, ...], Tuple[str, ...]]
 
@@ -29,6 +33,9 @@ _COLLECTOR: contextvars.ContextVar = contextvars.ContextVar(
 class StatsCollector:
     ids: Dict[int, StatKey] = dataclasses.field(default_factory=dict)
     stats: Dict[StatKey, np.ndarray] = dataclasses.field(default_factory=dict)
+    # worst per-token int8 round-trip error, max over batches; meaningful on
+    # the post-smoothing pass of ``apply.smoothquant_plus``
+    a8_err: Dict[StatKey, float] = dataclasses.field(default_factory=dict)
 
     def register_tree(self, block: Tuple[str, ...], lidx: Tuple[int, ...],
                       tree, path: Tuple[str, ...] = ()) -> None:
@@ -47,6 +54,8 @@ class StatsCollector:
         amax = x.to(torch.float32).abs().amax(dim=dims).cpu().numpy()
         prev = self.stats.get(key)
         self.stats[key] = amax if prev is None else np.maximum(prev, amax)
+        err = float(a8_roundtrip_error(x))
+        self.a8_err[key] = max(self.a8_err.get(key, 0.0), err)
 
 
 def current_collector() -> Optional[StatsCollector]:

@@ -1,5 +1,6 @@
-"""Group-wise 4-bit asymmetric RTN quantization (SmoothQuant+ §2.1, eq. 1) —
-port of the A16 half of ``repro/core/quantize.py``.
+"""Group-wise 4-bit asymmetric RTN quantization (SmoothQuant+ §2.1, eq. 1)
+and per-token int8 activation quantization (W4A8 prefill) — port of
+``repro/core/quantize.py``.
 
 Conventions are the reference's, bit for bit: a linear weight is
 ``W[Ci, Co]`` (``Y = X @ W``); groups run along the input-channel axis with
@@ -27,12 +28,16 @@ class QuantizedTensor:
 
     packed: uint8[*lead, Ci//2, Co]; scales/zeros: dtype[*lead, Ci//G, Co]
     (zeros stored float-domain, integer-valued: ``Ŵ = (q − zeros)·scales``).
-    Leading (stack) dims are indexable with ``qt[i]``.
+    Leading (stack) dims are indexable with ``qt[i]``.  ``a8`` is the
+    calibration verdict that this weight's inputs are safe for per-token
+    int8 activations; ``kernels.ops`` takes the W4A8 body only when it is
+    set.
     """
 
     packed: torch.Tensor
     scales: torch.Tensor
     zeros: torch.Tensor
+    a8: bool = True
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -56,12 +61,12 @@ class QuantizedTensor:
             raise IndexError("QuantizedTensor[...] indexes leading stack dims "
                              "only; this tensor is 2-D")
         return QuantizedTensor(self.packed[idx], self.scales[idx],
-                               self.zeros[idx])
+                               self.zeros[idx], self.a8)
 
     def map(self, fn) -> "QuantizedTensor":
         """Apply ``fn`` to all three arrays (e.g. ``.to(device)``)."""
         return QuantizedTensor(fn(self.packed), fn(self.scales),
-                               fn(self.zeros))
+                               fn(self.zeros), self.a8)
 
     def nbytes_quant(self) -> int:
         return sum(t.numel() * t.element_size()
@@ -163,3 +168,32 @@ def fake_quantize(w: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE
     zeros = torch.round(-wmin / scales)
     q = (torch.round(wf / scales) + zeros).clamp(0, QMAX)
     return ((q - zeros) * scales).reshape(w.shape).to(w.dtype)
+
+
+# ------------------------------------------------------ A8 activations -----
+ACT_QMAX = 127  # symmetric int8
+
+
+def quantize_acts_per_token(x: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8: ``x[..., Ci]`` → ``(codes int8[..., Ci],
+    scales f32[..., 1])`` with ``x ≈ codes * scales``.  The reference's
+    operation order (``max(amax, 1e-8) / 127``, then ``round(x / scale)``),
+    so the codes match it bit for bit."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scales = torch.clamp_min(amax, 1e-8) / ACT_QMAX
+    codes = torch.round(xf / scales).clamp(-ACT_QMAX, ACT_QMAX).to(
+        torch.int8)
+    return codes, scales
+
+
+def a8_roundtrip_error(x: torch.Tensor) -> torch.Tensor:
+    """Worst per-token relative RMS error of the int8 activation round trip
+    (a scalar): the per-layer A8-eligibility statistic."""
+    xf = x.to(torch.float32).reshape(-1, x.shape[-1])
+    codes, scales = quantize_acts_per_token(xf)
+    err = codes.to(torch.float32) * scales - xf
+    num = torch.sqrt((err * err).mean(dim=-1))
+    den = torch.sqrt((xf * xf).mean(dim=-1))
+    return (num / torch.clamp_min(den, 1e-8)).max()

@@ -12,6 +12,9 @@ WRAPPERS = {
     "w4a16_matmul": _w4.w4a16_matmul_cuda,
     "gqa_paged_decode": _pa.gqa_paged_attention_cuda,
     "gqa_paged_prefill": _pa.gqa_paged_prefill_cuda,
+    "w4a8_matmul": _w4.w4a8_matmul_cuda,
+    "gqa_paged_decode_int8": _pa.gqa_paged_attention_int8_cuda,
+    "gqa_paged_prefill_int8": _pa.gqa_paged_prefill_int8_cuda,
 }
 
 

@@ -23,13 +23,15 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("w4a16_matmul", "gqa_paged_decode", "gqa_paged_prefill")
+SOURCES = ("w4a16_matmul", "w4a8_matmul", "gqa_paged_decode",
+           "gqa_paged_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # element-type codes of csrc/common.cuh
 DTYPE_F32 = 0
 DTYPE_BF16 = 1
+DTYPE_I8 = 2
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -110,6 +112,16 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return _LIBS[name]
+
+
+def cfunc(name: str, argtypes):
+    """The C launcher ``repro_<name>`` of ``csrc/<name>.cu`` with its ctypes
+    signature (every launcher returns a cudaError_t as int)."""
+    fn = getattr(load(name), f"repro_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check(err: int, what: str) -> None:

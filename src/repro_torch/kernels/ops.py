@@ -16,17 +16,18 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import w4a16_matmul as _w4
 
 # W4A8 token-count gate, kept from the reference: below this many rows the
-# GEMM is memory-bound and stays A16 even when A8 is requested.
+# GEMM is memory-bound (decode batches, tail chunks) and stays A16 even when
+# A8 is requested.
 A8_MIN_TOKENS = 16
 
 
-def _resolve_act(act: str, rows: int) -> str:
+def _resolve_act(act: str, qt: QuantizedTensor, rows: int) -> str:
+    """The caller asks (``act="a8"``), the calibration verdict rides on the
+    weight (``qt.a8``), and the row count keeps decode on the A16 body."""
     if act not in ("a16", "a8"):
         raise ValueError(f"act must be 'a16' or 'a8', got {act!r}")
-    if act == "a8" and rows >= A8_MIN_TOKENS:
-        raise NotImplementedError(
-            "the W4A8 kernel body (reference kernel B5) is not ported yet "
-            "(ROADMAP.md queue A item 8)")
+    if act == "a8" and qt.a8 and rows >= A8_MIN_TOKENS:
+        return "a8"
     return "a16"
 
 
@@ -38,31 +39,41 @@ def _route(t: torch.Tensor) -> str:
 
 def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
                  act: str = "a16") -> torch.Tensor:
-    """Quantized linear contraction ``x @ dequant(qt)`` (K1)."""
-    _resolve_act(act, math.prod(x.shape[:-1]))
+    """Quantized linear contraction ``x @ dequant(qt)``: K1, or B5 (per-token
+    int8 activations) where :func:`_resolve_act` grants A8."""
+    a8 = _resolve_act(act, qt, math.prod(x.shape[:-1])) == "a8"
     if _route(x) == "cpu":
-        return _w4.w4a16_matmul_plain(x, qt)
-    return _w4.w4a16_matmul_cuda(x, qt)
+        return (_w4.w4a8_matmul_plain if a8 else _w4.w4a16_matmul_plain)(x, qt)
+    return (_w4.w4a8_matmul_cuda if a8 else _w4.w4a16_matmul_cuda)(x, qt)
 
 
-def gqa_paged_attention(q, k_pool, v_pool, table, lengths, *,
-                        sm_scale: float) -> torch.Tensor:
-    """Paged GQA decode attention (K2): q[B,Hkv,grp,Dh] → f32 [B,Hkv,grp,Dv]."""
+def gqa_paged_attention(q, k_pool, v_pool, table, lengths, k_scale=None,
+                        v_scale=None, *, sm_scale: float) -> torch.Tensor:
+    """Paged GQA decode attention (K2): q[B,Hkv,grp,Dh] → f32 [B,Hkv,grp,Dv].
+    With ``k_scale``/``v_scale`` the pools are int8 (K2's int8 branch)."""
     if _route(q) == "cpu":
         return _pa.gqa_paged_attention_plain(q, k_pool, v_pool, table,
-                                             lengths, sm_scale=sm_scale)
-    return _pa.gqa_paged_attention_cuda(q, k_pool, v_pool, table, lengths,
-                                        sm_scale=sm_scale)
+                                             lengths, k_scale, v_scale,
+                                             sm_scale=sm_scale)
+    if k_scale is None:
+        return _pa.gqa_paged_attention_cuda(q, k_pool, v_pool, table, lengths,
+                                            sm_scale=sm_scale)
+    return _pa.gqa_paged_attention_int8_cuda(q, k_pool, v_pool, table,
+                                             lengths, k_scale, v_scale,
+                                             sm_scale=sm_scale)
 
 
 def gqa_paged_prefill(q, k_suf, v_suf, k_pool, v_pool, table, prefix_len,
-                      chunk_len, *, sm_scale: float) -> torch.Tensor:
+                      chunk_len, k_scale=None, v_scale=None, *,
+                      sm_scale: float) -> torch.Tensor:
     """Paged GQA chunked-prefill attention (K3): q[B,T,Hkv,grp,Dh] → f32
-    [B,T,Hkv,grp,Dv]."""
+    [B,T,Hkv,grp,Dv].  With ``k_scale``/``v_scale`` the pools are int8 (K3's
+    int8 branch); the chunk's own K/V stay raw fp."""
+    args = (q, k_suf, v_suf, k_pool, v_pool, table, prefix_len, chunk_len)
     if _route(q) == "cpu":
-        return _pa.gqa_paged_prefill_plain(
-            q, k_suf, v_suf, k_pool, v_pool, table, prefix_len, chunk_len,
-            sm_scale=sm_scale)
-    return _pa.gqa_paged_prefill_cuda(
-        q, k_suf, v_suf, k_pool, v_pool, table, prefix_len, chunk_len,
-        sm_scale=sm_scale)
+        return _pa.gqa_paged_prefill_plain(*args, k_scale, v_scale,
+                                           sm_scale=sm_scale)
+    if k_scale is None:
+        return _pa.gqa_paged_prefill_cuda(*args, sm_scale=sm_scale)
+    return _pa.gqa_paged_prefill_int8_cuda(*args, k_scale, v_scale,
+                                           sm_scale=sm_scale)

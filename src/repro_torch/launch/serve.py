@@ -2,12 +2,15 @@
 continuous-batching engine (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch codellama-7b \\
-        [--smoke] [--requests 12] [--no-quant] [--device cuda]
+        [--smoke] [--requests 12] [--no-quant] [--device cuda] \\
+        [--act-quant a16|a8_prefill]
 
 Runs on the GPU by default (``--device cuda``) and raises when there is no
 card.  The weights are random, drawn from ``--seed``; PTQ runs in f32 with
 group size 128 (16 under ``--smoke``).  TF32 is off for matmuls and
-convolutions, so f32 work is full f32.  ``main`` returns the engine, the
+convolutions, so f32 work is full f32.  ``--act-quant a8_prefill`` runs
+prefill-chunk GEMMs of A8-eligible layers on per-token int8 activations
+(decode stays A16).  ``main`` returns the engine, the
 requests and the timings for callers that drive it as a library.
 """
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.calibration import synthetic_calibration_set
+from repro_torch.core.smoothing import smoothing_groups
 from repro_torch.device import resolve_device, strict_fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.models import api
@@ -47,6 +51,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-prompt", type=int, default=10,
                     help="longest synthetic prompt (tokens)")
     ap.add_argument("--no-quant", action="store_true")
+    ap.add_argument("--act-quant", choices=("a16", "a8_prefill"),
+                    default="a16",
+                    help="a16 (default) or a8_prefill: per-token int8 "
+                         "activations on prefill-chunk GEMMs of A8-eligible "
+                         "layers; decode stays A16")
     ap.add_argument("--group-size", type=int, default=None)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-mode", choices=("bucketed", "slotwise"),
@@ -62,7 +71,8 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         # build every kernel now, in parallel, not inside the first request
         print(f"[kernels] built in {_build.build_all():.1f}s")
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = get_config(args.arch, smoke=args.smoke).with_(
+        act_quant=args.act_quant)
     if not args.no_quant:
         cfg = cfg.with_(dtype="float32")      # PTQ math in f32
     t0 = time.perf_counter()
@@ -82,6 +92,15 @@ def main(argv=None) -> dict:
         print(f"[quantize-on-load] alpha={rep.alpha:.2f} (searched) "
               f"{rep.fp_bytes / 1e6:.1f}MB -> {rep.quant_bytes / 1e6:.1f}MB "
               f"in {ptq_s:.1f}s")
+        flags = rep.a8_eligibility
+        groups = smoothing_groups(cfg)
+        n_groups = sum(flags[f"layers/{'/'.join(g.weights[0])}"]
+                       for g in groups)
+        print(f"[w4a8] act_quant={args.act_quant}; A8-eligible groups "
+              f"{n_groups}/{len(groups)}, weight paths "
+              f"{sum(flags.values())}/{len(flags)}: "
+              + ", ".join(f"{k.split('/', 1)[1]}={'a8' if v else 'a16'}"
+                          for k, v in flags.items()))
 
     eng = ServingEngine(params, cfg, batch_size=args.batch_size,
                         max_seq=args.max_seq, page_size=args.page_size,

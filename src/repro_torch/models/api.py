@@ -23,7 +23,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device):
     """Per-layer KV pools ``[num_pages, page_size, Hkv, Dh]`` for the
-    engine's block-table pager (``serving/kv_cache.py``)."""
+    engine's block-table pager (``serving/kv_cache.py``): ``cfg.tdtype``, or
+    int8 codes with f32 ``[num_pages, page_size, Hkv]`` scales under
+    ``cfg.kv_quant``."""
     return LM.init_paged_cache(cfg, num_pages, page_size, device)
 
 

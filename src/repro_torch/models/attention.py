@@ -3,7 +3,9 @@
 Caches: the contiguous decode cache is ``{"k"/"v": [B, S, Hkv, Dh],
 "lens": [B]}``; the paged pools are ``{"k"/"v": [num_pages, page_size, Hkv,
 Dh]}`` shared across slots, addressed through ``table_rows[B, P]`` (dead
-entries point at the trash page 0).
+entries point at the trash page 0).  Under ``cfg.kv_quant`` the pools hold
+int8 codes plus ``{"k_s"/"v_s": [num_pages, page_size, Hkv]}`` f32 scales
+(:func:`kv_quantize_rows`).
 
 Where the reference scatters functionally and relies on ``donate_argnums``
 so XLA reuses the pool buffers, the port writes the new KV rows into the
@@ -38,9 +40,10 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 def _qkv(p, x, positions, cfg: ModelConfig):
     b, t, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
-    q = L.apply_linear(p["wq"], x).reshape(b, t, h, dh)
-    k = L.apply_linear(p["wk"], x).reshape(b, t, hkv, dh)
-    v = L.apply_linear(p["wv"], x).reshape(b, t, hkv, dh)
+    act = cfg.act_kernel
+    q = L.apply_linear(p["wq"], x, act=act).reshape(b, t, h, dh)
+    k = L.apply_linear(p["wk"], x, act=act).reshape(b, t, hkv, dh)
+    v = L.apply_linear(p["wv"], x, act=act).reshape(b, t, hkv, dh)
     q = L.apply_rope(q, positions, theta=cfg.rope_theta)
     k = L.apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v
@@ -96,17 +99,23 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, *, causal: bool = True
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, positions, cfg)
     out = chunked_attention(q, k, v, positions, positions, causal=causal)
-    y = L.apply_linear(p["wo"], out.reshape(b, t, -1))
+    y = L.apply_linear(p["wo"], out.reshape(b, t, -1), act=cfg.act_kernel)
     lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
     return y, {"k": k, "v": v, "lens": lens}
 
 
-def _attend_rows(qh, k_rows, v_rows, valid, scale):
-    """One-token attention of qh[B,Hkv,grp,Dh] against k/v[B,S,Hkv,D*]."""
+def _attend_rows(qh, k_rows, v_rows, valid, scale, k_s=None, v_s=None):
+    """One-token attention of qh[B,Hkv,grp,Dh] against k/v[B,S,Hkv,D*].
+    With int8 rows, ``k_s``/``v_s[B,S,Hkv]`` scale the score and the
+    probability rows (no dense dequantized copy)."""
     sc = torch.einsum("bhgd,bshd->bhgs", qh.to(torch.float32),
                       k_rows.to(torch.float32)) * scale
+    if k_s is not None:
+        sc = sc * k_s.to(torch.float32).permute(0, 2, 1)[:, :, None, :]
     sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
     pattn = torch.softmax(sc, dim=-1)
+    if v_s is not None:
+        pattn = pattn * v_s.to(torch.float32).permute(0, 2, 1)[:, :, None, :]
     return torch.einsum("bhgs,bshd->bhgd", pattn, v_rows.to(torch.float32))
 
 
@@ -125,7 +134,8 @@ def gqa_decode(p, x, positions, cache, cfg: ModelConfig):
     out = _attend_rows(q.reshape(b, hkv, h // hkv, dh), cache["k"],
                        cache["v"], valid, dh ** -0.5)
     cache["lens"] += 1
-    y = L.apply_linear(p["wo"], out.reshape(b, 1, h * dh).to(x.dtype))
+    y = L.apply_linear(p["wo"], out.reshape(b, 1, h * dh).to(x.dtype),
+                       act=cfg.act_kernel)
     return y, cache
 
 
@@ -144,15 +154,36 @@ def gather_pages(pool: torch.Tensor, table_rows: torch.Tensor) -> torch.Tensor:
     return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
 
 
+def _dequant_pages(rows: torch.Tensor, scales) -> torch.Tensor:
+    """Dequantize gathered int8 page rows (identity for fp pools)."""
+    if scales is None:
+        return rows
+    return rows.to(torch.float32) * scales.to(torch.float32)[..., None]
+
+
 def _chunk_positions(start_len: torch.Tensor, t: int) -> torch.Tensor:
     return start_len.long()[:, None] + torch.arange(
         t, device=start_len.device)[None, :]
 
 
-def _scatter_chunk(pool, updates, table_rows, start_len, chunk_len):
+def _store_rows(pool, name: str, idx, rows, kv_quant: bool) -> None:
+    """Write KV rows into ``pool[name]`` at the pool index ``idx`` in place:
+    int8 codes plus their scales under ``kv_quant``, else in the pool's
+    dtype."""
+    if kv_quant:
+        codes, scl = kv_quantize_rows(rows)
+        pool[name][idx] = codes
+        pool[name + "_s"][idx] = scl
+    else:
+        pool[name][idx] = rows.to(pool[name].dtype)
+
+
+def _scatter_chunk(pool, updates, table_rows, start_len, chunk_len,
+                   kv_quant: bool):
     """Write a [B, T, ...] chunk of raw KV rows into the pools in place at
-    logical positions start_len[b] + t; padded rows (t >= chunk_len[b]) land
-    on the trash page."""
+    logical positions start_len[b] + t (quantized per row under
+    ``kv_quant``); padded rows (t >= chunk_len[b]) land on the trash
+    page."""
     b, t = next(iter(updates.values())).shape[:2]
     ps = pool[next(iter(updates))].shape[1]
     n_pages = table_rows.shape[1]
@@ -164,7 +195,7 @@ def _scatter_chunk(pool, updates, table_rows, start_len, chunk_len):
                      torch.zeros_like(lpage))
     off = pos % ps
     for name, rows in updates.items():
-        pool[name][pg, off] = rows.to(pool[name].dtype)
+        _store_rows(pool, name, (pg, off), rows, kv_quant)
 
 
 def gqa_prefill_chunk(p, x, pool, table_rows, start_len, chunk_len,
@@ -172,22 +203,28 @@ def gqa_prefill_chunk(p, x, pool, table_rows, start_len, chunk_len,
     """Chunked prefill straight against the paged pools: row b's token t sits
     at position start_len[b] + t.  The chunk's KV is written into the pages
     first; attention reads the start_len prefix rows from the pools and the
-    chunk's own K/V raw.  Returns (y, pool)."""
+    chunk's own K/V raw (never quantized).  Returns (y, pool)."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
     grp = h // hkv
     positions = _chunk_positions(start_len, t)
     q, k, v = _qkv(p, x, positions, cfg)
-    _scatter_chunk(pool, {"k": k, "v": v}, table_rows, start_len, chunk_len)
+    _scatter_chunk(pool, {"k": k, "v": v}, table_rows, start_len, chunk_len,
+                   cfg.kv_quant)
     scale = dh ** -0.5
     if cfg.paged_attn_impl == "auto":
         out = kops.gqa_paged_prefill(
             q.reshape(b, t, hkv, grp, dh).to(torch.float32).contiguous(),
             k.contiguous(), v.contiguous(), pool["k"], pool["v"], table_rows,
-            start_len, chunk_len, sm_scale=scale).reshape(b, t, h, -1)
+            start_len, chunk_len, pool.get("k_s"), pool.get("v_s"),
+            sm_scale=scale).reshape(b, t, h, -1)
     else:
-        pk = gather_pages(pool["k"], table_rows)
-        pv = gather_pages(pool["v"], table_rows)
+        pk = _dequant_pages(gather_pages(pool["k"], table_rows),
+                            gather_pages(pool["k_s"], table_rows)
+                            if cfg.kv_quant else None)
+        pv = _dequant_pages(gather_pages(pool["v"], table_rows),
+                            gather_pages(pool["v_s"], table_rows)
+                            if cfg.kv_quant else None)
         s = pk.shape[1]
         kpos_pre = torch.arange(s, device=x.device)[None].expand(b, s)
         tt = torch.arange(t, device=x.device)[None, :]
@@ -197,7 +234,8 @@ def gqa_prefill_chunk(p, x, pool, table_rows, start_len, chunk_len,
             q, torch.cat([pk.to(k.dtype), k], dim=1),
             torch.cat([pv.to(v.dtype), v], dim=1), positions,
             torch.cat([kpos_pre, positions], dim=1), k_valid, causal=True)
-    y = L.apply_linear(p["wo"], out.reshape(b, t, -1).to(x.dtype).contiguous())
+    y = L.apply_linear(p["wo"], out.reshape(b, t, -1).to(x.dtype).contiguous(),
+                       act=cfg.act_kernel)
     return y, pool
 
 
@@ -215,26 +253,50 @@ def gqa_decode_paged(p, x, positions, pool, table_rows, write_pos,
     off = wp % ps
     # idle slots' table rows all point at the trash page: their writes
     # collide there harmlessly
-    pool["k"][pg, off] = k[:, 0].to(pool["k"].dtype)
-    pool["v"][pg, off] = v[:, 0].to(pool["v"].dtype)
+    _store_rows(pool, "k", (pg, off), k[:, 0], cfg.kv_quant)
+    _store_rows(pool, "v", (pg, off), v[:, 0], cfg.kv_quant)
     qh = q.reshape(b, hkv, h // hkv, dh)
     scale = dh ** -0.5
     if cfg.paged_attn_impl == "auto":
         out = kops.gqa_paged_attention(
             qh.to(torch.float32).contiguous(), pool["k"], pool["v"],
-            table_rows, (write_pos + 1).to(torch.int32), sm_scale=scale)
+            table_rows, (write_pos + 1).to(torch.int32), pool.get("k_s"),
+            pool.get("v_s"), sm_scale=scale)
     else:
         k_rows = gather_pages(pool["k"], table_rows)
         v_rows = gather_pages(pool["v"], table_rows)
         valid = torch.arange(k_rows.shape[1], device=x.device)[None, :] \
             <= wp[:, None]
-        out = _attend_rows(qh, k_rows, v_rows, valid, scale)
-    y = L.apply_linear(p["wo"], out.reshape(b, 1, h * dh).to(x.dtype))
+        out = _attend_rows(
+            qh, k_rows, v_rows, valid, scale,
+            gather_pages(pool["k_s"], table_rows) if cfg.kv_quant else None,
+            gather_pages(pool["v_s"], table_rows) if cfg.kv_quant else None)
+    y = L.apply_linear(p["wo"], out.reshape(b, 1, h * dh).to(x.dtype),
+                       act=cfg.act_kernel)
     return y, pool
 
 
 def init_gqa_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                        device) -> Dict[str, torch.Tensor]:
     shp = (num_pages, page_size, cfg.num_kv_heads, cfg.hdim)
+    if cfg.kv_quant:
+        return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
+                "v": torch.zeros(shp, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shp[:3], dtype=torch.float32,
+                                   device=device),
+                "v_s": torch.zeros(shp[:3], dtype=torch.float32,
+                                   device=device)}
     return {"k": torch.zeros(shp, dtype=cfg.tdtype, device=device),
             "v": torch.zeros(shp, dtype=cfg.tdtype, device=device)}
+
+
+def kv_quantize_rows(x: torch.Tensor):
+    """Symmetric per-row int8 over the trailing dim: ``x[..., D]`` →
+    ``(int8[..., D], f32 scale[...])``.  The reference's operation order
+    (``amax = max|x| + 1e-8``, ``round(x / amax · 127)``, scale
+    ``amax / 127``) — not the activation quantizer's — so the codes match it
+    bit for bit."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1) + 1e-8
+    q = torch.clamp(torch.round(xf / amax[..., None] * 127.0), -127, 127)
+    return q.to(torch.int8), amax / 127.0

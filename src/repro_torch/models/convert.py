@@ -3,7 +3,9 @@
 Input is the reference param tree with every array turned into numpy
 (``jax.tree.map(np.asarray, params)``): nested dicts whose leaves are arrays
 or quantized-weight objects with ``packed`` / ``scales`` / ``zeros``.  The
-``[L, ...]`` layer stacks under ``"layers"`` become one dict per layer.
+``[L, ...]`` layer stacks under ``"layers"`` become one dict per layer; a
+quantized weight keeps its ``a8`` flag (one per stack in the reference, so
+the same on every layer).
 bfloat16 arrays go through f32, which loses nothing; packed bytes keep the
 reference layout (no repack).  This module imports neither JAX nor the
 reference package.
@@ -37,7 +39,8 @@ def _convert(node, device, index=None) -> Any:
         return {k: _convert(v, device, index) for k, v in node.items()}
     if _is_quantized(node):
         return QuantizedTensor(*(_convert(getattr(node, f), device, index)
-                                 for f in ("packed", "scales", "zeros")))
+                                 for f in ("packed", "scales", "zeros")),
+                               a8=bool(getattr(node, "a8", True)))
     a = np.asarray(node)
     return to_tensor(a if index is None else a[index], device).contiguous()
 

@@ -3,7 +3,9 @@
 Params: ``{"embed": {"table"}, "final_norm": {"scale"}, "lm_head": {"w"},
 "layers": [block, ...]}`` — one dict per layer, walked by a Python loop
 where the reference ``lax.scan``s over ``[L, ...]`` stacks.  Paged caches
-are ``{"layers": [{"k", "v"}, ...]}``, updated in place.
+are ``{"layers": [{"k", "v"}, ...]}`` (plus ``"k_s"``/``"v_s"`` scales
+under ``kv_quant``), updated in place.  Every linear gets
+``act=cfg.act_kernel``.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def _block_forward(p: Params, x, positions, cfg: ModelConfig):
     h = L.apply_norm(p["norm1"], x)
     y, _ = A.gqa_prefill(p["mixer"], h, positions, cfg)
     x = x + y
-    return x + M.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x))
+    return x + M.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x),
+                           act=cfg.act_kernel)
 
 
 def _block_prefill_chunk(p, x, start_len, chunk_len, pool, table_rows, cfg):
@@ -50,7 +53,8 @@ def _block_prefill_chunk(p, x, start_len, chunk_len, pool, table_rows, cfg):
     y, pool = A.gqa_prefill_chunk(p["mixer"], h, pool, table_rows, start_len,
                                   chunk_len, cfg)
     x = x + y
-    return x + M.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x)), pool
+    return x + M.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x),
+                           act=cfg.act_kernel), pool
 
 
 def _block_decode_paged(p, x, rope_pos, write_pos, pool, table_rows, cfg):
@@ -58,7 +62,8 @@ def _block_decode_paged(p, x, rope_pos, write_pos, pool, table_rows, cfg):
     y, pool = A.gqa_decode_paged(p["mixer"], h, rope_pos, pool, table_rows,
                                  write_pos, cfg)
     x = x + y
-    return x + M.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x)), pool
+    return x + M.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x),
+                           act=cfg.act_kernel), pool
 
 
 def _lm_head(p: Params, x: torch.Tensor) -> torch.Tensor:

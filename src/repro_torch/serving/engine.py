@@ -11,6 +11,9 @@ fixed-slot continuous batcher over a paged KV cache:
 - every step decodes one token for every slot past its prompt, straight
   against the pages (W4A16 linears and the paged-attention kernels on the
   GPU), sampling per slot;
+- ``cfg.kv_quant`` keeps the pages in int8 with f32 row scales;
+  ``cfg.act_quant="a8_prefill"`` runs prefill-chunk GEMMs of A8-eligible
+  layers on per-token int8 activations (decode stays A16);
 - pages grow lazily as a slot's write position crosses a page boundary;
   finished slots free their pages at once.
 
@@ -27,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +75,9 @@ class EngineStats:
     grown_pages: int = 0
     max_active: int = 0
     rejected: int = 0
+    # per prefill batch: (padded rows of its GEMMs, largest prefix_len)
+    chunk_rows: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
 
 
 class ServingEngine:
@@ -82,6 +88,11 @@ class ServingEngine:
                  prefill_mode: str = "bucketed", reservation: str = "lazy",
                  device="cuda"):
         self.device = resolve_device(device)
+        if cfg.act_quant not in ("a16", "a8_prefill"):
+            raise ValueError(
+                f"act_quant={cfg.act_quant!r}: expected 'a16' or 'a8_prefill' "
+                "(a8_prefill routes prefill-chunk GEMMs on A8-eligible layers "
+                "through the int8-activation kernel; decode stays A16)")
         self.cfg = cfg.check()
         self.params = params
         self.B = batch_size
@@ -228,6 +239,7 @@ class ServingEngine:
                     req.first_token_t = now
                     self.last_tok[slot] = first
             self.stats.prefill_batches += 1
+            self.stats.chunk_rows.append((n * blen, int(starts.max())))
         return worked
 
     # -------------------------------------------------------------- step ---
@@ -307,8 +319,9 @@ class ServingEngine:
 def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,
                      qcfg: QuantConfig = QuantConfig()):
     """Quantize-on-load (paper §2.3): fp params in, W4A16 params out, via the
-    full SmoothQuant+ recipe (in place).  The PTQ artifact branch of the
-    reference waits for a later slice."""
+    full SmoothQuant+ recipe (in place); the report carries the per-path
+    W4A8 flags (``a8_eligibility``) and the errors that decided them.  The
+    PTQ artifact branch of the reference waits for a later slice."""
     from repro_torch.core import apply as AP
 
     return AP.smoothquant_plus(params_fp, cfg, calibration_batches, qcfg)

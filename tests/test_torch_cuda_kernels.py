@@ -1,14 +1,18 @@
-"""The port's CUDA kernels (K1 W4A16 GEMM, K2 paged decode, K3 paged
-chunked prefill) against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (K1 W4A16 GEMM, B5 W4A8 GEMM, K2 paged decode and
+K3 paged chunked prefill, fp and int8 pools) against their plain PyTorch
+versions on the card.
 
 Marked ``cuda``: skipped where there is no GPU.  Run on the GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 Tolerances, relative to the largest |reference| value: f32 outputs 1e-5
-(sums in another order); K1 with bf16 activations 1e-2 (its output is
-rounded to bf16).  Dead table entries point at a trash page filled with NaN:
-the kernels must never read it (the plain versions are given a clean copy).
+(sums in another order); K1/B5 with bf16 activations 1e-2 (the output is
+rounded to bf16).  Dead table entries point at a trash page filled with NaN
+(int8 pools: codes -128 and NaN scales): the kernels must never read it (the
+plain versions are given a clean copy).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +58,42 @@ def test_w4a16_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
     assert y.dtype == xdt and tuple(y.shape) == (t, co)
     tol = 1e-5 if xdt == torch.float32 else 1e-2
     assert _rel_err(y, W4.w4a16_matmul_plain(x, qt)) <= tol
+
+
+@pytest.mark.parametrize("xdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("t,ci,co,g", [(16, 256, 96, 32), (21, 512, 200, 128),
+                                       (33, 96, 112, 16), (64, 4096, 11008, 128),
+                                       (512, 11008, 4096, 128)])
+def test_w4a8_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
+    gen = torch.Generator(device=dev).manual_seed(t + co + 1)
+    w = torch.randn(ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=g, dtype=sdt)
+    zeros = qt.zeros.clone()              # a group whose fold needs the clip
+    zeros[0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
+    qt = dataclasses.replace(qt, zeros=zeros)
+    x = torch.randn(t, ci, generator=gen, device=dev).to(xdt)
+    before = W4.w4a8_matmul_cuda.launches
+    y = ops.w4a16_matmul(x, qt, act="a8")
+    torch.cuda.synchronize()
+    assert W4.w4a8_matmul_cuda.launches == before + 1
+    assert y.dtype == xdt and tuple(y.shape) == (t, co)
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y, W4.w4a8_matmul_plain(x, qt)) <= tol
+
+
+def test_a8_gate_on_the_card(dev):
+    w = torch.randn(256, 64, device=dev) * 256 ** -0.5
+    qt = quantize(w, group_size=32)
+    x = torch.randn(16, 256, device=dev)
+    K.reset_launch_counts()
+    ops.w4a16_matmul(x[:15], qt, act="a8")                       # decode-sized
+    ops.w4a16_matmul(x, dataclasses.replace(qt, a8=False), act="a8")
+    ops.w4a16_matmul(x, qt, act="a8")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert (counts["w4a16_matmul"], counts["w4a8_matmul"]) == (2, 1)
 
 
 def _paged(dev, dt, b, grp, lengths, ps=16, hkv=4, dh=128, pages=5, seed=0):
@@ -111,6 +151,68 @@ def test_prefill_kernel_matches_plain(dev, dt, grp, t):
                                 _poison_trash(vp), table, prefix, chunk,
                                 sm_scale=128 ** -0.5)
     torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= 1e-5
+    assert not out[4].any()
+
+
+def _int8_paged(dev, b, lengths, seed, ps=16, hkv=4, dh=128, pages=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kp, vp, table = _paged(dev, torch.float32, b, 1, lengths, ps, hkv, dh,
+                           pages, seed)
+    kq = torch.randint(-127, 128, kp.shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, vp.shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(kp.shape[:3], generator=gen, device=dev) * 0.03 + 1e-3
+    vs = torch.rand(kp.shape[:3], generator=gen, device=dev) * 0.03 + 1e-3
+    return kq, vq, ks, vs, table
+
+
+def _poison_int8(codes, scales):
+    bad_c, bad_s = codes.clone(), scales.clone()
+    bad_c[0] = -128                       # 0x80
+    bad_s[0] = float("nan")
+    return bad_c, bad_s
+
+
+@pytest.mark.parametrize("grp", [1, 3, 8])
+def test_int8_decode_kernel_matches_plain(dev, grp):
+    lengths = torch.tensor([1, 17, 80, 33, 0], dtype=torch.int32, device=dev)
+    b = len(lengths)
+    kq, vq, ks, vs, table = _int8_paged(dev, b, lengths.tolist(), 40 + grp)
+    q = torch.randn(b, 4, grp, 128, device=dev)
+    ref = PA.gqa_paged_attention_plain(q, kq, vq, table, lengths, ks, vs,
+                                       sm_scale=128 ** -0.5)
+    (kb, ksb), (vb, vsb) = _poison_int8(kq, ks), _poison_int8(vq, vs)
+    before = PA.gqa_paged_attention_int8_cuda.launches
+    out = ops.gqa_paged_attention(q, kb, vb, table, lengths, ksb, vsb,
+                                  sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert PA.gqa_paged_attention_int8_cuda.launches == before + 1
+    assert _rel_err(out, ref) <= 1e-5
+    assert not out[-1].any()
+
+
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grp,t", [(1, 8), (3, 33), (1, 64)])
+def test_int8_prefill_kernel_matches_plain(dev, sdt, grp, t):
+    prefix = torch.tensor([0, 5, 16, 40, 0], dtype=torch.int32, device=dev)
+    chunk = torch.tensor([t, 3, t - 1, 0, 0], dtype=torch.int32, device=dev)
+    b = len(prefix)
+    kq, vq, ks, vs, table = _int8_paged(dev, b, (prefix + chunk).tolist(),
+                                        50 + grp)
+    gen = torch.Generator(device=dev).manual_seed(t + 1)
+    q = torch.randn(b, t, 4, grp, 128, generator=gen, device=dev)
+    k_suf = torch.randn(b, t, 4, 128, generator=gen, device=dev).to(sdt)
+    v_suf = torch.randn(b, t, 4, 128, generator=gen, device=dev).to(sdt)
+    ref = PA.gqa_paged_prefill_plain(q, k_suf, v_suf, kq, vq, table, prefix,
+                                     chunk, ks, vs, sm_scale=128 ** -0.5)
+    (kb, ksb), (vb, vsb) = _poison_int8(kq, ks), _poison_int8(vq, vs)
+    before = PA.gqa_paged_prefill_int8_cuda.launches
+    out = ops.gqa_paged_prefill(q, k_suf, v_suf, kb, vb, table, prefix,
+                                chunk, ksb, vsb, sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert PA.gqa_paged_prefill_int8_cuda.launches == before + 1
     assert _rel_err(out, ref) <= 1e-5
     assert not out[4].any()
 

@@ -172,9 +172,12 @@ def test_entry_points_raise_without_a_card(models):
 
 def test_unported_features_raise(models):
     _, tcfg, _ = models
-    for kw in (dict(kv_quant=True), dict(act_quant="a8_prefill"),
-               dict(attn_impl="flash"), dict(mixer="mla")):
+    for kw in (dict(attn_impl="flash"), dict(mixer="mla")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcfg.with_(**kw).check()
+    # int8 KV pools and W4A8 prefill are ported: check() accepts them
+    for kw in (dict(kv_quant=True), dict(act_quant="a8_prefill"),
+               dict(kv_quant=True, act_quant="a8_prefill")):
+        tcfg.with_(**kw).check()
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("deepseek-v2-236b")

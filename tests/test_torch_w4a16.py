@@ -62,11 +62,14 @@ def test_batched_leading_dims_and_a8_gate():
         y.reshape(6, 48).numpy(),
         TW4.w4a16_matmul_plain(torch.from_numpy(x), tqt).numpy(), rtol=1e-6,
         atol=1e-6)
-    # decode-sized A8 requests stay A16; prefill-sized ones need kernel B5
+    # decode-sized A8 requests stay A16; prefill-sized ones take B5's
+    # function (per-token int8 activations)
     assert torch.equal(TOPS.w4a16_matmul(tx, tqt, act="a8"), y)
-    big = torch.zeros(TOPS.A8_MIN_TOKENS, 128)
-    with pytest.raises(NotImplementedError, match="W4A8"):
-        TOPS.w4a16_matmul(big, tqt, act="a8")
+    big = torch.from_numpy(np.tile(x, (3, 1)))[:TOPS.A8_MIN_TOKENS]
+    assert torch.equal(TOPS.w4a16_matmul(big, tqt, act="a8"),
+                       TW4.w4a8_matmul_plain(big, tqt))
+    assert not torch.equal(TOPS.w4a16_matmul(big, tqt, act="a8"),
+                           TW4.w4a16_matmul_plain(big, tqt))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
