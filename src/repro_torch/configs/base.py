@@ -1,8 +1,8 @@
 """Model / quantization configuration dataclasses (port of
-``repro/configs/base.py``, dense path).
+``repro/configs/base.py``: the dense and MoE decoder families).
 
 The fields keep the reference's names and defaults so a config prints the
-same in both packages.  Features this slice has not ported yet stay as
+same in both packages.  Features the port has not covered yet stay as
 fields and raise :class:`NotImplementedError` in :meth:`ModelConfig.check`
 with the ``ROADMAP.md`` item that brings them.
 """
@@ -15,9 +15,19 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                      # per-expert FFN hidden dim
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense (others not ported yet)
+    family: str                        # dense | moe (others not ported yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -30,11 +40,15 @@ class ModelConfig:
     rope: str = "standard"
     rope_theta: float = 1e4
     norm: str = "rmsnorm"
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     attn_bias: bool = False
     dtype: str = "bfloat16"
     # int8 KV page pools with per-(position, head) f32 scales
     kv_quant: bool = False
+    # full-sequence attention (calibration, teacher-forced forward):
+    # "chunked" (online-softmax PyTorch ops) | "flash" (the causal flash
+    # kernel B4 for CUDA tensors, its plain version for CPU tensors)
     attn_impl: str = "chunked"
     # "auto": the paged-attention kernels for CUDA tensors, their plain
     # versions for CPU tensors; "gather": the dense page-gather oracle
@@ -63,25 +77,40 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def check(self) -> "ModelConfig":
-        """Raise for the features this slice of the port does not cover."""
-        if self.mixer != "attention" or self.family != "dense":
+        """Raise for the features the port does not cover yet."""
+        if self.mixer != "attention":
             raise NotImplementedError(
-                f"mixer={self.mixer!r}/family={self.family!r}: only the dense "
-                "attention decoder is ported (ROADMAP.md queue A items 7-8)")
-        if self.attn_impl != "chunked":
+                f"mixer={self.mixer!r}: only GQA attention is ported (MLA: "
+                "ROADMAP.md queue A item 7, kernels B8/B9; SSM mixers: queue "
+                "A item 8)")
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r}: the flash kernel is not "
-                "ported yet (ROADMAP.md queue B item 6, kernel B4)")
+                f"family={self.family!r}: only the dense and MoE decoders are "
+                "ported (hybrid, SSM and encoder-decoder: ROADMAP.md queue A "
+                "item 8)")
+        if (self.family == "moe") != (self.moe is not None):
+            raise ValueError(f"{self.name}: family={self.family!r} and "
+                             f"moe={self.moe!r} disagree")
+        if self.moe is not None and self.moe.num_shared_experts:
+            raise NotImplementedError(
+                f"{self.name}: shared experts (DeepSeek-V2) come with MLA "
+                "(ROADMAP.md queue A item 7)")
+        if self.moe is not None and self.moe.router_dtype != "float32":
+            raise NotImplementedError(
+                f"{self.name}: router_dtype={self.moe.router_dtype!r}: the "
+                "port's router computes in float32 only")
+        if self.attn_impl not in ("chunked", "flash"):
+            raise ValueError(f"attn_impl={self.attn_impl!r}: expected "
+                             "'chunked' or 'flash'")
         if self.paged_attn_impl not in ("auto", "gather"):
             raise ValueError(
                 f"paged_attn_impl={self.paged_attn_impl!r}: expected 'auto' "
                 "or 'gather'")
         if self.rope != "standard" or self.norm != "rmsnorm" \
-                or self.mlp != "swiglu" or self.tie_embeddings \
-                or self.attn_bias:
+                or self.mlp != "swiglu" or self.attn_bias:
             raise NotImplementedError(
                 f"{self.name}: only the Llama-style block (standard rope, "
-                "rmsnorm, swiglu, untied head, no biases) is ported")
+                "rmsnorm, swiglu, no biases) is ported")
         return self
 
 
@@ -90,6 +119,9 @@ class QuantConfig:
     enabled: bool = True
     group_size: int = 128
     skip_lm_head: bool = True
+    # the MoE router is a row compensation of smoothing, never quantized:
+    # False raises in quantize_params
+    skip_router: bool = True
     alpha: Optional[float] = None      # None → use searched value
     # W4A8 eligibility: a smoothing group whose worst post-smoothing
     # per-token int8 round-trip error exceeds this stays A16

@@ -6,7 +6,9 @@ is replaced by its :class:`QuantizedTensor` as soon as it is quantized, so
 the f32 7B model never exists twice and its fp linear weights are freed.
 The reference flags one ``a8`` per stacked ``[L, ...]`` tensor (one bad
 layer vetoes the stack); the port keeps one dict per layer and stamps that
-same flag on the path in every layer.  The PTQ artifact waits for a later
+same flag on the path in every layer.  MoE experts quantize as stacked
+``[E, Ci, Co]`` tensors (one flag per stack); the router is a row
+compensation of smoothing and stays fp.  The PTQ artifact waits for a later
 slice.
 """
 from __future__ import annotations
@@ -93,6 +95,10 @@ def quantize_params(params, cfg: ModelConfig, qcfg: QuantConfig, *,
     weight's ``a8`` flag, paths missing from it ineligible; ``None`` keeps
     the permissive default.  Returns (params, paths, fp_bytes,
     quant_bytes)."""
+    if not qcfg.skip_router:
+        raise NotImplementedError(
+            "skip_router=False: the port never quantizes the MoE router (it "
+            "is a row compensation of smoothing)")
     fp_bytes = quant_bytes = 0
     done = []
     for i, layer in enumerate(params["layers"]):

@@ -8,7 +8,10 @@ a registered weight.  Stats keys are the reference's:
 ``(("layers",), (layer_idx,), weight_subpath)``.  Beside the channel max
 |X| the collector keeps, per key, the worst per-token int8 round-trip error
 of the input (:func:`repro_torch.core.quantize.a8_roundtrip_error`), the
-W4A8 eligibility statistic.
+W4A8 eligibility statistic.  MoE expert inputs never pass through
+``apply_linear`` (they are grouped products over stacked weights), so
+``models/mlp.py:apply_moe`` taps the collector explicitly
+(:meth:`StatsCollector.record_explicit`) under the block's ``moe_key``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ class StatsCollector:
     # worst per-token int8 round-trip error, max over batches; meaningful on
     # the post-smoothing pass of ``apply.smoothquant_plus``
     a8_err: Dict[StatKey, float] = dataclasses.field(default_factory=dict)
+    # (block, layer_idx) of the block running now, for the MoE taps
+    moe_key: Optional[Tuple[Tuple[str, ...], Tuple[int, ...]]] = None
 
     def register_tree(self, block: Tuple[str, ...], lidx: Tuple[int, ...],
                       tree, path: Tuple[str, ...] = ()) -> None:
@@ -56,6 +61,20 @@ class StatsCollector:
         self.stats[key] = amax if prev is None else np.maximum(prev, amax)
         err = float(a8_roundtrip_error(x))
         self.a8_err[key] = max(self.a8_err.get(key, 0.0), err)
+
+    def record_explicit(self, subpath: Tuple[str, ...], amax: torch.Tensor,
+                        a8_err: Optional[torch.Tensor] = None) -> None:
+        """A stat the model reports itself (per-expert channel max
+        ``[E, Ci]``), keyed under the running block's ``moe_key``."""
+        if self.moe_key is None:
+            return
+        block, lidx = self.moe_key
+        key = (block, lidx, subpath)
+        amax = amax.to(torch.float32).cpu().numpy()
+        prev = self.stats.get(key)
+        self.stats[key] = amax if prev is None else np.maximum(prev, amax)
+        if a8_err is not None:
+            self.a8_err[key] = max(self.a8_err.get(key, 0.0), float(a8_err))
 
 
 def current_collector() -> Optional[StatsCollector]:
@@ -93,7 +112,9 @@ def _lm_pass(col: StatsCollector, params, cfg: ModelConfig, batch) -> None:
     x = L.apply_embedding(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
         col.register_tree(("layers",), (i,), lp)
+        col.moe_key = (("layers",), (i,))
         x = LM._block_forward(lp, x, pos, cfg)
+        col.moe_key = None
 
 
 def synthetic_calibration_set(cfg: ModelConfig, *, n_seqs: int = 8,

@@ -30,13 +30,14 @@ def _group_quant_loss(layer, i, cfg, col, group, alpha, group_size) -> float:
     act = SM.layer_stats(col, i, group.stats_sub)
     s = SM.compute_group_s(layer, cfg, act, group, alpha)
     dev = SM.tget(layer, group.weights[0]).device
-    st = torch.from_numpy(s).to(dev)[:, None]
-    x_hat = torch.from_numpy(act / s).to(dev)[:, None]
+    st = torch.from_numpy(s).to(dev)
+    x_hat = torch.from_numpy(act / s).to(dev)
     total = 0.0
     for wp in group.weights:
-        ws = SM.tget(layer, wp).to(torch.float32) * st
+        w = SM.tget(layer, wp).to(torch.float32)
+        ws = w * SM._align(st, w)
         err = ws - fake_quantize(ws, group_size)
-        total += float(((err * x_hat) ** 2).sum())
+        total += float(((err * SM._align(x_hat, w)) ** 2).sum())
     return total
 
 

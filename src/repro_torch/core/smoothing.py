@@ -1,5 +1,5 @@
 """SmoothQuant+ smoothing with exact fusion (port of
-``repro/core/smoothing.py``, dense groups).
+``repro/core/smoothing.py``: the dense and MoE decoder groups).
 
 For every smoothing group — linear weights sharing one input activation —
 ``s_j = max|X_j|^α / max|W_j|^(1-α)`` (paper eq. 6), ``W ← diag(s) W`` and
@@ -7,6 +7,12 @@ the matching ``1/s`` is fused into the activation's provider: the preceding
 RMSNorm scale (``"norm"``) or the preceding linear's output columns
 (``"linear_out"``).  ``tie="kv"`` reduces the o-proj's ``s`` (max) over each
 KV head's query group so it can fuse into ``wv``'s ``Hkv·Dh`` columns.
+``row_compensations`` are non-quantized consumers of the same activation
+(the MoE router): their rows are scaled by ``s`` so the model stays
+equivalent, but they are not quantized.  Stacked expert weights ``[E, Ci,
+Co]`` take the group's ``s`` per row: ``moe.in``'s ``s[Ci]`` (keyed by the
+router's input stat) is shared by the experts, ``moe.down``'s ``s[E, F]`` is
+per expert.
 
 Paths are relative to one layer's param dict; ``s`` is computed per layer
 with the reference's numpy arithmetic, so it matches it bit for bit given
@@ -40,6 +46,7 @@ class Group:
     weights: Tuple[Path, ...]       # quantized + smoothed (path to the tensor)
     provider: Provider
     stats_sub: Tuple[str, ...]      # collector weight subpath
+    row_compensations: Tuple[Path, ...] = ()
     tie: Optional[str] = None       # None | "kv"
 
 
@@ -60,8 +67,17 @@ def _attn_groups() -> List[Group]:
     ]
 
 
-def _mlp_groups() -> List[Group]:
+def _mlp_groups(cfg: ModelConfig) -> List[Group]:
     mlp = ("mlp",)
+    if cfg.moe is not None:
+        ex = mlp + ("experts",)
+        return [
+            Group("moe.in", (ex + ("gate",), ex + ("up",)),
+                  Provider("norm", ("norm2",)), mlp + ("router", "w"),
+                  row_compensations=(mlp + ("router", "w"),)),
+            Group("moe.down", (ex + ("down",),),
+                  Provider("linear_out", ex + ("up",)), ex + ("down",)),
+        ]
     return [
         Group("mlp.in", (mlp + ("gate", "w"), mlp + ("up", "w")),
               Provider("norm", ("norm2",)), mlp + ("gate", "w")),
@@ -72,7 +88,7 @@ def _mlp_groups() -> List[Group]:
 
 def smoothing_groups(cfg: ModelConfig) -> List[Group]:
     cfg.check()
-    return _attn_groups() + _mlp_groups()
+    return _attn_groups() + _mlp_groups(cfg)
 
 
 def layer_stats(col: StatsCollector, i: int, sub: Tuple[str, ...]
@@ -83,17 +99,30 @@ def layer_stats(col: StatsCollector, i: int, sub: Tuple[str, ...]
     return col.stats[key]
 
 
-def _w_absmax_in(w: torch.Tensor) -> np.ndarray:
-    """max_j |W[i, j]| per input row."""
-    return w.to(torch.float32).abs().amax(dim=-1).cpu().numpy()
+def _w_absmax_in(w: torch.Tensor, stat_shape: Tuple[int, ...]
+                 ) -> np.ndarray:
+    """max_j |W[..., i, j]| per input row, reduced to ``stat_shape`` (the
+    experts' max for a stat shared by a stacked weight)."""
+    a = w.to(torch.float32).abs().amax(dim=-1)
+    while a.ndim > len(stat_shape):        # reduce extra lead dims (E)
+        a = a.amax(dim=a.ndim - 2)
+    return a.cpu().numpy()
+
+
+def _align(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Broadcast ``s[*stat_lead, Ci]`` against ``w[*w_lead, Ci, Co]``
+    rows."""
+    extra = w.ndim - 1 - s.ndim
+    return s.reshape(*s.shape[:-1], *([1] * extra), s.shape[-1], 1)
 
 
 def compute_group_s(layer, cfg: ModelConfig, act: np.ndarray, group: Group,
                     alpha: float) -> np.ndarray:
-    """Smoothing factors ``s[Ci]`` for one group of one layer."""
+    """Smoothing factors ``s[*stat_lead, Ci]`` for one group of one layer
+    (``[Ci]``, or ``[E, F]`` for ``moe.down``)."""
     wmax = None
     for wp in group.weights:
-        wm = _w_absmax_in(tget(layer, wp))
+        wm = _w_absmax_in(tget(layer, wp), act.shape)
         wmax = wm if wmax is None else np.maximum(wmax, wm)
     eps = 1e-8
     s = np.power(np.maximum(act, eps), alpha) / np.power(
@@ -118,11 +147,13 @@ def _scale_(w: torch.Tensor, factor: torch.Tensor, divide: bool) -> None:
 
 
 def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
-    """Scale the group's weight rows by s and fuse 1/s into the provider."""
+    """Scale the group's weight rows (and its row compensations) by s and
+    fuse 1/s into the provider."""
     dev = tget(layer, group.weights[0]).device
     st = torch.from_numpy(s).to(dev)
-    for wp in group.weights:
-        _scale_(tget(layer, wp), st[:, None], divide=False)
+    for wp in group.weights + group.row_compensations:
+        w = tget(layer, wp)
+        _scale_(w, _align(st, w), divide=False)
     s_prov = s
     if group.tie == "kv":
         # s is constant over each KV head's query group; the provider (wv)
@@ -135,7 +166,10 @@ def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
     if group.provider.kind == "norm":
         _scale_(tget(layer, group.provider.path)["scale"], sp, divide=True)
     elif group.provider.kind == "linear_out":
-        _scale_(tget(layer, group.provider.path), sp[None, :], divide=True)
+        # columns of [*lead, Ci, Co] (per expert for stacked weights)
+        w = tget(layer, group.provider.path)
+        _scale_(w, sp.reshape(*sp.shape[:-1], *([1] * (w.ndim - 1 - sp.ndim)),
+                              1, sp.shape[-1]), divide=True)
     else:
         raise ValueError(group.provider.kind)
 

@@ -4,7 +4,9 @@ PyTorch versions beside them; ``ops.py`` dispatches by device.
 Each CUDA wrapper keeps a plain ``launches`` counter that it bumps only where
 it launches its kernel, so a run can show that a path went through them.
 """
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import w4a16_grouped as _w4g
 from repro_torch.kernels import w4a16_matmul as _w4
 
 #: kernel name → CUDA wrapper carrying the ``launches`` counter
@@ -15,6 +17,9 @@ WRAPPERS = {
     "w4a8_matmul": _w4.w4a8_matmul_cuda,
     "gqa_paged_decode_int8": _pa.gqa_paged_attention_int8_cuda,
     "gqa_paged_prefill_int8": _pa.gqa_paged_prefill_int8_cuda,
+    "w4a16_grouped": _w4g.w4a16_grouped_cuda,
+    "w4a8_grouped": _w4g.w4a8_grouped_cuda,
+    "flash_attention": _fa.flash_attention_cuda,
 }
 
 

@@ -1,0 +1,106 @@
+"""B4: flash attention over a full sequence — the CUDA kernel's wrapper and
+its plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:_kernel``
+(source ``csrc/flash_attention.cu``, whose header says what bounds it on the
+card).  ``cfg.attn_impl="flash"`` routes full-sequence attention here (the
+calibration passes of quantize-on-load and the teacher-forced forward).
+
+Contract, the reference's: ``q[B, T, H, D]``, ``k/v[B, S, Hkv, D]``, query
+head ``h`` reads KV head ``h // (H / Hkv)``, scale ``D**-0.5``; when
+``causal``, key ``j`` is valid for query ``t`` iff ``j <= t`` (index
+positions).  The output has q's dtype, from f32 softmax state, and is
+``acc / max(l, 1e-30)``.  As in the reference, non-causal attention needs S
+to be a multiple of the KV block ``min(512, S)``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build as B
+
+NEG_INF = -1e30
+DEFAULT_BLOCK_KV = 512   # the reference's KV block (non-causal contract)
+_DTYPES = {torch.float32: B.DTYPE_F32, torch.bfloat16: B.DTYPE_BF16}
+_HEAD_DIMS = (16, 32, 64, 128)     # csrc instances
+
+
+def _check_contract(q, k, v, causal: bool) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"flash attention takes q[B,T,H,D] and k/v[B,S,Hkv,"
+                         f"D], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    t, h = q.shape[1], q.shape[2]
+    s, hkv = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"H={h} not a multiple of Hkv={hkv}")
+    if causal and s < t:
+        raise ValueError(f"causal flash attention needs S >= T, got S={s} "
+                         f"T={t}")
+    if not causal and s % min(DEFAULT_BLOCK_KV, s):
+        raise ValueError("non-causal flash requires S divisible by block_kv")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """One masked softmax over all keys in f32 (masked scores -1e30 weigh
+    exactly 0), ``acc / max(l, 1e-30)``, in q's dtype."""
+    _check_contract(q, k, v, causal)
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).reshape(b, t, hkv, h // hkv, d)
+    sc = torch.einsum("bthgd,bshd->bhgts", qf, k.to(torch.float32)) \
+        * d ** -0.5
+    if causal:
+        valid = torch.arange(s, device=q.device)[None, :] \
+            <= torch.arange(t, device=q.device)[:, None]
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+    else:
+        valid = torch.ones(t, s, dtype=torch.bool, device=q.device)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(sc - m), torch.zeros_like(sc))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgts,bshd->bthgd", p, v.to(torch.float32)) \
+        / torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+_C, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C]
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Launch B4 on ``q``'s device (current stream).  Raises on anything the
+    kernel does not take; never falls back to the plain version."""
+    name = "flash_attention_cuda"
+    _check_contract(q, k, v, causal)
+    if not q.is_cuda or k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: q, k, v must be CUDA tensors on one "
+                         "device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k, v must share one of f32/bf16, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k, v must be contiguous")
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
+    if hkv > 65535 or b > 65535:
+        raise ValueError(f"{name}: B={b} / Hkv={hkv} exceed the grid")
+    out = torch.empty_like(q)
+    if b == 0 or t == 0:
+        return out
+    err = B.cfunc("flash_attention", _ARGS)(
+        B.vp(q), B.vp(k), B.vp(v), B.vp(out), _DTYPES[q.dtype], b, t, s, hkv,
+        h // hkv, d, float(d ** -0.5), int(causal), B.stream_ptr(q.device))
+    B.check(err, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

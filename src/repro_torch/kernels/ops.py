@@ -12,7 +12,9 @@ import math
 import torch
 
 from repro_torch.core.quantize import QuantizedTensor
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import w4a16_grouped as _w4g
 from repro_torch.kernels import w4a16_matmul as _w4
 
 # W4A8 token-count gate, kept from the reference: below this many rows the
@@ -45,6 +47,32 @@ def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     if _route(x) == "cpu":
         return (_w4.w4a8_matmul_plain if a8 else _w4.w4a16_matmul_plain)(x, qt)
     return (_w4.w4a8_matmul_cuda if a8 else _w4.w4a16_matmul_cuda)(x, qt)
+
+
+def w4a16_grouped_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+                         act: str = "a16") -> torch.Tensor:
+    """Expert-batched contraction ``x[E, C, D] @ dequant(qt)[E, D, F]``: B6,
+    or B7 where :func:`_resolve_act` grants A8 with the per-expert row count
+    ``C`` as the token count (decode's capacity stays A16)."""
+    if qt.ndim != 3:
+        raise ValueError(f"grouped matmul needs stacked [E, Ci, Co] weights; "
+                         f"got {qt.shape}")
+    if x.ndim != 3:
+        raise ValueError(f"expected x[E, C, D], got shape {tuple(x.shape)}")
+    a8 = _resolve_act(act, qt, x.shape[1]) == "a8"
+    if _route(x) == "cpu":
+        return (_w4g.w4a8_grouped_plain if a8
+                else _w4g.w4a16_grouped_plain)(x, qt)
+    return (_w4g.w4a8_grouped_cuda if a8 else _w4g.w4a16_grouped_cuda)(x, qt)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (B4): q[B,T,H,D], k/v[B,S,Hkv,D] → [B,T,H,D]
+    in q's dtype."""
+    if _route(q) == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal)
 
 
 def gqa_paged_attention(q, k_pool, v_pool, table, lengths, k_scale=None,

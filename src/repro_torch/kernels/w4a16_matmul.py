@@ -36,13 +36,14 @@ def w4a16_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 def _folded_int_codes(qt: QuantizedTensor) -> torch.Tensor:
-    """Zero-folded integer weight codes ``[G#, G, Co]`` (f32, integer
-    valued): ``clip(code − round(zero), −128, 127)``, as B5 folds them."""
+    """Zero-folded integer weight codes ``[*lead, G#, G, Co]`` (f32, integer
+    valued): ``clip(code − round(zero), −128, 127)``, as B5/B7 fold them."""
     q = unpack_codes(qt.packed, qt.group_size).to(torch.float32)
-    ci, co = q.shape
+    *lead, ci, co = q.shape
     g = qt.scales.shape[-2]
     z = torch.round(qt.zeros.to(torch.float32))
-    return torch.clamp(q.reshape(g, ci // g, co) - z[:, None, :], -128, 127)
+    return torch.clamp(q.reshape(*lead, g, ci // g, co) - z[..., None, :],
+                       -128, 127)
 
 
 def w4a8_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -65,13 +66,20 @@ _W4A8_ARGS = [_C, _C, _C, _C, _C, _I, _C, _I, _I, _I, _I, _I, _C]
 
 
 def _check_operands(name: str, x: torch.Tensor, qt: QuantizedTensor,
-                    group_multiple: int) -> int:
-    """Raise on anything K1/B5 do not take; returns the token count."""
+                    group_multiple: int, stacked: bool = False) -> int:
+    """Raise on anything K1/B5 (a 2-D weight, ``x[..., Ci]``) or B6/B7 (a
+    stacked ``[E, Ci, Co]`` weight, ``x[E, C, Ci]``) do not take; returns
+    the row count of ``x``."""
     if not x.is_cuda or qt.packed.device != x.device \
             or qt.scales.device != x.device or qt.zeros.device != x.device:
         raise ValueError(f"{name}: x and the weight must be CUDA tensors on "
                          "one device")
-    if qt.ndim != 2:
+    if stacked:
+        if qt.ndim != 3 or x.ndim != 3 or x.shape[0] != qt.shape[0]:
+            raise ValueError(f"{name} takes x[E, C, Ci] and a stacked "
+                             f"[E, Ci, Co] weight, got {tuple(x.shape)} and "
+                             f"{qt.shape}")
+    elif qt.ndim != 2:
         raise ValueError(f"{name} takes a 2-D weight, got {qt.shape}")
     if x.dtype not in _DTYPES or qt.scales.dtype not in _DTYPES \
             or qt.zeros.dtype != qt.scales.dtype \
@@ -80,7 +88,7 @@ def _check_operands(name: str, x: torch.Tensor, qt: QuantizedTensor,
             f"{name}: unsupported dtypes x={x.dtype} "
             f"packed={qt.packed.dtype} scales={qt.scales.dtype} "
             f"zeros={qt.zeros.dtype}")
-    ci, co = qt.shape
+    ci, co = qt.shape[-2:]
     g = qt.group_size
     if x.shape[-1] != ci:
         raise ValueError(f"x Ci={x.shape[-1]} != weight Ci={ci}")
@@ -96,8 +104,11 @@ def _check_operands(name: str, x: torch.Tensor, qt: QuantizedTensor,
     if qt.packed.data_ptr() % 4:
         raise ValueError(f"{name}: packed is not 4-byte aligned")
     t = x.numel() // ci
-    if t > _T_TILE * _MAX_GRID_Y:
-        raise ValueError(f"{name}: T={t} exceeds the grid")
+    # the grid's y axis: one block row per 8 rows (per expert when stacked)
+    tiles = (qt.shape[0] * -(-x.shape[1] // _T_TILE) if stacked
+             else -(-t // _T_TILE))
+    if tiles > _MAX_GRID_Y:
+        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid")
     return t
 
 

@@ -11,7 +11,11 @@ group size 128 (16 under ``--smoke``).  TF32 is off for matmuls and
 convolutions, so f32 work is full f32.  ``--act-quant a8_prefill`` runs
 prefill-chunk GEMMs of A8-eligible layers on per-token int8 activations
 (decode stays A16).  ``main`` returns the engine, the
-requests and the timings for callers that drive it as a library.
+requests and the timings for callers that drive it as a library; such a
+caller may pass ``attn_impl="flash"``, which, as in the JAX CLI, has no
+flag.  Serve
+the Granite MoE on the CPU with ``--arch granite-moe-1b-a400m --smoke
+--device cpu``.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, attn_impl=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="codellama-7b")
     ap.add_argument("--smoke", action="store_true")
@@ -73,6 +77,8 @@ def main(argv=None) -> dict:
         print(f"[kernels] built in {_build.build_all():.1f}s")
     cfg = get_config(args.arch, smoke=args.smoke).with_(
         act_quant=args.act_quant)
+    if attn_impl is not None:
+        cfg = cfg.with_(attn_impl=attn_impl)
     if not args.no_quant:
         cfg = cfg.with_(dtype="float32")      # PTQ math in f32
     t0 = time.perf_counter()
@@ -80,7 +86,7 @@ def main(argv=None) -> dict:
     _sync(device)
     boot_s = time.perf_counter() - t0
 
-    rep, ptq_s = None, 0.0
+    rep, ptq_s, calib = None, 0.0, []
     if not args.no_quant:
         gs = args.group_size or (16 if args.smoke else 128)
         calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
@@ -132,7 +138,8 @@ def main(argv=None) -> dict:
           f"{st.grown_pages} pages grown lazily, "
           f"free={eng.pager.free_pages}/{eng.pager.num_pages - 1}")
     return {"engine": eng, "requests": reqs, "report": rep, "cfg": cfg,
-            "boot_s": boot_s, "ptq_s": ptq_s, "serve_s": dt, "ttft_s": ttft}
+            "boot_s": boot_s, "ptq_s": ptq_s, "serve_s": dt, "ttft_s": ttft,
+            "calib_batches": len(calib)}
 
 
 if __name__ == "__main__":

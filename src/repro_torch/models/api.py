@@ -1,4 +1,4 @@
-"""Model facade, dense subset (port of ``repro/models/api.py``).
+"""Model facade, decoder-only subset (port of ``repro/models/api.py``).
 
 ``init_model`` defaults to the GPU and raises when there is no card; pass
 ``device="cpu"`` explicitly to build on the CPU.
@@ -18,6 +18,11 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return LM.init_lm(gen, cfg.check())
+
+
+def forward_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Teacher-forced logits ``[B, T, V]`` f32 of ``batch["tokens"]``."""
+    return LM.lm_forward(params, batch["tokens"], cfg)
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,

@@ -93,12 +93,22 @@ def chunked_attention(q, k, v, q_pos, k_pos, k_valid=None, *,
     return torch.cat(outs, dim=1).reshape(b, t, h, dv).to(q.dtype)
 
 
+def _full_attention(q, k, v, positions, cfg: ModelConfig, causal: bool):
+    """Full-sequence attention: the flash kernel (B4) under
+    ``cfg.attn_impl="flash"`` (index positions, as the reference's kernel),
+    else the chunked online-softmax PyTorch path."""
+    if cfg.attn_impl == "flash":
+        return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal)
+    return chunked_attention(q, k, v, positions, positions, causal=causal)
+
+
 def gqa_prefill(p, x, positions, cfg: ModelConfig, *, causal: bool = True
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention (calibration / teacher-forced forward)."""
     b, t, _ = x.shape
     q, k, v = _qkv(p, x, positions, cfg)
-    out = chunked_attention(q, k, v, positions, positions, causal=causal)
+    out = _full_attention(q, k, v, positions, cfg, causal)
     y = L.apply_linear(p["wo"], out.reshape(b, t, -1), act=cfg.act_kernel)
     lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
     return y, {"k": k, "v": v, "lens": lens}

@@ -1,4 +1,4 @@
-"""Primitive layers (port of ``repro/models/layers.py``, dense subset).
+"""Primitive layers (port of ``repro/models/layers.py``, the decoder subset).
 
 A linear parameter is ``{"w": Tensor[Ci, Co]}`` or, after SmoothQuant+ PTQ,
 ``{"w": QuantizedTensor}``; :func:`apply_linear` dispatches on the leaf type,
@@ -61,6 +61,13 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
 
 def apply_embedding(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens.long()]
+
+
+def logits_from_embedding(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied head: ``x @ table.T`` with f32 products and sums (the
+    reference's ``preferred_element_type=f32``)."""
+    return torch.matmul(x.to(torch.float32),
+                        p["table"].to(x.dtype).to(torch.float32).T)
 
 
 # ------------------------------------------------------------------ RoPE ----

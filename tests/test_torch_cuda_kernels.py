@@ -1,13 +1,13 @@
 """The port's CUDA kernels (K1 W4A16 GEMM, B5 W4A8 GEMM, K2 paged decode and
-K3 paged chunked prefill, fp and int8 pools) against their plain PyTorch
-versions on the card.
+K3 paged chunked prefill, fp and int8 pools, B6/B7 grouped expert GEMMs, B4
+flash attention) against their plain PyTorch versions on the card.
 
 Marked ``cuda``: skipped where there is no GPU.  Run on the GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 Tolerances, relative to the largest |reference| value: f32 outputs 1e-5
-(sums in another order); K1/B5 with bf16 activations 1e-2 (the output is
-rounded to bf16).  Dead table entries point at a trash page filled with NaN
+(sums in another order); K1/B5/B6/B7 and B4 with bf16 activations 1e-2
+(the output is rounded to bf16).  Dead table entries point at a trash page filled with NaN
 (int8 pools: codes -128 and NaN scales): the kernels must never read it (the
 plain versions are given a clean copy).
 """
@@ -20,8 +20,10 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.core.quantize import quantize
 from repro_torch.device import strict_fp32_matmul
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import w4a16_grouped as W4G
 from repro_torch.kernels import w4a16_matmul as W4
 
 pytestmark = pytest.mark.cuda
@@ -215,6 +217,75 @@ def test_int8_prefill_kernel_matches_plain(dev, sdt, grp, t):
     assert PA.gqa_paged_prefill_int8_cuda.launches == before + 1
     assert _rel_err(out, ref) <= 1e-5
     assert not out[4].any()
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("xdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("e,c,ci,co,g", [(3, 21, 96, 48, 48),
+                                         (32, 8, 1024, 512, 128),
+                                         (32, 40, 512, 1024, 128),
+                                         (4, 17, 256, 200, 32)])
+def test_grouped_kernels_match_plain(dev, e, c, ci, co, g, xdt, sdt, a8):
+    """B6 (a8=False) and B7 with ragged zero capacity rows, which must come
+    out exactly zero; B7 with a group whose zero fold needs the clip."""
+    gen = torch.Generator(device=dev).manual_seed(e + c + co)
+    w = torch.randn(e, ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=g, dtype=sdt)
+    if a8:
+        zeros = qt.zeros.clone()
+        zeros[0, 0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
+        qt = dataclasses.replace(qt, zeros=zeros)
+    x = torch.randn(e, c, ci, generator=gen, device=dev)
+    filled = torch.randint(0, c + 1, (e,), generator=gen, device=dev)
+    x = torch.where(torch.arange(c, device=dev)[None, :, None]
+                    < filled[:, None, None], x, 0.0).to(xdt)
+    kern = W4G.w4a8_grouped_cuda if a8 else W4G.w4a16_grouped_cuda
+    plain = W4G.w4a8_grouped_plain if a8 else W4G.w4a16_grouped_plain
+    before = kern.launches
+    y = kern(x, qt)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert y.dtype == xdt and tuple(y.shape) == (e, c, co)
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y, plain(x, qt)) <= tol
+    for i, n in enumerate(filled.tolist()):
+        assert not y[i, n:].any()
+
+
+def test_grouped_gate_on_the_card(dev):
+    w = torch.randn(4, 256, 64, device=dev) * 256 ** -0.5
+    qt = quantize(w, group_size=32)
+    x = torch.randn(4, 16, 256, device=dev)
+    K.reset_launch_counts()
+    ops.w4a16_grouped_matmul(x[:, :15].contiguous(), qt, act="a8")
+    ops.w4a16_grouped_matmul(x, dataclasses.replace(qt, a8=False), act="a8")
+    ops.w4a16_grouped_matmul(x, qt, act="a8")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert (counts["w4a16_grouped"], counts["w4a8_grouped"]) == (2, 1)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,hkv,d,causal", [
+    (2, 37, 4, 2, 16, True), (1, 64, 16, 8, 64, True),
+    (1, 300, 32, 32, 128, True), (2, 129, 6, 2, 32, True),
+    (1, 1, 4, 1, 64, True), (1, 128, 16, 8, 64, False),
+    (1, 1024, 8, 4, 64, False)])
+def test_flash_kernel_matches_plain(dev, dt, b, t, h, hkv, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(t + h)
+    q = torch.randn(b, t, h, d, generator=gen, device=dev).to(dt)
+    k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dt)
+    v = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dt)
+    before = FA.flash_attention_cuda.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    assert _rel_err(out, FA.flash_attention_plain(q, k, v, causal=causal)) \
+        <= tol
 
 
 def test_launch_counters_reset(dev):

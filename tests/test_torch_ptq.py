@@ -111,3 +111,66 @@ def test_smoothquant_plus_end_to_end(ref):
     np.testing.assert_allclose(TLM.lm_forward(sm, toks, tcfg).numpy(),
                                TLM.lm_forward(fp, toks, tcfg).numpy(),
                                atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------- granite MoE (smoke) -----
+@pytest.fixture(scope="module")
+def granite_ref():
+    jcfg = j_get_config("granite-moe-1b-a400m", smoke=True).with_(
+        dtype="float32")
+    jp = japi.init_model(jax.random.PRNGKey(0), jcfg)
+    np_params = jax.tree.map(np.asarray, jp)
+    batches = JC.synthetic_calibration_set(jcfg, n_seqs=2, seq_len=24)
+    jq, rep = JAP.smoothquant_plus(jp, jcfg, batches,
+                                   JQuantConfig(group_size=GROUP))
+    col = JC.collect_stats(jp, jcfg, batches)
+    _, s_map = JSM.smooth_model(jp, jcfg, col, rep.alpha)
+    return jcfg, np_params, jq, rep, s_map
+
+
+def test_granite_smoothquant_plus_matches(granite_ref):
+    """The MoE groups: moe.in (router stat, router rows compensated, never
+    quantized) and moe.down (per-expert s [E, F]) give the reference's α,
+    smoothing scales, A8 flags and int4 expert stacks."""
+    jcfg, np_params, jq, rep, s_map = granite_ref
+    tcfg = get_config("granite-moe-1b-a400m", smoke=True).with_(
+        dtype="float32")
+    batches = TC.synthetic_calibration_set(tcfg, n_seqs=2, seq_len=24)
+    tp = convert.from_reference(np_params)
+    col = TC.collect_stats(tp, tcfg, batches)
+    res = TS.search_alpha(tp, tcfg, col, group_size=GROUP)
+    assert res.alpha == rep.alpha
+    for a in rep.loss_curve:
+        np.testing.assert_allclose(res.losses[a], rep.loss_curve[a],
+                                   rtol=1e-4)
+    _, t_smap = TSM.smooth_model(convert.from_reference(np_params), tcfg,
+                                 col, res.alpha)
+    assert set(t_smap) == set(s_map) >= {"moe.in", "moe.down"}
+    assert t_smap["moe.down"].shape == (jcfg.num_layers, jcfg.moe.num_experts,
+                                        jcfg.moe.d_expert)
+    for name, s in s_map.items():
+        np.testing.assert_allclose(t_smap[name], s, rtol=1e-5)
+
+    tq, trep = TAP.smoothquant_plus(tp, tcfg, batches,
+                                    QuantConfig(group_size=GROUP))
+    assert trep.alpha == rep.alpha
+    assert trep.a8_eligibility == rep.a8_eligibility
+    for k, v in rep.a8_errors.items():
+        np.testing.assert_allclose(trep.a8_errors[k], v, rtol=1e-4)
+    assert trep.fp_bytes == rep.fp_bytes and trep.quant_bytes == rep.quant_bytes
+    for i, layer in enumerate(tq["layers"]):
+        router = layer["mlp"]["router"]["w"]
+        assert not isinstance(router, QuantizedTensor)
+        np.testing.assert_allclose(
+            router.numpy(), np.asarray(jq["layers"]["mlp"]["router"]["w"][i]),
+            rtol=1e-5, atol=1e-6)
+        for name in ("gate", "up", "down"):
+            qt = layer["mlp"]["experts"][name]
+            jqt = jq["layers"]["mlp"]["experts"][name]
+            assert isinstance(qt, QuantizedTensor) and qt.ndim == 3
+            a = unpack_codes(qt.packed, GROUP).numpy().astype(np.int16)
+            b = np.asarray(j_unpack(jqt.packed[i], GROUP)).astype(np.int16)
+            assert np.abs(a - b).max() <= 1
+            assert (a != b).mean() <= 1e-3
+            np.testing.assert_allclose(qt.scales.numpy(),
+                                       np.asarray(jqt.scales[i]), rtol=1e-5)

@@ -1,13 +1,19 @@
-"""Port parity for serving on the f32 codellama-7b smoke config:
+"""Port parity for serving on the f32 codellama-7b and granite-moe-1b-a400m
+smoke configs:
 
 - the port's engine emits the same greedy tokens as the JAX
   ``ServingEngine(backend="xla")`` with the same converted params and
-  prompts, fp and SmoothQuant+-quantized (token-for-token);
+  prompts, fp and SmoothQuant+-quantized (token-for-token); for granite each
+  package quantizes on load itself, under ``attn_impl`` "chunked" and
+  "flash", A16 and ``a8_prefill``;
+- ``launch/serve.py --arch granite-moe-1b-a400m --smoke --device cpu``
+  serves;
 - the port's engine matches the port's own unbatched greedy loop;
 - the pager keeps its invariants; the top-k / top-p masks equal the
   reference's; no ``repro_torch`` module imports ``jax`` or ``repro``;
 - with no card, the entry points raise instead of running on the CPU.
 """
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -78,6 +84,61 @@ def test_engine_matches_jax_engine_greedy(models, kind):
     jeng.run_until_drained()
     tp = convert.from_reference(jax.tree.map(np.asarray, jparams[kind]))
     assert _serve_port(tp, tcfg, prompts) == [r.output for r in jreqs]
+
+
+@pytest.fixture(scope="module")
+def granite_fp():
+    jcfg = j_get_config("granite-moe-1b-a400m", smoke=True).with_(
+        dtype="float32")
+    return jcfg, japi.init_model(jax.random.PRNGKey(0), jcfg)
+
+
+@pytest.mark.parametrize("attn_impl,act_quant", [
+    ("chunked", "a16"), ("flash", "a16"), ("chunked", "a8_prefill"),
+    ("flash", "a8_prefill")])
+def test_granite_engine_matches_jax_engine(granite_fp, attn_impl, act_quant):
+    """Granite MoE: each package quantizes its own copy on load (the
+    calibration passes run the flash kernel's plain version under
+    ``attn_impl="flash"``, the reference its Pallas kernel in interpret
+    mode), then serves; the greedy tokens are identical, A16 and A8."""
+    jcfg, jp = granite_fp
+    jimpl = "flash_interpret" if attn_impl == "flash" else "chunked"
+    jc = jcfg.with_(attn_impl=jimpl, act_quant=act_quant)
+    batches = JC.synthetic_calibration_set(jc, n_seqs=2, seq_len=24)
+    jq, jrep = JAP.smoothquant_plus(jp, jc, batches,
+                                    JQuantConfig(group_size=16))
+    prompts = _prompts(jcfg.vocab_size)
+    jeng = JE.ServingEngine(jq, jc, backend="xla", **ENGINE_KW)
+    jreqs = [JE.Request(uid=i, prompt=p, max_tokens=MAX_TOKENS)
+             for i, p in enumerate(prompts)]
+    for r in jreqs:
+        jeng.submit(r)
+    jeng.run_until_drained()
+
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.calibration import synthetic_calibration_set
+
+    tc = get_config("granite-moe-1b-a400m", smoke=True).with_(
+        dtype="float32", attn_impl=attn_impl, act_quant=act_quant)
+    tp = convert.from_reference(jax.tree.map(np.asarray, jp))
+    tq, trep = TE.load_or_quantize(tp, tc, synthetic_calibration_set(
+        tc, n_seqs=2, seq_len=24), QuantConfig(group_size=16))
+    assert trep.alpha == jrep.alpha
+    assert trep.a8_eligibility == jrep.a8_eligibility
+    assert _serve_port(tq, tc, prompts) == [r.output for r in jreqs]
+
+
+def test_serve_cli_granite_smoke_cpu():
+    from repro_torch.launch import serve
+
+    res = serve.main(["--arch", "granite-moe-1b-a400m", "--smoke", "--device",
+                      "cpu", "--requests", "5", "--batch-size", "2",
+                      "--max-seq", "32", "--act-quant", "a8_prefill"],
+                     attn_impl="flash")
+    assert res["cfg"].attn_impl == "flash" and res["cfg"].family == "moe"
+    assert all(r.finish_reason in ("completed", "length")
+               for r in res["requests"])
+    assert res["engine"].stats.completed == 5
 
 
 def test_engine_matches_unbatched_greedy_loop(models):
@@ -172,12 +233,25 @@ def test_entry_points_raise_without_a_card(models):
 
 def test_unported_features_raise(models):
     _, tcfg, _ = models
-    for kw in (dict(attn_impl="flash"), dict(mixer="mla")):
+    for kw in (dict(mixer="mla"), dict(family="hybrid"),
+               dict(family="audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcfg.with_(**kw).check()
-    # int8 KV pools and W4A8 prefill are ported: check() accepts them
+    # int8 KV pools, W4A8 prefill, the flash kernel and tied embeddings are
+    # ported: check() accepts them
     for kw in (dict(kv_quant=True), dict(act_quant="a8_prefill"),
-               dict(kv_quant=True, act_quant="a8_prefill")):
+               dict(kv_quant=True, act_quant="a8_prefill"),
+               dict(attn_impl="flash"), dict(tie_embeddings=True)):
         tcfg.with_(**kw).check()
+    gcfg = get_config("granite-moe-1b-a400m", smoke=True)
+    gcfg.with_(attn_impl="flash").check()
+    # the router stays f32 and is never quantized: other settings raise
+    with pytest.raises(NotImplementedError, match="router_dtype"):
+        gcfg.with_(moe=dataclasses.replace(
+            gcfg.moe, router_dtype="bfloat16")).check()
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.apply import quantize_params
+    with pytest.raises(NotImplementedError, match="skip_router"):
+        quantize_params({"layers": []}, gcfg, QuantConfig(skip_router=False))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("deepseek-v2-236b")
