@@ -10,8 +10,9 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    (one nvcc per source, in parallel);
 2. kernels — K1 (W4A16 GEMM), K2 (paged decode), K3 (paged chunked prefill),
    B5 (W4A8 GEMM), the int8-pool branches of K2/K3, B6/B7 (grouped W4A16 /
-   W4A8 expert GEMMs, ragged zero capacity rows) and B4 (flash attention)
-   against their plain PyTorch versions at the paths' shapes, with
+   W4A8 expert GEMMs, ragged zero capacity rows), B4 (flash attention) and
+   B8/B9 (absorbed MLA paged decode / chunked prefill, fp and int8 latent
+   pools) against their plain PyTorch versions at the paths' shapes, with
    CUDA-event times beside the plain version's, one PyTorch library call's
    (never used by the port) and the card's bound;
 3. paths — full width with random seeded weights, 8 requests (prompts of
@@ -37,6 +38,16 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    the prediction from the A8 flags, the chunk log and the calibration set;
    step checks (a)-(c) as path 2's, and (d) ``api.forward_fn`` on a
    2048-token sequence under flash against chunked (both A16);
+   path 4 — deepseek-v2-236b at full width, depth cut to 2 layers (MLA with
+   128 heads over a 512-wide latent, 160 routed experts top-6 beside 2
+   shared ones), SmoothQuant+ quantize-on-load in f32 (G=128) through the
+   library entry points, then the engine with ``max_prefill_tokens=128``,
+   A16, fp latent pools: prefill chunks run B9 over prefix pages, decode
+   runs B8, the absorbed ``wk_t``/``wv`` pair and the experts run B6, the
+   other linears K1; path 4b — a second engine over the same quantized
+   params with int8 latent pools (the int8 instances of B8/B9), the same
+   requests.  Each: launch counts equal to the prediction from the engine's
+   steps and prefill batches, operand checks, step check (a);
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -202,24 +213,25 @@ def check_b5():
                        W4.w4a8_matmul_plain, (64, 512), True)
 
 
-def _paged_inputs(b, hkv, lengths, kind, ps=16, seed=0):
-    """Pools for ``lengths`` (one trash page 0 + shuffled live pages) of
-    ``kind`` — f32, bf16, or int8 codes with f32 row scales: the plain
-    version's clean (k, v, k_scale, v_scale), the kernel's copy with the
-    trash page poisoned (NaN; int8: codes -128 and NaN scales), the table,
-    and the generator for the rest of the case."""
+def _paged_inputs(b, lengths, kind, rows, ps=16, seed=0):
+    """Two pools (K/V, or MLA's ckv/kpe) whose rows have the shapes ``rows``
+    for ``lengths`` (one trash page 0 + shuffled live pages) of ``kind`` —
+    f32, bf16, or int8 codes with f32 row scales: the plain version's clean
+    (pool, pool, scale, scale), the kernel's copy with the trash page
+    poisoned (NaN; int8: codes -128 and NaN scales), the table, and the
+    generator for the rest of the case."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     pages = [-(-n // ps) for n in lengths]
     n_pages = 1 + sum(pages)
-    shp = (n_pages, ps, hkv, 128)
+    shps = [(n_pages, ps, *r) for r in rows]
     if kind == torch.int8:
         clean = tuple(torch.randint(-127, 128, shp, generator=gen, device=DEV,
-                                    dtype=torch.int8) for _ in range(2)) \
-            + tuple(torch.rand(shp[:3], generator=gen, device=DEV) * 0.03
-                    + 1e-3 for _ in range(2))
+                                    dtype=torch.int8) for shp in shps) \
+            + tuple(torch.rand(shp[:-1], generator=gen, device=DEV) * 0.03
+                    + 1e-3 for shp in shps)
     else:
         clean = tuple(torch.randn(shp, generator=gen, device=DEV).to(kind)
-                      for _ in range(2)) + (None, None)
+                      for shp in shps) + (None, None)
     bad = tuple(None if t is None else t.clone() for t in clean)
     for t in bad:
         if t is not None:
@@ -244,7 +256,8 @@ def _dense(pool, scales, table, rows):
 
 
 def _row_bytes(pools):
-    """Bytes of one pool row and head, K and V (int8: with their scales)."""
+    """Bytes of one pool row (and head), K and V or ckv and kpe (int8: with
+    their scales)."""
     k, v, ks, _ = pools
     return k.shape[-1] * k.element_size() + v.shape[-1] * v.element_size() \
         + (8 if ks is not None else 0)
@@ -262,8 +275,8 @@ def check_k2():
     b, hkv = 4, 32
     for grp in (1, 8):
         for kind in (torch.float32, torch.bfloat16, torch.int8):
-            clean, bad, table, gen = _paged_inputs(b, hkv, lengths, kind,
-                                                   seed=grp)
+            clean, bad, table, gen = _paged_inputs(
+                b, lengths, kind, ((hkv, 128),) * 2, seed=grp)
             quant = kind == torch.int8
             name = "gqa_paged_decode_int8" if quant else "gqa_paged_decode"
             kern = (PA.gqa_paged_attention_int8_cuda if quant
@@ -318,8 +331,8 @@ def check_k3():
             chunk = [t, t - 7, t // 2, 1]
             for kind, sdt in kinds:
                 clean, bad, table, gen = _paged_inputs(
-                    b, hkv, [p + c for p, c in zip(prefix, chunk)], kind,
-                    seed=t + prefix[0])
+                    b, [p + c for p, c in zip(prefix, chunk)], kind,
+                    ((hkv, 128),) * 2, seed=t + prefix[0])
                 quant = kind == torch.int8
                 name = ("gqa_paged_prefill_int8" if quant
                         else "gqa_paged_prefill")
@@ -383,12 +396,55 @@ def check_k3():
     return rows
 
 
+def _grouped_case(q_, x, filled, a8, tag):
+    """One B6 (``a8=False``) or B7 case: the kernel on ``x`` [E, C, Ci]
+    whose rows ``filled[e]:`` are zero (their outputs must be exactly zero)
+    against its plain version, then timed over copies of the weights that
+    together exceed L2, beside the plain version and bf16 ``torch.bmm`` on
+    the dequantized weights (the library)."""
+    e, c, ci = x.shape
+    co, dt = q_.shape[-1], x.dtype
+    kern = W4G.w4a8_grouped_cuda if a8 else W4G.w4a16_grouped_cuda
+    plain = W4G.w4a8_grouped_plain if a8 else W4G.w4a16_grouped_plain
+    ref = plain(x, q_)
+    y = kern(x, q_)
+    torch.cuda.synchronize()
+    require(all(not y[i, n:].any() for i, n in enumerate(filled.tolist())),
+            f"{kern.__name__}: zero capacity rows not zero")
+    tol = (1e-5 if dt == torch.float32 else 1e-2) \
+        * max(1.0, float(ref.float().abs().max()))
+    n_copy = max(1, math.ceil(2 * L2_BYTES / q_.nbytes_quant()))
+    qts = [q_] + [q_.map(torch.clone) for _ in range(n_copy - 1)]
+    w_lib = dequantize(q_, torch.bfloat16)
+    libs = [w_lib] + [w_lib.clone() for _ in range(n_copy - 1)]
+    # B7's time is its wrapper's: activation quantization + kernel
+    ms = time_ms([lambda q=q: kern(x, q) for q in qts])
+    plain_ms = time_ms([lambda q=q: plain(x, q) for q in qts])
+    xb = x.to(torch.bfloat16)
+    lib = time_ms([lambda m=m: torch.bmm(xb, m) for m in libs])
+    el = x.element_size()
+    live = int(filled.sum())
+    nbytes = ((e * c * ci + e * c * 4) if a8 else e * c * ci * el) \
+        + q_.nbytes_quant() + e * c * co * el
+    bnd, by = bound(nbytes, 2.0 * live * ci * co, torch.int8 if a8 else dt)
+    name = "w4a8_grouped" if a8 else "w4a16_grouped"
+    case = (f"E={e} C={c} ({live} live rows) {ci}x{co} G=128"
+            f"{' clip-group' if a8 else ''} {str(dt)[6:]}{tag}")
+    return record(name, case, max_err(y, ref), tol, ms, plain_ms, lib, bnd,
+                  by)
+
+
 def check_grouped():
     """B6 and B7 at granite's expert shapes (E=32, d_model 1024, d_expert
     512: gate/up 1024x512, down 512x1024, G=128), f32 and bf16, at decode's
     capacity (C=8, B6 only: A8 needs 16 rows) and a 512-row prefill chunk's
     capacity, with ragged zero capacity rows (exactly zero outputs); B7 with
-    a group whose zero fold needs the clip."""
+    a group whose zero fold needs the clip.  Then B6 at path 4's shapes,
+    f32, every row live: deepseek-v2-236b's routed experts at decode's
+    capacity (E=160, C=6 of 4 tokens, 5120x1536 and 1536x5120) and the
+    absorbed MLA pair with the heads as experts (E=128: wk_t 128x512, one
+    quantization group along nope; wv 512x128) at decode (4 rows) and on a
+    128-token chunk."""
     print("B6/B7 w4a16_grouped / w4a8_grouped (replace repro/kernels/"
           "w4a16_grouped.py:_kernel / _kernel_a8)")
     from repro_torch.configs import get_config
@@ -405,46 +461,27 @@ def check_grouped():
             zeros = qt.zeros.clone()
             zeros[0, 0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
             qt8 = dataclasses.replace(qt, zeros=zeros)
-            n_copy = max(1, math.ceil(2 * L2_BYTES / qt.nbytes_quant()))
-            w_lib = dequantize(qt, torch.bfloat16)
             for c, a8 in ((8, False), (c_pre, False), (c_pre, True)):
-                q_ = qt8 if a8 else qt
-                qts = [q_] + [q_.map(torch.clone) for _ in range(n_copy - 1)]
-                libs = [w_lib] + [w_lib.clone() for _ in range(n_copy - 1)]
                 x = torch.randn(e, c, ci, generator=gen, device=DEV)
                 filled = torch.randint(c // 2, c + 1, (e,), generator=gen,
                                        device=DEV)
                 filled[0] = 0
                 x = torch.where(torch.arange(c, device=DEV)[None, :, None]
                                 < filled[:, None, None], x, 0.0).to(dt)
-                kern = W4G.w4a8_grouped_cuda if a8 else W4G.w4a16_grouped_cuda
-                plain = W4G.w4a8_grouped_plain if a8 \
-                    else W4G.w4a16_grouped_plain
-                ref = plain(x, q_)
-                y = kern(x, q_)
-                torch.cuda.synchronize()
-                require(all(not y[i, n:].any()
-                            for i, n in enumerate(filled.tolist())),
-                        f"{kern.__name__}: zero capacity rows not zero")
-                tol = (1e-5 if dt == torch.float32 else 1e-2) \
-                    * max(1.0, float(ref.float().abs().max()))
-                # B7's time is its wrapper's: activation quantization + kernel
-                ms = time_ms([lambda q=q: kern(x, q) for q in qts])
-                plain_ms = time_ms([lambda q=q: plain(x, q) for q in qts])
-                xb = x.to(torch.bfloat16)
-                lib = time_ms([lambda m=m: torch.bmm(xb, m) for m in libs])
-                el = x.element_size()
-                live = int(filled.sum())
-                nbytes = ((e * c * ci + e * c * 4) if a8 else e * c * ci * el) \
-                    + q_.nbytes_quant() + e * c * co * el
-                bnd, by = bound(nbytes, 2.0 * live * ci * co,
-                                torch.int8 if a8 else dt)
-                name = "w4a8_grouped" if a8 else "w4a16_grouped"
-                case = (f"E={e} C={c} ({live} live rows) {ci}x{co} G=128"
-                        f"{' clip-group' if a8 else ''} {str(dt)[6:]}")
-                rows[(a8, c, ci, dt)] = record(name, case, max_err(y, ref),
-                                               tol, ms, plain_ms, lib, bnd, by)
-                del qts, libs
+                rows[(a8, c, ci, dt)] = _grouped_case(qt8 if a8 else qt, x,
+                                                      filled, a8, "")
+    print("B6 w4a16_grouped at deepseek-v2-236b's shapes (path 4)")
+    for e, c, ci, co in ((160, 6, 5120, 1536), (160, 6, 1536, 5120),
+                         (128, 4, 128, 512), (128, 4, 512, 128),
+                         (128, 128, 128, 512), (128, 128, 512, 128)):
+        gen = torch.Generator(device=DEV).manual_seed(e + c + ci)
+        w = torch.randn(e, ci, co, generator=gen, device=DEV) * ci ** -0.5
+        qt = quantize(w, group_size=128, dtype=torch.float32)
+        del w
+        x = torch.randn(e, c, ci, generator=gen, device=DEV)
+        filled = torch.full((e,), c, device=DEV)
+        _grouped_case(qt, x, filled, False, " (deepseek)")
+        del qt, x
     return rows
 
 
@@ -488,6 +525,138 @@ def check_flash():
     return rows
 
 
+def _mla_dense(clean, table, rows):
+    """Gathered (dequantized) [B, 1, rows, r + dr] keys and [B, 1, rows, r]
+    values of the latent pools, for the library yardstick."""
+    ckv = PA._gather(clean[0], table)[:, :rows].float()
+    kpe = PA._gather(clean[1], table)[:, :rows].float()
+    if clean[2] is not None:
+        ckv = ckv * PA._gather(clean[2], table)[:, :rows, None]
+        kpe = kpe * PA._gather(clean[3], table)[:, :rows, None]
+    return (torch.cat([ckv, kpe], dim=-1)[:, None].contiguous(),
+            ckv[:, None].contiguous())
+
+
+def check_mla():
+    """B8 and B9 at path 4's full width (H=128 heads, r=512, dr=64, PS=16)
+    in f32, bf16 and int8 latent pools, the trash page poisoned: B8 at
+    decode lengths like path 4's, B9 on one 128-token chunk after a 128-token
+    prefix (the chunk budget of path 4) and on a ragged batch of 32-token
+    chunks.  Library: ``scaled_dot_product_attention`` over the gathered
+    dense rows, key ``[ckv || kpe]`` (576), value ``ckv`` (512), 128 query
+    heads on one KV head, in the case's fp type (int8 dequantized to f32)."""
+    print("B8/B9 mla_paged_decode / mla_paged_prefill (replace repro/kernels/"
+          "paged_attention.py:_mla_kernel / _mla_prefill_kernel; fp pools and "
+          "the int8 branch)")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, r, dr = 128, 512, 64
+    sc = (128 + 64) ** -0.5
+    rows = {}
+    lengths = [216, 150, 90, 33]
+    b = len(lengths)
+    for kind in (torch.float32, torch.bfloat16, torch.int8):
+        clean, bad, table, gen = _paged_inputs(b, lengths, kind,
+                                               ((r,), (dr,)), seed=11)
+        quant = kind == torch.int8
+        name = "mla_paged_decode_int8" if quant else "mla_paged_decode"
+        kern = (PA.mla_paged_attention_int8_cuda if quant
+                else PA.mla_paged_attention_cuda)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+        q_lat = torch.randn(b, h, r, generator=gen, device=DEV)
+        q_pe = torch.randn(b, h, dr, generator=gen, device=DEV)
+        kargs = (q_lat, q_pe, bad[0], bad[1], table, lens) + (
+            bad[2:] if quant else ())
+        pargs = (q_lat, q_pe, clean[0], clean[1], table, lens, *clean[2:])
+        ref = PA.mla_paged_attention_plain(*pargs, sm_scale=sc)
+        out = kern(*kargs, sm_scale=sc)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(out).all()), f"{name} read the trash page")
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
+        plain = time_ms([lambda: PA.mla_paged_attention_plain(
+            *pargs, sm_scale=sc)])
+        s = max(lengths)
+        kd, vd = _mla_dense(clean, table, s)
+        ldt = torch.float32 if quant else kind
+        kd, vd = kd.to(ldt), vd.to(ldt)
+        qd = torch.cat([q_lat, q_pe], dim=-1)[:, :, None].to(ldt)
+        mask = (torch.arange(s, device=DEV)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        lib = time_ms([lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sc,
+                                    enable_gqa=True)])
+        live = sum(lengths)
+        nbytes = ((q_lat.numel() + q_pe.numel()) * 4
+                  + live * _row_bytes(clean) + table.numel() * 4 + b * 4
+                  + out.numel() * 4)
+        flops = 2.0 * live * h * (2 * r + dr)
+        # int8 codes meet f32 queries: f32 arithmetic, f32 rate
+        bnd, by = bound(nbytes, flops, torch.float32 if quant else kind)
+        case = f"B=4 H=128 r=512 dr=64 lens={lengths} {_pool_label(kind)}"
+        rows[("decode", kind)] = record(name, case, max_err(out, ref), tol,
+                                        ms, plain, lib, bnd, by)
+    kinds = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.int8, torch.float32))
+    for t, prefix, chunk in ((128, [128], [128]),
+                             (32, [96, 50, 0, 0], [32, 29, 16, 1])):
+        b = len(prefix)
+        for kind, sdt in kinds:
+            clean, bad, table, gen = _paged_inputs(
+                b, [p + c for p, c in zip(prefix, chunk)], kind,
+                ((r,), (dr,)), seed=t + b)
+            quant = kind == torch.int8
+            name = "mla_paged_prefill_int8" if quant else "mla_paged_prefill"
+            kern = (PA.mla_paged_prefill_int8_cuda if quant
+                    else PA.mla_paged_prefill_cuda)
+            pl = torch.tensor(prefix, dtype=torch.int32, device=DEV)
+            cl = torch.tensor(chunk, dtype=torch.int32, device=DEV)
+            q_lat = torch.randn(b, t, h, r, generator=gen, device=DEV)
+            q_pe = torch.randn(b, t, h, dr, generator=gen, device=DEV)
+            c_suf = torch.randn(b, t, r, generator=gen, device=DEV).to(sdt)
+            k_suf = torch.randn(b, t, dr, generator=gen, device=DEV).to(sdt)
+            kargs = (q_lat, q_pe, c_suf, k_suf, bad[0], bad[1], table, pl,
+                     cl) + (bad[2:] if quant else ())
+            pargs = (q_lat, q_pe, c_suf, k_suf, clean[0], clean[1], table, pl,
+                     cl, *clean[2:])
+            ref = PA.mla_paged_prefill_plain(*pargs, sm_scale=sc)
+            out = kern(*kargs, sm_scale=sc)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(out).all()),
+                    f"{name} read the trash page")
+            tol = 1e-5 * max(1.0, float(ref.abs().max()))
+            ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
+            plain = time_ms([lambda: PA.mla_paged_prefill_plain(
+                *pargs, sm_scale=sc)])
+            s = max(prefix)
+            ldt = torch.float32 if quant else kind
+            kd, vd = _mla_dense(clean, table, s)
+            kd = torch.cat([kd, torch.cat([c_suf, k_suf], dim=-1).float()[
+                :, None]], dim=2).to(ldt)
+            vd = torch.cat([vd, c_suf.float()[:, None]], dim=2).to(ldt)
+            qd = torch.cat([q_lat, q_pe], dim=-1).permute(0, 2, 1, 3).to(ldt)
+            kv = torch.arange(s, device=DEV)
+            j = torch.arange(t, device=DEV)
+            pre = (kv[None, None, :] < pl.long()[:, None, None]).expand(
+                b, t, s)
+            suf = (j[None, None, :] <= j[None, :, None]) \
+                & (j[None, None, :] < cl.long()[:, None, None])
+            mask = torch.cat([pre, suf], dim=-1)[:, None]
+            lib = time_ms([lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sc,
+                                        enable_gqa=True)])
+            keys = sum(p * t + sum(min(i + 1, c) for i in range(t))
+                       for p, c in zip(prefix, chunk))
+            nbytes = ((q_lat.numel() + q_pe.numel()) * 4
+                      + (c_suf.numel() + k_suf.numel()) * c_suf.element_size()
+                      + sum(prefix) * _row_bytes(clean)
+                      + table.numel() * 4 + 2 * b * 4 + out.numel() * 4)
+            flops = 2.0 * keys * h * (2 * r + dr)
+            bnd, by = bound(nbytes, flops, torch.float32 if quant else kind)
+            case = (f"B={b} T={t} H=128 r=512 prefix={prefix} chunk={chunk} "
+                    f"{_pool_label(kind)}, {str(sdt)[6:]} suffix")
+            rows[("prefill", t, kind)] = record(
+                name, case, max_err(out, ref), tol, ms, plain, lib, bnd, by)
+    return rows
+
+
 # ------------------------------------------- kernels at the paths' shapes ---
 PLAIN = {
     "w4a16_matmul": W4.w4a16_matmul_plain,
@@ -499,7 +668,14 @@ PLAIN = {
     "w4a16_grouped": W4G.w4a16_grouped_plain,
     "w4a8_grouped": W4G.w4a8_grouped_plain,
     "flash_attention": FA.flash_attention_plain,
+    "mla_paged_decode": PA.mla_paged_attention_plain,
+    "mla_paged_decode_int8": PA.mla_paged_attention_plain,
+    "mla_paged_prefill": PA.mla_paged_prefill_plain,
+    "mla_paged_prefill_int8": PA.mla_paged_prefill_plain,
 }
+
+MLA_KERNELS = ("mla_paged_decode", "mla_paged_decode_int8",
+               "mla_paged_prefill", "mla_paged_prefill_int8")
 
 
 def _sig(a):
@@ -588,7 +764,21 @@ def check_path_operands(seen, label):
 
 # ------------------------------------------------------------- main path ---
 def dequantized_params(params):
+    """Every int4 weight dequantized to f32.  An MLA layer's absorbed pair is
+    grouped along other axes than ``wkv_b``, so ``wkv_b`` is rebuilt from the
+    dequantized pair (``w_k[r, H, nope]`` = ``wk_t`` moved back, ``w_v[r, H,
+    v]`` = ``wv`` swapped back, concatenated per head) and the pair dropped:
+    the fp branch of ``_mla_absorb_weights`` then contracts the values the
+    kernels saw."""
     def conv(node):
+        if isinstance(node, dict) and "wkv_b_absorbed" in node:
+            ab = node["wkv_b_absorbed"]
+            w_k = dequantize(ab["wk_t"], torch.float32).permute(2, 0, 1)
+            w_v = dequantize(ab["wv"], torch.float32).transpose(0, 1)
+            rest = {k: v for k, v in node.items() if k != "wkv_b_absorbed"}
+            rest["wkv_b"] = {"w": torch.cat([w_k, w_v], dim=-1).reshape(
+                w_k.shape[0], -1).contiguous()}
+            return conv(rest)
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, list):
@@ -628,17 +818,24 @@ def _decode_step(params, cfg, pool, table, prompt):
 def check_step_against_plain(params, cfg, ps, prompt):
     """One prefill chunk and one decode step through the kernels, against the
     same steps on the dequantized weights with the dense-gather oracle (each
-    over its own pools of ``cfg``'s kind: fp, or int8 under kv_quant)."""
+    over its own pools of ``cfg``'s kind: fp, or int8 under kv_quant).
+
+    With int8 pools the two prefills write their rows independently, so a
+    latent element near a rounding boundary can take neighbouring codes in
+    the two pools.  The codes that differ are counted, and the oracle's
+    decode step is run once more on a copy of the kernel side's own pool:
+    with the rows shared, the decode gap must fall to what the fp pools
+    show."""
     plain_params = dequantized_params(params)
-    logits = {}
-    for name, prm, c in (("kernel", params, cfg),
-                         ("plain", plain_params,
-                          cfg.with_(paged_attn_impl="gather",
-                                   attn_impl="chunked"))):
+    plain_cfg = cfg.with_(paged_attn_impl="gather", attn_impl="chunked")
+    logits, pools = {}, {}
+    for name, prm, c in (("kernel", params, cfg), ("plain", plain_params,
+                                                   plain_cfg)):
         pre, pool, table = _prefill_step(prm, c, ps, prompt)
+        pools[name] = [{k: v.clone() for k, v in lp.items()}
+                       for lp in pool["layers"]]
         logits[name] = (pre, _decode_step(prm, c, pool, table, prompt))
-    del plain_params
-    errs = []
+    errs = {}
     for i, step in enumerate(("prefill", "decode")):
         a, b = logits["kernel"][i], logits["plain"][i]
         require(bool(torch.isfinite(a).all()), f"{step} logits not finite")
@@ -648,7 +845,30 @@ def check_step_against_plain(params, cfg, ps, prompt):
               f"(tol {tol:.3g}), argmax {int(a.argmax())} vs "
               f"{int(b.argmax())}")
         require(err <= tol, f"{step} logits differ from the plain path")
-        errs.append(err)
+        errs[f"{step}_logit_err"] = err
+    if cfg.kv_quant:
+        n = len(prompt)
+        diff = tot = 0
+        for lk, lp in zip(pools["kernel"], pools["plain"]):
+            for k in (k for k, v in lk.items() if v.dtype == torch.int8):
+                a = lk[k].flatten(0, 1)[ps:ps + n]      # page 1 onwards
+                b = lp[k].flatten(0, 1)[ps:ps + n]
+                diff += int((a != b).sum())
+                tot += a.numel()
+                require(int((a.int() - b.int()).abs().max()) <= 1,
+                        f"int8 {k} codes differ by more than one step")
+        shared = _decode_step(plain_params, plain_cfg,
+                              {"layers": pools["kernel"]}, table, prompt)
+        err = max_err(logits["kernel"][1], shared)
+        tol = 2e-3 * max(1.0, float(shared.abs().max()))
+        print(f"  int8 codes differing between the two pools: {diff} of "
+              f"{tot}; decode step vs the oracle on the kernel side's own "
+              f"pool: max |diff| = {err:.3g} (tol {tol:.3g})")
+        require(err <= tol, "decode logits differ from the plain path on "
+                "the shared pool")
+        errs.update(decode_logit_err_shared_pool=err,
+                    int8_codes_differing=diff, int8_codes=tot)
+    del plain_params, pools
     return errs
 
 
@@ -727,7 +947,8 @@ def main_path():
     require(counts["gqa_paged_prefill"] == cfg.num_layers
             * st.prefill_batches, "K3 not launched once per layer per chunk")
     require(not any(counts[n] for n in ("w4a8_matmul", "w4a16_grouped",
-                                        "w4a8_grouped", "flash_attention")),
+                                        "w4a8_grouped", "flash_attention",
+                                        *MLA_KERNELS)),
             "path 1 launched a kernel of another path")
     tok_s = st.decoded_tokens / res["serve_s"]
     ttft = sorted(res["ttft_s"])
@@ -745,8 +966,7 @@ def main_path():
         prefilled_tokens=st.prefilled_tokens, serve_s=res["serve_s"],
         decode_tok_s=tok_s, ttft_s=ttft, ptq_s=res["ptq_s"],
         boot_s=res["boot_s"], alpha=res["report"].alpha,
-        peak_mem_bytes=peak, prefill_logit_err=errs[0],
-        decode_logit_err=errs[1], path_operands=operands)
+        peak_mem_bytes=peak, path_operands=operands, **errs)
     profile_decode(eng, reqs, "profile")
     return counts
 
@@ -797,8 +1017,7 @@ def path2_step_checks(params, cfg, ps, prompt):
     require(0.0 < rel <= lim, "(c) A8 prefill logits outside the limit")
     require(int(l8.argmax()) == int(l16.argmax()),
             "(c) A8 prefill picks another next token than A16")
-    return dict(prefill_logit_err=errs[0], decode_logit_err=errs[1],
-                a8_vs_a16_prefill_rel_l2=rel, a8_rel_bound=lim)
+    return dict(errs, a8_vs_a16_prefill_rel_l2=rel, a8_rel_bound=lim)
 
 
 def path2():
@@ -859,7 +1078,8 @@ def path2():
             "gqa_paged_decode_int8": nl * st.steps,
             "gqa_paged_prefill_int8": nl * st.prefill_batches,
             "gqa_paged_decode": 0, "gqa_paged_prefill": 0,
-            "w4a16_grouped": 0, "w4a8_grouped": 0, "flash_attention": 0}
+            "w4a16_grouped": 0, "w4a8_grouped": 0, "flash_attention": 0,
+            **{n: 0 for n in MLA_KERNELS}}
     print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
           f"prefill batches {st.prefill_batches} (rows, max prefix_len) "
           f"{st.chunk_rows}")
@@ -975,7 +1195,8 @@ def path3():
             "gqa_paged_decode_int8": 0, "gqa_paged_prefill_int8": 0,
             "w4a16_grouped": 3 * nl * calls - nl * exp_elig * b7_chunks,
             "w4a8_grouped": nl * exp_elig * b7_chunks,
-            "flash_attention": 2 * res["calib_batches"] * nl}
+            "flash_attention": 2 * res["calib_batches"] * nl,
+            **{n: 0 for n in MLA_KERNELS}}
     print(f"  A8 flags {flags}; worst errors "
           f"{ {k: round(v, 5) for k, v in rep.a8_errors.items()} }")
     print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
@@ -1018,6 +1239,132 @@ def path3():
     return counts
 
 
+def _path4_engine(params, cfg, reqs, label):
+    """One engine over ``params`` serving ``reqs`` (fresh copies of them):
+    the launch counts held to the prediction from the engine's steps and
+    prefill batches, the outputs checked, the operands of every kernel's
+    launches at each distinct shape kept for the operand check."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    quant = cfg.kv_quant
+    reqs = [Request(uid=r.uid, prompt=r.prompt, max_tokens=r.max_tokens)
+            for r in reqs]
+    eng = ServingEngine(params, cfg, batch_size=4, max_seq=256, page_size=16,
+                        max_prefill_tokens=128, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+    st = eng.stats
+    nl = cfg.num_layers
+    calls = st.steps + st.prefill_batches
+    sfx = "_int8" if quant else ""
+    # per layer and call: K1 for wq_a, wq_b, wkv_a, wo and the shared
+    # expert's gate/up/down (wkv_b itself is never read to serve); B6 for
+    # the routed experts' gate/up/down and the absorbed wk_t / wv
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": 7 * nl * calls,
+                 "w4a16_grouped": 5 * nl * calls,
+                 "mla_paged_decode" + sfx: nl * st.steps,
+                 "mla_paged_prefill" + sfx: nl * st.prefill_batches})
+    print(f"  {label}: launches {counts}; predicted {pred}; decode steps "
+          f"{st.steps}, prefill batches {st.prefill_batches} (rows, max "
+          f"prefix_len) {st.chunk_rows}")
+    require(all(r.finish_reason in ("completed", "length") for r in reqs),
+            f"{label}: a request did not finish")
+    require(all(len(r.output) == r.max_tokens or r.finish_reason ==
+                "completed" for r in reqs),
+            f"{label}: a request stopped early without EOS")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+            f"{label}: token out of range")
+    require(counts == pred, f"{label}: launch counts differ from the "
+            "prediction")
+    require(any(start > 0 for _, start in st.chunk_rows),
+            f"{label}: no chunk read prefix pages")
+    tok_s = st.decoded_tokens / serve_s
+    ttft = sorted(r.first_token_t - r.arrival_t for r in reqs)
+    print(f"  {label}: served {st.completed} requests in {serve_s:.2f}s: "
+          f"{tok_s:.1f} decode tok/s, TTFT p50 {statistics.median(ttft):.3f}s "
+          f"max {ttft[-1]:.3f}s", flush=True)
+    res = dict(launches=counts, predicted=pred, decode_steps=st.steps,
+               prefill_batches=st.prefill_batches,
+               chunk_rows=list(st.chunk_rows),
+               decoded_tokens=st.decoded_tokens,
+               prefilled_tokens=st.prefilled_tokens, serve_s=serve_s,
+               decode_tok_s=tok_s, ttft_s=ttft,
+               outputs=[r.output for r in reqs])
+    res["path_operands"] = check_path_operands(seen, label)
+    del seen
+    print(f"  {label} (a) {'int8' if quant else 'fp'} latent pools: one "
+          "prefill + one decode step vs the gather oracle on the dequantized "
+          "weights")
+    res.update(check_step_against_plain(params, cfg, eng.PS, reqs[0].prompt))
+    return eng, reqs, counts, res
+
+
+def path4():
+    """deepseek-v2-236b at full width, 2 layers: fp latent pools (path 4),
+    then int8 latent pools over the same quantized params (path 4b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.calibration import synthetic_calibration_set
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request, load_or_quantize
+
+    print("path 4: deepseek-v2-236b full width, 2 of 60 layers, SmoothQuant+ "
+          "W4A16 f32, A16, max_prefill_tokens=128, fp then int8 latent "
+          "pools", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("deepseek-v2-236b").with_(num_layers=2, dtype="float32")
+    params = api.init_model(cfg, seed=0, device=DEV)
+    calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, rep = load_or_quantize(params, cfg, calib,
+                                   QuantConfig(group_size=128))
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    ptq_peak = torch.cuda.max_memory_allocated()
+    require(all(isinstance(lp["mixer"]["wkv_b_absorbed"][k], QuantizedTensor)
+                for lp in params["layers"] for k in ("wk_t", "wv")),
+            "path 4: no absorbed int4 pair")
+    print(f"  PTQ alpha={rep.alpha:.2f} in {ptq_s:.1f}s (both calibration "
+          f"passes), {rep.fp_bytes / 1e9:.2f} GB -> {rep.quant_bytes / 1e9:.2f}"
+          f" GB, peak memory {ptq_peak / 2 ** 30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 201, 8)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, int(n)
+                                               ).astype(np.int32),
+                    max_tokens=16) for i, n in enumerate(lens)]
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs4, counts4, res4 = _path4_engine(params, cfg, reqs, "path 4")
+    res4["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    profile_decode(eng, reqs4, "path4_profile")
+    del eng
+    gc.collect()
+    eng, _, counts4b, res4b = _path4_engine(
+        params, cfg.with_(kv_quant=True), reqs, "path 4b")
+    del eng
+    same = sum(a == b for a, b in zip(res4["outputs"], res4b["outputs"]))
+    print(f"  path 4b greedy outputs equal to path 4's for {same}/"
+          f"{len(reqs)} requests (int8 latent rows may move a near tie)")
+    print(f"  path 4: peak memory {ptq_peak / 2 ** 30:.2f} GiB (PTQ), "
+          f"{res4['peak_mem_bytes'] / 2 ** 30:.2f} GiB (serving and step "
+          "check)", flush=True)
+    RESULTS["path4"] = dict(res4, ptq_s=ptq_s, alpha=rep.alpha,
+                            ptq_peak_mem_bytes=ptq_peak, fp_bytes=rep.fp_bytes,
+                            quant_bytes=rep.quant_bytes,
+                            a8_eligibility=rep.a8_eligibility)
+    RESULTS["path4b"] = dict(res4b, same_outputs_as_path4=same)
+    return counts4, counts4b
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None,
@@ -1035,7 +1382,7 @@ def main():
                    cuda=torch.version.cuda, build_s=build_s)
 
     k1, b5, k2, k3 = check_k1(), check_b5(), check_k2(), check_k3()
-    b67, b4 = check_grouped(), check_flash()
+    b67, b4, b89 = check_grouped(), check_flash(), check_mla()
     counts1 = main_path()
     gc.collect()
     torch.cuda.empty_cache()        # path 1's engine and params are gone
@@ -1043,6 +1390,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     counts3 = path3()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts4, counts4b = path4()
 
     # one row per kernel: its path's shape in the paths' f32, and its
     # launches on the path that runs it
@@ -1077,6 +1427,18 @@ def main():
         "flash_attention": (b4[(2048, 16, 64, True, torch.float32)], counts3,
                             "csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:31"),
+        "mla_paged_decode": (b89[("decode", torch.float32)], counts4,
+                             "csrc/mla_paged_decode.cu",
+                             "src/repro/kernels/paged_attention.py:189"),
+        "mla_paged_decode_int8": (b89[("decode", torch.int8)], counts4b,
+                                  "csrc/mla_paged_decode.cu",
+                                  "src/repro/kernels/paged_attention.py:189"),
+        "mla_paged_prefill": (b89[("prefill", 128, torch.float32)], counts4,
+                              "csrc/mla_paged_prefill.cu",
+                              "src/repro/kernels/paged_attention.py:484"),
+        "mla_paged_prefill_int8": (b89[("prefill", 128, torch.int8)],
+                                   counts4b, "csrc/mla_paged_prefill.cu",
+                                   "src/repro/kernels/paged_attention.py:484"),
     }
     for name, (_, counts, _, _) in picks.items():
         require(counts[name] > 0, f"{name} was not launched on its path")

@@ -1,6 +1,7 @@
 """Config registry (port of ``repro/configs/__init__.py``).
 
-The paper's own Code Llama family and the Granite MoE are ported; every
+The paper's own Code Llama family, the Granite MoE and DeepSeek-V2 (MLA,
+shared experts) are ported; every
 other architecture of the reference registry raises a clear "not ported
 yet" error.
 """
@@ -8,17 +9,16 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ModelConfig, MoEConfig,  # noqa: F401
-                                     QuantConfig)
+from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
+                                     MoEConfig, QuantConfig)
 
 ARCH_IDS = ("codellama-7b", "codellama-13b", "codellama-34b",
-            "granite-moe-1b-a400m")
+            "granite-moe-1b-a400m", "deepseek-v2-236b")
 
 # the reference registry's other architectures (see ROADMAP.md queue A)
 NOT_PORTED = (
     "mistral-large-123b", "chatglm3-6b", "llama3.2-3b", "starcoder2-15b",
-    "zamba2-7b", "qwen2-vl-7b", "deepseek-v2-236b",
-    "rwkv6-7b", "whisper-medium",
+    "zamba2-7b", "qwen2-vl-7b", "rwkv6-7b", "whisper-medium",
 )
 
 

@@ -1,5 +1,6 @@
 """Model / quantization configuration dataclasses (port of
-``repro/configs/base.py``: the dense and MoE decoder families).
+``repro/configs/base.py``: the dense and MoE decoder families, GQA or
+Multi-head Latent Attention).
 
 The fields keep the reference's names and defaults so a config prints the
 same in both packages.  Features the port has not covered yet stay as
@@ -25,6 +26,16 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                        # dense | moe (others not ported yet)
@@ -35,12 +46,13 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None     # default d_model // num_heads
-    mixer: str = "attention"
+    mixer: str = "attention"           # attention | mla
     mlp: str = "swiglu"
     rope: str = "standard"
     rope_theta: float = 1e4
     norm: str = "rmsnorm"
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     tie_embeddings: bool = False
     attn_bias: bool = False
     dtype: str = "bfloat16"
@@ -78,11 +90,13 @@ class ModelConfig:
 
     def check(self) -> "ModelConfig":
         """Raise for the features the port does not cover yet."""
-        if self.mixer != "attention":
+        if self.mixer not in ("attention", "mla"):
             raise NotImplementedError(
-                f"mixer={self.mixer!r}: only GQA attention is ported (MLA: "
-                "ROADMAP.md queue A item 7, kernels B8/B9; SSM mixers: queue "
-                "A item 8)")
+                f"mixer={self.mixer!r}: only GQA attention and MLA are ported "
+                "(SSM mixers: ROADMAP.md queue A item 8)")
+        if (self.mixer == "mla") != (self.mla is not None):
+            raise ValueError(f"{self.name}: mixer={self.mixer!r} and "
+                             f"mla={self.mla!r} disagree")
         if self.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family={self.family!r}: only the dense and MoE decoders are "
@@ -91,10 +105,6 @@ class ModelConfig:
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"{self.name}: family={self.family!r} and "
                              f"moe={self.moe!r} disagree")
-        if self.moe is not None and self.moe.num_shared_experts:
-            raise NotImplementedError(
-                f"{self.name}: shared experts (DeepSeek-V2) come with MLA "
-                "(ROADMAP.md queue A item 7)")
         if self.moe is not None and self.moe.router_dtype != "float32":
             raise NotImplementedError(
                 f"{self.name}: router_dtype={self.moe.router_dtype!r}: the "

@@ -8,8 +8,10 @@ The reference flags one ``a8`` per stacked ``[L, ...]`` tensor (one bad
 layer vetoes the stack); the port keeps one dict per layer and stamps that
 same flag on the path in every layer.  MoE experts quantize as stacked
 ``[E, Ci, Co]`` tensors (one flag per stack); the router is a row
-compensation of smoothing and stays fp.  The PTQ artifact waits for a later
-slice.
+compensation of smoothing and stays fp.  An MLA layer also gets the int4
+absorbed pair ``mixer/wkv_b_absorbed`` (:func:`_mla_absorbed_quantize`),
+the only form of ``wkv_b`` the serving path reads.  The PTQ artifact waits
+for a later slice.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import calibration as C
 from repro_torch.core import search as S
 from repro_torch.core import smoothing as SM
-from repro_torch.core.quantize import quantize
+from repro_torch.core.quantize import QuantizedTensor, quantize
+
+# where quantize_params puts an MLA layer's absorbed int4 pair
+ABSORBED = ("mixer", "wkv_b_absorbed")
 
 
 @dataclasses.dataclass
@@ -53,6 +58,27 @@ def _fit_group(ci: int, group_size: int) -> int:
     return max(g, 2)
 
 
+def _mla_absorbed_quantize(w: torch.Tensor, cfg: ModelConfig,
+                           qcfg: QuantConfig) -> Dict[str, QuantizedTensor]:
+    """The int4 absorbed-form projections of a *smoothed fp*
+    ``wkv_b[r, H·(nope+v)]``.  Absorbed attention contracts the two halves
+    along different axes (``q_lat = q_nope · w_k`` over nope, ``out = o_lat ·
+    w_v`` over r), and group quantization lives on the contraction axis: the
+    key half is stored transposed, ``wk_t[H, nope, r]`` (groups along nope),
+    the value half head-stacked, ``wv[H, r, v]`` (groups along r); the heads
+    ride the grouped kernel's expert axis."""
+    m, h = cfg.mla, cfg.num_heads
+    wr = w.reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    wk = wr[..., :m.qk_nope_head_dim].permute(1, 2, 0)        # [H, n, r]
+    wv = wr[..., m.qk_nope_head_dim:].transpose(0, 1)         # [H, r, v]
+    return {
+        "wk_t": quantize(wk.contiguous(), dtype=cfg.tdtype, group_size=(
+            _fit_group(m.qk_nope_head_dim, qcfg.group_size))),
+        "wv": quantize(wv.contiguous(), dtype=cfg.tdtype, group_size=(
+            _fit_group(m.kv_lora_rank, qcfg.group_size))),
+    }
+
+
 def _report_key(wp: Tuple[Any, ...]) -> str:
     return "/".join(map(str, SM.BLOCK + wp))
 
@@ -81,10 +107,18 @@ def derive_a8_eligibility(col: C.StatsCollector, cfg: ModelConfig,
 
 def _tree_a8_flags(qparams, cfg: ModelConfig) -> Dict[str, bool]:
     """The ``a8`` flags actually stamped on the tree, one per path (set only
-    if it is set on that path in every layer)."""
-    return {_report_key(wp): all(bool(SM.tget(lp, wp).a8)
+    if it is set on that path in every layer); an MLA absorbed pair moves in
+    step and reports as one flag."""
+    paths = quantizable_paths(cfg) + ([ABSORBED] if cfg.mla else [])
+
+    def flag(node) -> bool:
+        if isinstance(node, dict):
+            return all(bool(v.a8) for v in node.values())
+        return bool(node.a8)
+
+    return {_report_key(wp): all(flag(SM.tget(lp, wp))
                                  for lp in qparams["layers"])
-            for wp in quantizable_paths(cfg)}
+            for wp in paths}
 
 
 @torch.no_grad()
@@ -92,9 +126,10 @@ def quantize_params(params, cfg: ModelConfig, qcfg: QuantConfig, *,
                     a8_map: Optional[Dict[Tuple[Any, ...], bool]] = None):
     """Replace every quantizable linear weight with a QuantizedTensor, in
     place.  ``a8_map`` (from :func:`derive_a8_eligibility`) stamps each
-    weight's ``a8`` flag, paths missing from it ineligible; ``None`` keeps
-    the permissive default.  Returns (params, paths, fp_bytes,
-    quant_bytes)."""
+    weight's ``a8`` flag, paths missing from it ineligible (the absorbed MLA
+    pair among them: its latent-domain inputs are never calibrated);
+    ``None`` keeps the permissive default.  Returns (params, paths,
+    fp_bytes, quant_bytes)."""
     if not qcfg.skip_router:
         raise NotImplementedError(
             "skip_router=False: the port never quantizes the MoE router (it "
@@ -114,6 +149,15 @@ def quantize_params(params, cfg: ModelConfig, qcfg: QuantConfig, *,
             fp_bytes += w.numel() * 2
             quant_bytes += qt.nbytes_quant()
             done.append(("layers", i) + wp)
+            if cfg.mla is not None and wp[-2:] == ("wkv_b", "w"):
+                ab = _mla_absorbed_quantize(w, cfg, qcfg)
+                if a8_map is not None:
+                    ab = {k: dataclasses.replace(
+                        v, a8=bool(a8_map.get(ABSORBED, False)))
+                        for k, v in ab.items()}
+                SM.tget(layer, ABSORBED[:-1])[ABSORBED[-1]] = ab
+                quant_bytes += sum(v.nbytes_quant() for v in ab.values())
+                done.append(("layers", i) + ABSORBED)
             del w
     return params, done, fp_bytes, quant_bytes
 

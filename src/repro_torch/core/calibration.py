@@ -8,7 +8,10 @@ a registered weight.  Stats keys are the reference's:
 ``(("layers",), (layer_idx,), weight_subpath)``.  Beside the channel max
 |X| the collector keeps, per key, the worst per-token int8 round-trip error
 of the input (:func:`repro_torch.core.quantize.a8_roundtrip_error`), the
-W4A8 eligibility statistic.  MoE expert inputs never pass through
+W4A8 eligibility statistic.  The MLA linears (``wq_a``, ``wq_b``,
+``wkv_a``, ``wkv_b`` in the expanded form, ``wo``) and the shared expert
+are linears like any other and are tapped by ``apply_linear``.  MoE expert
+inputs never pass through
 ``apply_linear`` (they are grouped products over stacked weights), so
 ``models/mlp.py:apply_moe`` taps the collector explicitly
 (:meth:`StatsCollector.record_explicit`) under the block's ``moe_key``.

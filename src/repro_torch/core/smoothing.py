@@ -1,18 +1,21 @@
 """SmoothQuant+ smoothing with exact fusion (port of
-``repro/core/smoothing.py``: the dense and MoE decoder groups).
+``repro/core/smoothing.py``: the dense, MoE and MLA decoder groups).
 
 For every smoothing group — linear weights sharing one input activation —
 ``s_j = max|X_j|^α / max|W_j|^(1-α)`` (paper eq. 6), ``W ← diag(s) W`` and
 the matching ``1/s`` is fused into the activation's provider: the preceding
 RMSNorm scale (``"norm"``) or the preceding linear's output columns
-(``"linear_out"``).  ``tie="kv"`` reduces the o-proj's ``s`` (max) over each
+(``"linear_out"``), or only the V columns of MLA's ``wkv_b``
+(``"linear_out_mla_v"``: ``wo``'s input is attention over those values).
+``tie="kv"`` reduces the o-proj's ``s`` (max) over each
 KV head's query group so it can fuse into ``wv``'s ``Hkv·Dh`` columns.
 ``row_compensations`` are non-quantized consumers of the same activation
 (the MoE router): their rows are scaled by ``s`` so the model stays
 equivalent, but they are not quantized.  Stacked expert weights ``[E, Ci,
 Co]`` take the group's ``s`` per row: ``moe.in``'s ``s[Ci]`` (keyed by the
 router's input stat) is shared by the experts, ``moe.down``'s ``s[E, F]`` is
-per expert.
+per expert.  DeepSeek-V2's shared expert joins ``moe.in`` (the same
+normed input) and has its own ``moe.shared.down`` group.
 
 Paths are relative to one layer's param dict; ``s`` is computed per layer
 with the reference's numpy arithmetic, so it matches it bit for bit given
@@ -36,7 +39,7 @@ BLOCK = ("layers",)
 
 @dataclasses.dataclass(frozen=True)
 class Provider:
-    kind: str                       # norm | linear_out
+    kind: str                       # norm | linear_out | linear_out_mla_v
     path: Path = ()
 
 
@@ -67,17 +70,40 @@ def _attn_groups() -> List[Group]:
     ]
 
 
+def _mla_groups() -> List[Group]:
+    m = ("mixer",)
+    return [
+        Group("mla.a", (m + ("wq_a", "w"), m + ("wkv_a", "w")),
+              Provider("norm", ("norm1",)), m + ("wq_a", "w")),
+        Group("mla.qb", (m + ("wq_b", "w"),),
+              Provider("norm", m + ("norm_q",)), m + ("wq_b", "w")),
+        Group("mla.kvb", (m + ("wkv_b", "w"),),
+              Provider("norm", m + ("norm_kv",)), m + ("wkv_b", "w")),
+        Group("mla.wo", (m + ("wo", "w"),),
+              Provider("linear_out_mla_v", m + ("wkv_b", "w")),
+              m + ("wo", "w")),
+    ]
+
+
 def _mlp_groups(cfg: ModelConfig) -> List[Group]:
     mlp = ("mlp",)
     if cfg.moe is not None:
         ex = mlp + ("experts",)
-        return [
-            Group("moe.in", (ex + ("gate",), ex + ("up",)),
+        sh = mlp + ("shared",)
+        shared = bool(cfg.moe.num_shared_experts)
+        groups = [
+            Group("moe.in", (ex + ("gate",), ex + ("up",))
+                  + ((sh + ("gate", "w"), sh + ("up", "w")) if shared else ()),
                   Provider("norm", ("norm2",)), mlp + ("router", "w"),
                   row_compensations=(mlp + ("router", "w"),)),
             Group("moe.down", (ex + ("down",),),
                   Provider("linear_out", ex + ("up",)), ex + ("down",)),
         ]
+        if shared:
+            groups.append(Group("moe.shared.down", (sh + ("down", "w"),),
+                                Provider("linear_out", sh + ("up", "w")),
+                                sh + ("down", "w")))
+        return groups
     return [
         Group("mlp.in", (mlp + ("gate", "w"), mlp + ("up", "w")),
               Provider("norm", ("norm2",)), mlp + ("gate", "w")),
@@ -88,7 +114,8 @@ def _mlp_groups(cfg: ModelConfig) -> List[Group]:
 
 def smoothing_groups(cfg: ModelConfig) -> List[Group]:
     cfg.check()
-    return _attn_groups() + _mlp_groups(cfg)
+    mixer = _mla_groups() if cfg.mixer == "mla" else _attn_groups()
+    return mixer + _mlp_groups(cfg)
 
 
 def layer_stats(col: StatsCollector, i: int, sub: Tuple[str, ...]
@@ -170,6 +197,14 @@ def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
         w = tget(layer, group.provider.path)
         _scale_(w, sp.reshape(*sp.shape[:-1], *([1] * (w.ndim - 1 - sp.ndim)),
                               1, sp.shape[-1]), divide=True)
+    elif group.provider.kind == "linear_out_mla_v":
+        # wkv_b[r, H·(nope+v)]: divide only each head's v columns by
+        # s[H·v]; its key columns feed the scores, not wo
+        m, h = cfg.mla, cfg.num_heads
+        w = tget(layer, group.provider.path)
+        wv = w.view(w.shape[0], h, m.qk_nope_head_dim + m.v_head_dim)[
+            ..., m.qk_nope_head_dim:]
+        _scale_(wv, sp.reshape(h, m.v_head_dim), divide=True)
     else:
         raise ValueError(group.provider.kind)
 

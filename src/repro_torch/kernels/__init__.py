@@ -20,6 +20,10 @@ WRAPPERS = {
     "w4a16_grouped": _w4g.w4a16_grouped_cuda,
     "w4a8_grouped": _w4g.w4a8_grouped_cuda,
     "flash_attention": _fa.flash_attention_cuda,
+    "mla_paged_decode": _pa.mla_paged_attention_cuda,
+    "mla_paged_decode_int8": _pa.mla_paged_attention_int8_cuda,
+    "mla_paged_prefill": _pa.mla_paged_prefill_cuda,
+    "mla_paged_prefill_int8": _pa.mla_paged_prefill_int8_cuda,
 }
 
 

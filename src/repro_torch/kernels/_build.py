@@ -25,7 +25,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("w4a16_matmul", "w4a8_matmul", "gqa_paged_decode",
            "gqa_paged_prefill", "w4a16_grouped", "w4a8_grouped",
-           "flash_attention")
+           "flash_attention", "mla_paged_decode", "mla_paged_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -105,3 +105,37 @@ def gqa_paged_prefill(q, k_suf, v_suf, k_pool, v_pool, table, prefix_len,
         return _pa.gqa_paged_prefill_cuda(*args, sm_scale=sm_scale)
     return _pa.gqa_paged_prefill_int8_cuda(*args, k_scale, v_scale,
                                            sm_scale=sm_scale)
+
+
+def mla_paged_attention(q_lat, q_pe, ckv_pool, kpe_pool, table, lengths,
+                        ckv_scale=None, kpe_scale=None, *,
+                        sm_scale: float) -> torch.Tensor:
+    """Absorbed MLA paged decode (B8): q_lat[B,H,r], q_pe[B,H,dr] → f32
+    o_lat[B,H,r].  With ``ckv_scale``/``kpe_scale`` the latent pools are
+    int8 (B8's int8 branch)."""
+    args = (q_lat, q_pe, ckv_pool, kpe_pool, table, lengths)
+    if _route(q_lat) == "cpu":
+        return _pa.mla_paged_attention_plain(*args, ckv_scale, kpe_scale,
+                                             sm_scale=sm_scale)
+    if ckv_scale is None:
+        return _pa.mla_paged_attention_cuda(*args, sm_scale=sm_scale)
+    return _pa.mla_paged_attention_int8_cuda(*args, ckv_scale, kpe_scale,
+                                             sm_scale=sm_scale)
+
+
+def mla_paged_prefill(q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool, kpe_pool,
+                      table, prefix_len, chunk_len, ckv_scale=None,
+                      kpe_scale=None, *, sm_scale: float) -> torch.Tensor:
+    """Absorbed MLA chunked prefill (B9): q_lat[B,T,H,r], q_pe[B,T,H,dr]
+    against the cached latent pages and the chunk's raw latents ckv_suf[B,T,r]
+    / kpe_suf[B,T,dr] → f32 o_lat[B,T,H,r].  With ``ckv_scale``/
+    ``kpe_scale`` the pools are int8 (B9's int8 branch)."""
+    args = (q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool, kpe_pool, table,
+            prefix_len, chunk_len)
+    if _route(q_lat) == "cpu":
+        return _pa.mla_paged_prefill_plain(*args, ckv_scale, kpe_scale,
+                                           sm_scale=sm_scale)
+    if ckv_scale is None:
+        return _pa.mla_paged_prefill_cuda(*args, sm_scale=sm_scale)
+    return _pa.mla_paged_prefill_int8_cuda(*args, ckv_scale, kpe_scale,
+                                           sm_scale=sm_scale)

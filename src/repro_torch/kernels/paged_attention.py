@@ -1,11 +1,15 @@
-"""K2/K3: paged GQA decode and chunked-prefill attention — the CUDA kernels'
-wrappers and their plain PyTorch versions.
+"""Paged decode and chunked-prefill attention — the CUDA kernels' wrappers
+and their plain PyTorch versions, GQA (K2/K3) and MLA (B8/B9).
 
-Replace the Pallas TPU kernels ``repro/kernels/paged_attention.py``
-``_gqa_kernel`` (decode) and ``_gqa_prefill_kernel`` (chunked prefill), both
-branches: fp pools and int8 pools with per-(position, head) f32 scales
-``[NP, PS, Hkv]`` (``kv_quant``).  Sources: ``csrc/gqa_paged_decode.cu`` and
-``csrc/gqa_paged_prefill.cu``; their headers say what bounds each on the
+Replace the Pallas TPU kernels of ``repro/kernels/paged_attention.py``:
+``_gqa_kernel`` (decode) and ``_gqa_prefill_kernel`` (chunked prefill) over
+``[NP, PS, Hkv, D]`` K/V pools, and ``_mla_kernel`` / ``_mla_prefill_kernel``,
+their absorbed Multi-head Latent Attention forms over the latent pools
+``ckv[NP, PS, r]`` / ``kpe[NP, PS, dr]``; each in both branches: fp pools and
+int8 pools with f32 row scales (``kv_quant``: ``[NP, PS, Hkv]`` for GQA,
+``[NP, PS]`` for MLA).  Sources: ``csrc/gqa_paged_decode.cu``,
+``csrc/gqa_paged_prefill.cu``, ``csrc/mla_paged_decode.cu`` and
+``csrc/mla_paged_prefill.cu``; their headers say what bounds each on the
 card.  The int8 launches have wrappers (and launch counters) of their own,
 so a run shows which branch ran.
 
@@ -14,7 +18,10 @@ slot's logical pages to pool pages, dead entries pointing at the trash page
 0; decode ``lengths[B]`` count valid rows *including* the token written this
 step.  With int8 pools a score is ``q·k_codes · sm_scale · k_scale[row]``,
 the softmax sum takes the unscaled exp, and only the value weights are
-scaled by ``v_scale[row]``.  Outputs are f32.
+scaled by ``v_scale[row]``.  MLA scores a latent row as ``(q_lat·ckv ·
+ckv_scale[row] + q_pe·kpe · kpe_scale[row]) · sm_scale`` (scales 1 for fp
+pools) and sums ``p · ckv_scale[row] · ckv`` into its latent output.
+Outputs are f32.
 """
 from __future__ import annotations
 
@@ -99,6 +106,65 @@ def gqa_paged_prefill_plain(q, k_suf, v_suf, k_pool, v_pool, table,
     return _softmax_av(s, valid, v, "bthgs,bshd->bthgd", vs)
 
 
+def _mla_scores(q_lat, q_pe, ckv, kpe, cs, ps, sm_scale, eq: str):
+    """``(q_lat·ckv · cs + q_pe·kpe · ps) · sm_scale`` in the reference's
+    order; ``cs``/``ps`` (int8 pools) broadcast over the key axis."""
+    s_lat = torch.einsum(eq, q_lat.to(torch.float32), ckv)
+    s_pe = torch.einsum(eq, q_pe.to(torch.float32), kpe)
+    if cs is not None:
+        s_lat, s_pe = s_lat * cs, s_pe * ps
+    return (s_lat + s_pe) * sm_scale
+
+
+def mla_paged_attention_plain(q_lat, q_pe, ckv_pool, kpe_pool, table,
+                              lengths, ckv_scale=None, kpe_scale=None, *,
+                              sm_scale: float) -> torch.Tensor:
+    """Absorbed MLA decode: q_lat[B, H, r], q_pe[B, H, dr] against the live
+    latent rows ``pos < lengths[b]`` → o_lat[B, H, r] f32."""
+    ckv = _gather(ckv_pool, table).to(torch.float32)     # [B, S, r]
+    kpe = _gather(kpe_pool, table).to(torch.float32)     # [B, S, dr]
+    cs = ps = None
+    if ckv_scale is not None:
+        cs = _gather(ckv_scale, table).to(torch.float32)[:, None, :]
+        ps = _gather(kpe_scale, table).to(torch.float32)[:, None, :]
+    s = _mla_scores(q_lat, q_pe, ckv, kpe, cs, ps, sm_scale, "bhr,bsr->bhs")
+    pos = torch.arange(ckv.shape[1], device=q_lat.device)
+    valid = pos[None, :] < lengths.to(q_lat.device).long()[:, None]
+    return _softmax_av(s, valid[:, None, :], ckv, "bhs,bsr->bhr", cs)
+
+
+def mla_paged_prefill_plain(q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool,
+                            kpe_pool, table, prefix_len, chunk_len,
+                            ckv_scale=None, kpe_scale=None, *,
+                            sm_scale: float) -> torch.Tensor:
+    """Absorbed MLA chunked prefill: q_lat[B, T, H, r], q_pe[B, T, H, dr]
+    → o_lat[B, T, H, r] f32.  Cached latent rows are valid where ``kv <
+    prefix_len``, chunk rows (raw, never scaled) where ``j <= t`` and ``j <
+    chunk_len``."""
+    b, t = q_lat.shape[:2]
+    dev = q_lat.device
+    cp = _gather(ckv_pool, table).to(torch.float32)      # [B, S, r]
+    kp = _gather(kpe_pool, table).to(torch.float32)
+    ckv = torch.cat([cp, ckv_suf.to(torch.float32)], dim=1)
+    kpe = torch.cat([kp, kpe_suf.to(torch.float32)], dim=1)
+    cs = ps = None
+    if ckv_scale is not None:
+        ones = torch.ones(b, t, device=dev)
+        cs = torch.cat([_gather(ckv_scale, table).to(torch.float32), ones],
+                       dim=1)[:, None, None, :]
+        ps = torch.cat([_gather(kpe_scale, table).to(torch.float32), ones],
+                       dim=1)[:, None, None, :]
+    s = _mla_scores(q_lat, q_pe, ckv, kpe, cs, ps, sm_scale,
+                    "bthr,bsr->bths")
+    kv = torch.arange(cp.shape[1], device=dev)
+    j = torch.arange(t, device=dev)
+    pre = kv[None, None, :] < prefix_len.to(dev).long()[:, None, None]
+    suf = (j[None, None, :] <= j[None, :, None]) \
+        & (j[None, None, :] < chunk_len.to(dev).long()[:, None, None])
+    valid = torch.cat([pre.expand(b, t, -1), suf], dim=-1)[:, :, None, :]
+    return _softmax_av(s, valid, ckv, "bths,bsr->bthr", cs)
+
+
 # ------------------------------------------------------------ CUDA wrappers
 _C, _I = ctypes.c_void_p, ctypes.c_int
 _DECODE_ARGS = [_C] * 5 + [_I] + [_C] * 3 + [_I] * 7 + [ctypes.c_float, _C]
@@ -106,25 +172,30 @@ _PREFILL_ARGS = [_C] * 3 + [_I] + [_C] * 4 + [_I] + [_C] * 4 + [_I] * 8 \
     + [ctypes.c_float, _C]
 
 
-def _check_pools(name, q, tensors, table, k_pool, v_pool, k_scale, v_scale,
+def _check_pools(name, qs, tensors, table, k_pool, v_pool, k_scale, v_scale,
                  quant: bool):
-    """Raise on anything the kernels do not take; returns the pool's dtype
-    code (the fp wrappers take f32/bf16 pools, the int8 wrappers int8 pools
-    with f32 scales ``[NP, PS, Hkv]``)."""
-    dev = q.device
+    """Raise on anything the paged-attention kernels do not take; returns
+    the pools' dtype code.  ``qs`` are the query tensors (f32); the two
+    pools (K/V, or MLA's ckv/kpe) share every dim but their row width; the
+    fp wrappers take f32/bf16 pools, the int8 wrappers int8 pools with f32
+    row scales of the pools' shape without the row (``[NP, PS, Hkv]`` for
+    GQA, ``[NP, PS]`` for MLA)."""
+    dev = qs[0].device
     tensors = [t for t in tensors if t is not None]
-    if not q.is_cuda or any(t.device != dev for t in tensors):
+    if not qs[0].is_cuda or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all tensors must be CUDA tensors on one "
                          "device")
-    if q.dtype != torch.float32:
-        raise ValueError(f"{name}: q must be f32, got {q.dtype}")
+    if any(q.dtype != torch.float32 for q in qs):
+        raise ValueError(f"{name}: queries must be f32, got "
+                         f"{[q.dtype for q in qs]}")
     if table.dtype != torch.int32:
         raise ValueError(f"{name}: table must be int32, got {table.dtype}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: every operand must be contiguous")
-    if v_pool.shape[:3] != k_pool.shape[:3]:
-        raise ValueError(f"{name}: k_pool {tuple(k_pool.shape)} and v_pool "
+    lead = k_pool.shape[:-1]
+    if v_pool.shape[:-1] != lead:
+        raise ValueError(f"{name}: pools {tuple(k_pool.shape)} and "
                          f"{tuple(v_pool.shape)} disagree")
     if not quant:
         if k_pool.dtype not in _FP_POOLS or v_pool.dtype != k_pool.dtype:
@@ -135,15 +206,14 @@ def _check_pools(name, q, tensors, table, k_pool, v_pool, k_scale, v_scale,
         raise ValueError(f"{name}: int8 pools expected, got "
                          f"{k_pool.dtype}/{v_pool.dtype}")
     for sc in (k_scale, v_scale):
-        if sc is None or sc.dtype != torch.float32 \
-                or sc.shape != k_pool.shape[:3]:
+        if sc is None or sc.dtype != torch.float32 or sc.shape != lead:
             raise ValueError(f"{name}: int8 pools need f32 scales of shape "
-                             f"{tuple(k_pool.shape[:3])}")
+                             f"{tuple(lead)}")
     if k_pool.shape[-1] % 4 or v_pool.shape[-1] % 4 \
             or k_pool.data_ptr() % 4 or v_pool.data_ptr() % 4:
         raise ValueError(f"{name}: int8 rows are read 4 codes at a time: "
-                         "Dh and Dv must be multiples of 4, the pools 4-byte "
-                         "aligned")
+                         "their widths must be multiples of 4, the pools "
+                         "4-byte aligned")
     return B.DTYPE_I8
 
 
@@ -154,7 +224,8 @@ def _decode(name, q, k_pool, v_pool, table, lengths, k_scale, v_scale,
     dv = v_pool.shape[-1]
     p_ = table.shape[1]
     scales = (k_scale, v_scale) if quant else ()
-    code = _check_pools(name, q, (q, k_pool, v_pool, table, lengths, *scales),
+    code = _check_pools(name, (q,), (q, k_pool, v_pool, table, lengths,
+                                      *scales),
                         table, k_pool, v_pool, k_scale, v_scale, quant)
     if (hkv_p, dh_p) != (hkv, dh) or table.shape[0] != b \
             or tuple(lengths.shape) != (b,) or lengths.dtype != torch.int32:
@@ -200,8 +271,8 @@ def _prefill(name, q, k_suf, v_suf, k_pool, v_pool, table, prefix_len,
     dv = v_pool.shape[-1]
     p_ = table.shape[1]
     scales = (k_scale, v_scale) if quant else ()
-    code = _check_pools(name, q, (q, k_suf, v_suf, k_pool, v_pool, table,
-                                  prefix_len, chunk_len, *scales),
+    code = _check_pools(name, (q,), (q, k_suf, v_suf, k_pool, v_pool, table,
+                                     prefix_len, chunk_len, *scales),
                         table, k_pool, v_pool, k_scale, v_scale, quant)
     suf_ok = (k_suf.dtype in _FP_POOLS if quant
               else k_suf.dtype == k_pool.dtype)
@@ -259,3 +330,141 @@ gqa_paged_attention_cuda.launches = 0
 gqa_paged_attention_int8_cuda.launches = 0
 gqa_paged_prefill_cuda.launches = 0
 gqa_paged_prefill_int8_cuda.launches = 0
+
+
+# ---------------------------------------------------------- MLA wrappers ---
+_MLA_DECODE_ARGS = [_C] * 6 + [_I] + [_C] * 3 + [_I] * 6 + [ctypes.c_float,
+                                                           _C]
+_MLA_PREFILL_ARGS = [_C] * 4 + [_I] + [_C] * 4 + [_I] + [_C] * 4 + [_I] * 7 \
+    + [ctypes.c_float, _C]
+
+
+def _mla_decode(name, q_lat, q_pe, ckv_pool, kpe_pool, table, lengths,
+                ckv_scale, kpe_scale, sm_scale, quant):
+    b, h, r = q_lat.shape
+    dr = q_pe.shape[-1]
+    ps = ckv_pool.shape[1]
+    p_ = table.shape[1]
+    scales = (ckv_scale, kpe_scale) if quant else ()
+    code = _check_pools(name, (q_lat, q_pe),
+                        (q_lat, q_pe, ckv_pool, kpe_pool, table, lengths,
+                         *scales),
+                        table, ckv_pool, kpe_pool, ckv_scale, kpe_scale, quant)
+    if tuple(q_pe.shape) != (b, h, dr) or ckv_pool.ndim != 3 \
+            or ckv_pool.shape[-1] != r \
+            or kpe_pool.shape[-1] != dr or table.shape[0] != b \
+            or tuple(lengths.shape) != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: inconsistent shapes q_lat="
+                         f"{tuple(q_lat.shape)} q_pe={tuple(q_pe.shape)} "
+                         f"ckv_pool={tuple(ckv_pool.shape)} kpe_pool="
+                         f"{tuple(kpe_pool.shape)} table={tuple(table.shape)} "
+                         f"lengths={tuple(lengths.shape)}")
+    out = torch.empty(b, h, r, dtype=torch.float32, device=q_lat.device)
+    if b == 0:
+        return out
+    null = ctypes.c_void_p(None)
+    err = B.cfunc("mla_paged_decode", _MLA_DECODE_ARGS)(
+        B.vp(q_lat), B.vp(q_pe), B.vp(ckv_pool), B.vp(kpe_pool),
+        B.vp(ckv_scale) if quant else null,
+        B.vp(kpe_scale) if quant else null, code, B.vp(table), B.vp(lengths),
+        B.vp(out), b, h, r, dr, ps, p_, float(sm_scale),
+        B.stream_ptr(q_lat.device))
+    B.check(err, name)
+    return out
+
+
+def mla_paged_attention_cuda(q_lat, q_pe, ckv_pool, kpe_pool, table, lengths,
+                             *, sm_scale: float) -> torch.Tensor:
+    """Launch B8 on fp latent pools.  Raises on anything the kernel does not
+    take."""
+    out = _mla_decode("mla_paged_attention_cuda", q_lat, q_pe, ckv_pool,
+                      kpe_pool, table, lengths, None, None, sm_scale, False)
+    mla_paged_attention_cuda.launches += 1
+    return out
+
+
+def mla_paged_attention_int8_cuda(q_lat, q_pe, ckv_pool, kpe_pool, table,
+                                  lengths, ckv_scale, kpe_scale, *,
+                                  sm_scale: float) -> torch.Tensor:
+    """Launch B8's int8 branch (int8 latent pools + f32 row scales)."""
+    out = _mla_decode("mla_paged_attention_int8_cuda", q_lat, q_pe, ckv_pool,
+                      kpe_pool, table, lengths, ckv_scale, kpe_scale,
+                      sm_scale, True)
+    mla_paged_attention_int8_cuda.launches += 1
+    return out
+
+
+def _mla_prefill(name, q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool, kpe_pool,
+                 table, prefix_len, chunk_len, ckv_scale, kpe_scale, sm_scale,
+                 quant):
+    b, t, h, r = q_lat.shape
+    dr = q_pe.shape[-1]
+    ps = ckv_pool.shape[1]
+    p_ = table.shape[1]
+    scales = (ckv_scale, kpe_scale) if quant else ()
+    code = _check_pools(name, (q_lat, q_pe),
+                        (q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool, kpe_pool,
+                         table, prefix_len, chunk_len, *scales),
+                        table, ckv_pool, kpe_pool, ckv_scale, kpe_scale, quant)
+    suf_ok = (ckv_suf.dtype in _FP_POOLS if quant
+              else ckv_suf.dtype == ckv_pool.dtype)
+    if tuple(q_pe.shape) != (b, t, h, dr) \
+            or tuple(ckv_suf.shape) != (b, t, r) \
+            or tuple(kpe_suf.shape) != (b, t, dr) \
+            or not suf_ok or kpe_suf.dtype != ckv_suf.dtype \
+            or ckv_pool.ndim != 3 or ckv_pool.shape[-1] != r \
+            or kpe_pool.shape[-1] != dr \
+            or table.shape[0] != b \
+            or tuple(prefix_len.shape) != (b,) \
+            or tuple(chunk_len.shape) != (b,) \
+            or prefix_len.dtype != torch.int32 \
+            or chunk_len.dtype != torch.int32:
+        raise ValueError(f"{name}: inconsistent shapes/dtypes q_lat="
+                         f"{tuple(q_lat.shape)} q_pe={tuple(q_pe.shape)} "
+                         f"ckv_suf={tuple(ckv_suf.shape)} {ckv_suf.dtype} "
+                         f"ckv_pool={tuple(ckv_pool.shape)} {ckv_pool.dtype} "
+                         f"table={tuple(table.shape)}")
+    out = torch.empty(b, t, h, r, dtype=torch.float32, device=q_lat.device)
+    if b == 0 or t == 0:
+        return out
+    null = ctypes.c_void_p(None)
+    err = B.cfunc("mla_paged_prefill", _MLA_PREFILL_ARGS)(
+        B.vp(q_lat), B.vp(q_pe), B.vp(ckv_suf), B.vp(kpe_suf),
+        _FP_POOLS[ckv_suf.dtype], B.vp(ckv_pool), B.vp(kpe_pool),
+        B.vp(ckv_scale) if quant else null,
+        B.vp(kpe_scale) if quant else null, code, B.vp(table),
+        B.vp(prefix_len), B.vp(chunk_len), B.vp(out), b, t, h, r, dr, ps, p_,
+        float(sm_scale), B.stream_ptr(q_lat.device))
+    B.check(err, name)
+    return out
+
+
+def mla_paged_prefill_cuda(q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool, kpe_pool,
+                           table, prefix_len, chunk_len, *,
+                           sm_scale: float) -> torch.Tensor:
+    """Launch B9 on fp latent pools.  Raises on anything the kernel does not
+    take."""
+    out = _mla_prefill("mla_paged_prefill_cuda", q_lat, q_pe, ckv_suf,
+                       kpe_suf, ckv_pool, kpe_pool, table, prefix_len,
+                       chunk_len, None, None, sm_scale, False)
+    mla_paged_prefill_cuda.launches += 1
+    return out
+
+
+def mla_paged_prefill_int8_cuda(q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool,
+                                kpe_pool, table, prefix_len, chunk_len,
+                                ckv_scale, kpe_scale, *,
+                                sm_scale: float) -> torch.Tensor:
+    """Launch B9's int8 branch: int8 prefix pages + f32 row scales, raw fp
+    chunk latents."""
+    out = _mla_prefill("mla_paged_prefill_int8_cuda", q_lat, q_pe, ckv_suf,
+                       kpe_suf, ckv_pool, kpe_pool, table, prefix_len,
+                       chunk_len, ckv_scale, kpe_scale, sm_scale, True)
+    mla_paged_prefill_int8_cuda.launches += 1
+    return out
+
+
+mla_paged_attention_cuda.launches = 0
+mla_paged_attention_int8_cuda.launches = 0
+mla_paged_prefill_cuda.launches = 0
+mla_paged_prefill_int8_cuda.launches = 0

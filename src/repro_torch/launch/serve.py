@@ -15,7 +15,8 @@ requests and the timings for callers that drive it as a library; such a
 caller may pass ``attn_impl="flash"``, which, as in the JAX CLI, has no
 flag.  Serve
 the Granite MoE on the CPU with ``--arch granite-moe-1b-a400m --smoke
---device cpu``.
+--device cpu``, DeepSeek-V2 (MLA, shared experts) with ``--arch
+deepseek-v2-236b --smoke --device cpu``.
 """
 from __future__ import annotations
 

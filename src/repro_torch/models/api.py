@@ -27,10 +27,13 @@ def forward_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device):
-    """Per-layer KV pools ``[num_pages, page_size, Hkv, Dh]`` for the
-    engine's block-table pager (``serving/kv_cache.py``): ``cfg.tdtype``, or
-    int8 codes with f32 ``[num_pages, page_size, Hkv]`` scales under
-    ``cfg.kv_quant``."""
+    """Per-layer pools for the engine's block-table pager
+    (``serving/kv_cache.py``): GQA ``{"k", "v"}`` of ``[num_pages,
+    page_size, Hkv, Dh]``, MLA the latent ``{"ckv": [num_pages, page_size,
+    r], "kpe": [num_pages, page_size, dr]}``; ``cfg.tdtype``, or int8 codes
+    under ``cfg.kv_quant`` with f32 row scales ``{"k_s", "v_s"}`` of
+    ``[num_pages, page_size, Hkv]`` (GQA) / ``{"ckv_s", "kpe_s"}`` of
+    ``[num_pages, page_size]`` (MLA)."""
     return LM.init_paged_cache(cfg, num_pages, page_size, device)
 
 

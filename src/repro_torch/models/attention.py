@@ -1,11 +1,14 @@
-"""GQA attention (port of the GQA half of ``repro/models/attention.py``).
+"""GQA and Multi-head Latent Attention (port of ``repro/models/attention.py``:
+GQA, and MLA's paged absorbed forms).
 
 Caches: the contiguous decode cache is ``{"k"/"v": [B, S, Hkv, Dh],
 "lens": [B]}``; the paged pools are ``{"k"/"v": [num_pages, page_size, Hkv,
 Dh]}`` shared across slots, addressed through ``table_rows[B, P]`` (dead
 entries point at the trash page 0).  Under ``cfg.kv_quant`` the pools hold
 int8 codes plus ``{"k_s"/"v_s": [num_pages, page_size, Hkv]}`` f32 scales
-(:func:`kv_quantize_rows`).
+(:func:`kv_quantize_rows`).  MLA pages only its compressed latent:
+``{"ckv": [num_pages, page_size, r], "kpe": [num_pages, page_size, dr]}``,
+plus ``{"ckv_s"/"kpe_s": [num_pages, page_size]}`` under ``kv_quant``.
 
 Where the reference scatters functionally and relies on ``donate_argnums``
 so XLA reuses the pool buffers, the port writes the new KV rows into the
@@ -22,6 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -164,10 +168,14 @@ def gather_pages(pool: torch.Tensor, table_rows: torch.Tensor) -> torch.Tensor:
     return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
 
 
-def _dequant_pages(rows: torch.Tensor, scales) -> torch.Tensor:
-    """Dequantize gathered int8 page rows (identity for fp pools)."""
-    if scales is None:
+def _gathered_rows(pool, name: str, table_rows, kv_quant: bool
+                   ) -> torch.Tensor:
+    """Dense [B, P*PS, ...] rows of ``pool[name]``, dequantized with
+    ``pool[name + "_s"]`` under ``kv_quant`` (the gather oracle)."""
+    rows = gather_pages(pool[name], table_rows)
+    if not kv_quant:
         return rows
+    scales = gather_pages(pool[name + "_s"], table_rows)
     return rows.to(torch.float32) * scales.to(torch.float32)[..., None]
 
 
@@ -229,12 +237,8 @@ def gqa_prefill_chunk(p, x, pool, table_rows, start_len, chunk_len,
             start_len, chunk_len, pool.get("k_s"), pool.get("v_s"),
             sm_scale=scale).reshape(b, t, h, -1)
     else:
-        pk = _dequant_pages(gather_pages(pool["k"], table_rows),
-                            gather_pages(pool["k_s"], table_rows)
-                            if cfg.kv_quant else None)
-        pv = _dequant_pages(gather_pages(pool["v"], table_rows),
-                            gather_pages(pool["v_s"], table_rows)
-                            if cfg.kv_quant else None)
+        pk = _gathered_rows(pool, "k", table_rows, cfg.kv_quant)
+        pv = _gathered_rows(pool, "v", table_rows, cfg.kv_quant)
         s = pk.shape[1]
         kpos_pre = torch.arange(s, device=x.device)[None].expand(b, s)
         tt = torch.arange(t, device=x.device)[None, :]
@@ -310,3 +314,230 @@ def kv_quantize_rows(x: torch.Tensor):
     amax = xf.abs().amax(dim=-1) + 1e-8
     q = torch.clamp(torch.round(xf / amax[..., None] * 127.0), -127, 127)
     return q.to(torch.int8), amax / 127.0
+
+
+# ===================================================================== MLA ==
+def init_mla(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    m, d, h, dt = cfg.mla, cfg.d_model, cfg.num_heads, cfg.tdtype
+    dev = gen.device
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": L.init_linear(gen, d, m.q_lora_rank, dt),
+        "norm_q": L.init_norm(m.q_lora_rank, dt, dev),
+        "wq_b": L.init_linear(gen, m.q_lora_rank, h * qk_dim, dt),
+        "wkv_a": L.init_linear(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                               dt),
+        "norm_kv": L.init_norm(m.kv_lora_rank, dt, dev),
+        "wkv_b": L.init_linear(gen, m.kv_lora_rank,
+                               h * (m.qk_nope_head_dim + m.v_head_dim), dt),
+        "wo": L.init_linear(gen, h * m.v_head_dim, d, dt),
+    }
+
+
+def _mla_q(p, x, positions, cfg: ModelConfig):
+    m = cfg.mla
+    b, t, _ = x.shape
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = L.apply_linear(p["wq_a"], x, act=cfg.act_kernel)
+    q = L.apply_norm(p["norm_q"], q)
+    q = L.apply_linear(p["wq_b"], q, act=cfg.act_kernel).reshape(
+        b, t, cfg.num_heads, qk)
+    q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, L.apply_rope(q_pe, positions, theta=cfg.rope_theta)
+
+
+def _mla_latent(p, x, positions, cfg: ModelConfig):
+    m = cfg.mla
+    kv = L.apply_linear(p["wkv_a"], x, act=cfg.act_kernel)
+    ckv, k_pe = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    ckv = L.apply_norm(p["norm_kv"], ckv)
+    k_pe = L.apply_rope(k_pe[:, :, None, :], positions,
+                        theta=cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_pe
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_prefill(p, x, positions, cfg: ModelConfig, *, causal: bool = True
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expanded MLA over a full sequence (calibration / teacher-forced
+    forward): ``wkv_b`` re-inflates per-head keys and values and
+    :func:`chunked_attention` attends them (``dh = nope + rope`` for q/k,
+    ``v_head_dim`` for v); returns the latent as the cache."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_pe = _mla_q(p, x, positions, cfg)
+    ckv, k_pe = _mla_latent(p, x, positions, cfg)
+    kvb = L.apply_linear(p["wkv_b"], ckv, act=cfg.act_kernel).reshape(
+        b, t, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand_as(q_pe)], dim=-1)
+    out = chunked_attention(q, k, v, positions, positions, causal=causal)
+    y = L.apply_linear(p["wo"], out.reshape(b, t, -1), act=cfg.act_kernel)
+    lens = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    return y, {"ckv": ckv, "kpe": k_pe, "lens": lens}
+
+
+def _mla_absorb_weights(p, cfg: ModelConfig):
+    """Split an *fp* ``wkv_b`` into the absorbed key / value projections
+    ``(w_k[r, H, nope], w_v[r, H, v])``.  Quantized params never take this
+    path: PTQ derives the int4 pair ``p["wkv_b_absorbed"]``
+    (``core/apply.py:_mla_absorbed_quantize``) and the grouped kernel
+    contracts it; ``wkv_b`` itself is never dequantized to serve."""
+    m = cfg.mla
+    w = p["wkv_b"]["w"]
+    if isinstance(w, QuantizedTensor):
+        raise TypeError(
+            "quantized MLA needs p['wkv_b_absorbed'] (the int4 absorbed pair "
+            "from core.apply.quantize_params); wkv_b is not dequantized on "
+            "the serving path")
+    w = w.reshape(m.kv_lora_rank, cfg.num_heads,
+                  m.qk_nope_head_dim + m.v_head_dim)
+    return w[..., :m.qk_nope_head_dim], w[..., m.qk_nope_head_dim:]
+
+
+def _mla_absorb_q_lat(p, q_nope1, cfg: ModelConfig) -> torch.Tensor:
+    """``q_lat[N, H, r] = q_nope[N, H, nope] · w_k``: the heads ride the
+    grouped kernel's expert axis (B6) when the pair is int4."""
+    if "wkv_b_absorbed" in p:
+        x = q_nope1.to(torch.float32).transpose(0, 1).contiguous()
+        return kops.w4a16_grouped_matmul(
+            x, p["wkv_b_absorbed"]["wk_t"], act=cfg.act_kernel).transpose(0, 1)
+    w_k, _ = _mla_absorb_weights(p, cfg)
+    return torch.einsum("bhn,rhn->bhr", q_nope1.to(torch.float32),
+                        w_k.to(torch.float32))
+
+
+def _mla_absorb_out(p, o_lat, cfg: ModelConfig) -> torch.Tensor:
+    """``out[N, H, v] = o_lat[N, H, r] · w_v`` — the same head-as-expert
+    grouped contraction for the int4 pair."""
+    if "wkv_b_absorbed" in p:
+        x = o_lat.to(torch.float32).transpose(0, 1).contiguous()
+        return kops.w4a16_grouped_matmul(
+            x, p["wkv_b_absorbed"]["wv"], act=cfg.act_kernel).transpose(0, 1)
+    _, w_v = _mla_absorb_weights(p, cfg)
+    return torch.einsum("bhr,rhv->bhv", o_lat.to(torch.float32),
+                        w_v.to(torch.float32))
+
+
+def _mla_absorbed_attend(p, q_nope, q_pe, ckv, kpe, valid, cfg: ModelConfig):
+    """The gather oracle of one query token: absorbed-form attention against
+    gathered latent rows ``ckv[B, S, r]`` / ``kpe[B, S, dr]`` with mask
+    ``valid[B, S]`` → ``[B, 1, H·v]``."""
+    b = q_nope.shape[0]
+    q_lat = _mla_absorb_q_lat(p, q_nope[:, 0], cfg)
+    ckv = ckv.to(torch.float32)
+    sc = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+          + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].to(torch.float32),
+                         kpe.to(torch.float32))) * _mla_scale(cfg)
+    sc = torch.where(valid[:, None, :], sc, torch.full_like(sc, NEG_INF))
+    o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(sc, dim=-1), ckv)
+    return _mla_absorb_out(p, o_lat, cfg).reshape(b, 1, -1)
+
+
+def mla_prefill_chunk(p, x, pool, table_rows, start_len, chunk_len,
+                      cfg: ModelConfig):
+    """Chunked MLA prefill against the paged latent pools, absorbed form
+    (the chunk contract of :func:`gqa_prefill_chunk`): the chunk's latents
+    are written into the pages first; attention reads the start_len prefix
+    rows from the pools and the chunk's own latents raw.  Returns (y,
+    pool)."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.num_heads
+    positions = _chunk_positions(start_len, t)
+    q_nope, q_pe = _mla_q(p, x, positions, cfg)
+    ckv_suf, kpe_suf = _mla_latent(p, x, positions, cfg)
+    _scatter_chunk(pool, {"ckv": ckv_suf, "kpe": kpe_suf}, table_rows,
+                   start_len, chunk_len, cfg.kv_quant)
+    q_lat = _mla_absorb_q_lat(p, q_nope.reshape(b * t, h, -1),
+                              cfg).reshape(b, t, h, -1)
+    scale = _mla_scale(cfg)
+    if cfg.paged_attn_impl == "auto":
+        o_lat = kops.mla_paged_prefill(
+            q_lat.contiguous(), q_pe.to(torch.float32).contiguous(),
+            ckv_suf.contiguous(), kpe_suf.contiguous(), pool["ckv"],
+            pool["kpe"], table_rows, start_len, chunk_len, pool.get("ckv_s"),
+            pool.get("kpe_s"), sm_scale=scale)
+    else:
+        # dense gather + in-flight dequantization of the latent prefix, the
+        # chunk raw — the kernel's masks
+        pckv = _gathered_rows(pool, "ckv", table_rows, cfg.kv_quant)
+        pkpe = _gathered_rows(pool, "kpe", table_rows, cfg.kv_quant)
+        s = pckv.shape[1]
+        ckv_all = torch.cat([pckv.to(torch.float32),
+                             ckv_suf.to(torch.float32)], dim=1)
+        kpe_all = torch.cat([pkpe.to(torch.float32),
+                             kpe_suf.to(torch.float32)], dim=1)
+        kpos_pre = torch.arange(s, device=x.device)[None].expand(b, s)
+        k_pos = torch.cat([kpos_pre, positions], dim=1)
+        k_valid = torch.cat(
+            [kpos_pre < start_len.long()[:, None],
+             torch.arange(t, device=x.device)[None, :]
+             < chunk_len.long()[:, None]], dim=1)
+        sc = (torch.einsum("bthr,bsr->bhts", q_lat.to(torch.float32), ckv_all)
+              + torch.einsum("bthd,bsd->bhts", q_pe.to(torch.float32),
+                             kpe_all)) * scale
+        mask = k_valid[:, None, None, :] \
+            & (k_pos[:, None, None, :] <= positions[:, None, :, None])
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        o_lat = torch.einsum("bhts,bsr->bthr", torch.softmax(sc, dim=-1),
+                             ckv_all)
+    out = _mla_absorb_out(p, o_lat.reshape(b * t, h, -1), cfg).reshape(
+        b, t, h * m.v_head_dim)
+    y = L.apply_linear(p["wo"], out.to(x.dtype).contiguous(),
+                       act=cfg.act_kernel)
+    return y, pool
+
+
+def mla_decode_paged(p, x, positions, pool, table_rows, write_pos,
+                     cfg: ModelConfig):
+    """Absorbed-form decode against the paged latent pools (the page-table
+    convention of :func:`gqa_decode_paged`).  Returns (y, pool)."""
+    b = x.shape[0]
+    q_nope, q_pe = _mla_q(p, x, positions, cfg)
+    ckv_new, kpe_new = _mla_latent(p, x, positions, cfg)
+    ps = pool["ckv"].shape[1]
+    wp = write_pos.long()
+    bidx = torch.arange(b, device=x.device)
+    pg = table_rows.long()[bidx, wp // ps]
+    off = wp % ps
+    _store_rows(pool, "ckv", (pg, off), ckv_new[:, 0], cfg.kv_quant)
+    _store_rows(pool, "kpe", (pg, off), kpe_new[:, 0], cfg.kv_quant)
+    if cfg.paged_attn_impl == "auto":
+        q_lat = _mla_absorb_q_lat(p, q_nope[:, 0], cfg)
+        o_lat = kops.mla_paged_attention(
+            q_lat.contiguous(), q_pe[:, 0].to(torch.float32).contiguous(),
+            pool["ckv"], pool["kpe"], table_rows,
+            (write_pos + 1).to(torch.int32), pool.get("ckv_s"),
+            pool.get("kpe_s"), sm_scale=_mla_scale(cfg))
+        out = _mla_absorb_out(p, o_lat, cfg).reshape(b, 1, -1)
+    else:
+        ckv = _gathered_rows(pool, "ckv", table_rows, cfg.kv_quant)
+        kpe = _gathered_rows(pool, "kpe", table_rows, cfg.kv_quant)
+        valid = torch.arange(ckv.shape[1], device=x.device)[None, :] \
+            <= wp[:, None]
+        out = _mla_absorbed_attend(p, q_nope, q_pe, ckv, kpe, valid, cfg)
+    y = L.apply_linear(p["wo"], out.to(x.dtype), act=cfg.act_kernel)
+    return y, pool
+
+
+def init_mla_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
+                       device) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    shp = (num_pages, page_size)
+    if cfg.kv_quant:
+        return {"ckv": torch.zeros(*shp, m.kv_lora_rank, dtype=torch.int8,
+                                   device=device),
+                "kpe": torch.zeros(*shp, m.qk_rope_head_dim,
+                                   dtype=torch.int8, device=device),
+                "ckv_s": torch.zeros(shp, dtype=torch.float32, device=device),
+                "kpe_s": torch.zeros(shp, dtype=torch.float32, device=device)}
+    return {"ckv": torch.zeros(*shp, m.kv_lora_rank, dtype=cfg.tdtype,
+                               device=device),
+            "kpe": torch.zeros(*shp, m.qk_rope_head_dim, dtype=cfg.tdtype,
+                               device=device)}

@@ -5,10 +5,11 @@ Params: ``{"embed": {"table"}, "final_norm": {"scale"}, "lm_head": {"w"},
 where the reference ``lax.scan``s over ``[L, ...]`` stacks.  With
 ``cfg.tie_embeddings`` there is no ``lm_head``: the logits are
 ``norm(x) @ table.T``.  A MoE block's ``"mlp"`` is the router and the
-stacked experts (``models/mlp.py``).  Paged caches
-are ``{"layers": [{"k", "v"}, ...]}`` (plus ``"k_s"``/``"v_s"`` scales
-under ``kv_quant``), updated in place.  Every linear gets
-``act=cfg.act_kernel``.
+stacked experts (``models/mlp.py``).  ``cfg.mixer`` picks GQA or MLA
+(``models/attention.py``).  Paged caches are ``{"layers": [pool, ...]}``,
+one pool per layer, updated in place: ``{"k", "v"}`` for GQA, the latent
+``{"ckv", "kpe"}`` for MLA, plus their ``*_s`` scales under
+``kv_quant``.  Every linear gets ``act=cfg.act_kernel``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ Params = Dict[str, Any]
 def _init_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
     dt, dev = cfg.tdtype, gen.device
     return {"norm1": L.init_norm(cfg.d_model, dt, dev),
-            "mixer": A.init_gqa(gen, cfg),
+            "mixer": (A.init_mla(gen, cfg) if cfg.mixer == "mla"
+                      else A.init_gqa(gen, cfg)),
             "norm2": L.init_norm(cfg.d_model, dt, dev),
             "mlp": M.init_moe(gen, cfg) if cfg.moe else M.init_mlp(gen, cfg)}
 
@@ -54,23 +56,28 @@ def _channel_mix(p: Params, h: torch.Tensor, cfg: ModelConfig
 
 def _block_forward(p: Params, x, positions, cfg: ModelConfig):
     h = L.apply_norm(p["norm1"], x)
-    y, _ = A.gqa_prefill(p["mixer"], h, positions, cfg)
+    prefill = A.mla_prefill if cfg.mixer == "mla" else A.gqa_prefill
+    y, _ = prefill(p["mixer"], h, positions, cfg)
     x = x + y
     return x + _channel_mix(p, L.apply_norm(p["norm2"], x), cfg)
 
 
 def _block_prefill_chunk(p, x, start_len, chunk_len, pool, table_rows, cfg):
     h = L.apply_norm(p["norm1"], x)
-    y, pool = A.gqa_prefill_chunk(p["mixer"], h, pool, table_rows, start_len,
-                                  chunk_len, cfg)
+    chunk = A.mla_prefill_chunk if cfg.mixer == "mla" \
+        else A.gqa_prefill_chunk
+    y, pool = chunk(p["mixer"], h, pool, table_rows, start_len, chunk_len,
+                    cfg)
     x = x + y
     return x + _channel_mix(p, L.apply_norm(p["norm2"], x), cfg), pool
 
 
 def _block_decode_paged(p, x, rope_pos, write_pos, pool, table_rows, cfg):
     h = L.apply_norm(p["norm1"], x)
-    y, pool = A.gqa_decode_paged(p["mixer"], h, rope_pos, pool, table_rows,
-                                 write_pos, cfg)
+    decode = A.mla_decode_paged if cfg.mixer == "mla" \
+        else A.gqa_decode_paged
+    y, pool = decode(p["mixer"], h, rope_pos, pool, table_rows, write_pos,
+                     cfg)
     x = x + y
     return x + _channel_mix(p, L.apply_norm(p["norm2"], x), cfg), pool
 
@@ -127,5 +134,7 @@ def lm_decode_paged(p: Params, token, cache, position, table_rows,
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device) -> Any:
-    return {"layers": [A.init_gqa_page_pool(cfg, num_pages, page_size, device)
+    init = A.init_mla_page_pool if cfg.mixer == "mla" \
+        else A.init_gqa_page_pool
+    return {"layers": [init(cfg, num_pages, page_size, device)
                        for _ in range(cfg.num_layers)]}

@@ -5,14 +5,15 @@ The MoE uses the reference's equal-capacity sort-based dispatch: token
 slots are sorted by assigned expert (stable, so ties keep row order),
 sliced into an ``[E, C, D]`` buffer (overflow dropped), run through the
 stacked expert weights with one grouped product per weight, and combined
-back with the router weights.  After PTQ the stacked ``[E, Ci, Co]``
+back with the router weights; DeepSeek-V2's shared experts are one dense
+SwiGLU (``d_ff = d_expert · num_shared``) added for every token.  After PTQ the stacked ``[E, Ci, Co]``
 weights are int4 :class:`QuantizedTensor` s and contract through
 ``kernels.ops.w4a16_grouped_matmul`` (B6, or B7 under A8).  The reference's
 mesh-blocked dispatch is its one-block case here: the port has no mesh.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +26,9 @@ from repro_torch.models import layers as L
 
 
 # ------------------------------------------------------------- dense MLP ----
-def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
-    d, f, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None) -> Dict[str, Any]:
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.tdtype
     return {"gate": L.init_linear(gen, d, f, dt),
             "up": L.init_linear(gen, d, f, dt),
             "down": L.init_linear(gen, f, d, dt)}
@@ -43,7 +45,7 @@ def apply_mlp(p: Dict[str, Any], x: torch.Tensor, *, act: str = "a16"
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     m = cfg.moe
     d, fe, dt = cfg.d_model, m.d_expert, cfg.tdtype
-    return {
+    p = {
         "router": L.init_linear(gen, d, m.num_experts, dt),
         # stacked expert weights [E, D, F] / [E, F, D] (swiglu experts)
         "experts": {
@@ -52,6 +54,10 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
             "down": L._randn(gen, (m.num_experts, fe, d), fe ** -0.5, dt),
         },
     }
+    if m.num_shared_experts:
+        # the shared experts as one dense SwiGLU every token goes through
+        p["shared"] = init_mlp(gen, cfg, d_ff=fe * m.num_shared_experts)
+    return p
 
 
 def moe_capacity(n: int, m: MoEConfig) -> int:
@@ -148,6 +154,8 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
                            torch.zeros_like(gathered))
     weighted = gathered.to(torch.float32) * gate_w.reshape(-1)[:, None]
     y = weighted.reshape(n, m.top_k, d).sum(1).to(x.dtype)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], xf, act=act)
 
     me = probs.mean(0)
     ce = torch.zeros(m.num_experts, device=x.device).index_add_(

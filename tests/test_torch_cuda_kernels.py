@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 W4A16 GEMM, B5 W4A8 GEMM, K2 paged decode and
 K3 paged chunked prefill, fp and int8 pools, B6/B7 grouped expert GEMMs, B4
-flash attention) against their plain PyTorch versions on the card.
+flash attention, B8/B9 absorbed MLA paged decode and chunked prefill, fp and
+int8 latent pools) against their plain PyTorch versions on the card.
 
 Marked ``cuda``: skipped where there is no GPU.  Run on the GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
@@ -286,6 +287,107 @@ def test_flash_kernel_matches_plain(dev, dt, b, t, h, hkv, d, causal):
     tol = 1e-5 if dt == torch.float32 else 1e-2
     assert _rel_err(out, FA.flash_attention_plain(q, k, v, causal=causal)) \
         <= tol
+
+
+# (heads, r, dr, page size): full width, smoke width
+MLA_WIDTHS = [(128, 512, 64, 16), (4, 16, 8, 8)]
+
+
+def _mla_paged(dev, kind, b, lengths, r, dr, ps=16, pages=6, seed=0):
+    """Latent pools of ``kind`` (f32, bf16, or int8 codes with f32 row
+    scales) for ``lengths``: the plain version's clean copy, the kernel's
+    copy with the trash page 0 poisoned (NaN; int8: codes -128 and NaN
+    scales), and the table (shuffled live pages, dead entries 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + b * pages
+    if kind == torch.int8:
+        clean = [torch.randint(-127, 128, (n_pages, ps, d), generator=gen,
+                               device=dev, dtype=torch.int8)
+                 for d in (r, dr)]
+        clean += [torch.rand(n_pages, ps, generator=gen, device=dev) * 0.03
+                  + 1e-3 for _ in range(2)]
+    else:
+        clean = [torch.randn(n_pages, ps, d, generator=gen, device=dev).to(
+            kind) for d in (r, dr)] + [None, None]
+    bad = [None if t is None else t.clone() for t in clean]
+    for t in bad:
+        if t is not None:
+            t[0] = -128 if t.dtype == torch.int8 else float("nan")
+    table = torch.zeros(b, pages, dtype=torch.int32)
+    perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    k = 0
+    for i, n in enumerate(lengths):
+        live = -(-int(n) // ps)
+        table[i, :live] = torch.from_numpy(perm[k:k + live].astype(np.int32))
+        k += live
+    return clean, bad, table.to(dev)
+
+
+@pytest.mark.parametrize("kind", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("h,r,dr,ps", MLA_WIDTHS)
+def test_mla_decode_kernel_matches_plain(dev, kind, h, r, dr, ps):
+    lengths = [1, 17, 96, 0, 40]                  # 0: an empty slot
+    b = len(lengths)
+    clean, bad, table = _mla_paged(dev, kind, b, lengths, r, dr, ps=ps,
+                                   pages=96 // ps, seed=h + r)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q_lat = torch.randn(b, h, r, generator=gen, device=dev)
+    q_pe = torch.randn(b, h, dr, generator=gen, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sc = (128 + 64) ** -0.5
+    quant = kind == torch.int8
+    counter = (PA.mla_paged_attention_int8_cuda if quant
+               else PA.mla_paged_attention_cuda)
+    before = counter.launches
+    out = ops.mla_paged_attention(q_lat, q_pe, bad[0], bad[1], table, lens,
+                                  bad[2], bad[3], sm_scale=sc)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (b, h, r)
+    assert bool(torch.isfinite(out).all())        # the trash page never read
+    ref = PA.mla_paged_attention_plain(q_lat, q_pe, clean[0], clean[1],
+                                       table, lens, clean[2], clean[3],
+                                       sm_scale=sc)
+    assert _rel_err(out, ref) <= 1e-5
+    assert not out[3].any()
+
+
+@pytest.mark.parametrize("kind,sdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.int8, torch.float32),
+                                      (torch.int8, torch.bfloat16)])
+@pytest.mark.parametrize("h,r,dr,ps", MLA_WIDTHS)
+@pytest.mark.parametrize("t", [8, 33])
+def test_mla_prefill_kernel_matches_plain(dev, kind, sdt, h, r, dr, ps, t):
+    prefix = [0, 5, 32, 19, 0]
+    chunk = [t, t - 3, t // 2, 1, 0]              # padding rows; an empty row
+    b = len(prefix)
+    clean, bad, table = _mla_paged(
+        dev, kind, b, [p + c for p, c in zip(prefix, chunk)], r, dr, ps=ps,
+        pages=96 // ps, seed=t + h)
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q_lat = torch.randn(b, t, h, r, generator=gen, device=dev)
+    q_pe = torch.randn(b, t, h, dr, generator=gen, device=dev)
+    c_suf = torch.randn(b, t, r, generator=gen, device=dev).to(sdt)
+    k_suf = torch.randn(b, t, dr, generator=gen, device=dev).to(sdt)
+    pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
+    cl = torch.tensor(chunk, dtype=torch.int32, device=dev)
+    sc = (128 + 64) ** -0.5
+    quant = kind == torch.int8
+    counter = (PA.mla_paged_prefill_int8_cuda if quant
+               else PA.mla_paged_prefill_cuda)
+    before = counter.launches
+    out = ops.mla_paged_prefill(q_lat, q_pe, c_suf, k_suf, bad[0], bad[1],
+                                table, pl, cl, bad[2], bad[3], sm_scale=sc)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert tuple(out.shape) == (b, t, h, r)
+    assert bool(torch.isfinite(out).all())
+    ref = PA.mla_paged_prefill_plain(q_lat, q_pe, c_suf, k_suf, clean[0],
+                                     clean[1], table, pl, cl, clean[2],
+                                     clean[3], sm_scale=sc)
+    assert _rel_err(out, ref) <= 1e-5
+    assert not out[4].any()                       # no prefix, no chunk
 
 
 def test_launch_counters_reset(dev):

@@ -233,10 +233,13 @@ def test_entry_points_raise_without_a_card(models):
 
 def test_unported_features_raise(models):
     _, tcfg, _ = models
-    for kw in (dict(mixer="mla"), dict(family="hybrid"),
+    for kw in (dict(mixer="mamba2"), dict(family="hybrid"),
                dict(family="audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcfg.with_(**kw).check()
+    # MLA is ported, but only with its MLAConfig
+    with pytest.raises(ValueError, match="disagree"):
+        tcfg.with_(mixer="mla").check()
     # int8 KV pools, W4A8 prefill, the flash kernel and tied embeddings are
     # ported: check() accepts them
     for kw in (dict(kv_quant=True), dict(act_quant="a8_prefill"),
@@ -245,6 +248,7 @@ def test_unported_features_raise(models):
         tcfg.with_(**kw).check()
     gcfg = get_config("granite-moe-1b-a400m", smoke=True)
     gcfg.with_(attn_impl="flash").check()
+    get_config("deepseek-v2-236b").check()
     # the router stays f32 and is never quantized: other settings raise
     with pytest.raises(NotImplementedError, match="router_dtype"):
         gcfg.with_(moe=dataclasses.replace(
@@ -254,4 +258,4 @@ def test_unported_features_raise(models):
     with pytest.raises(NotImplementedError, match="skip_router"):
         quantize_params({"layers": []}, gcfg, QuantConfig(skip_router=False))
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("deepseek-v2-236b")
+        get_config("zamba2-7b")
