@@ -10,11 +10,17 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    (one nvcc per source, in parallel);
 2. kernels — K1 (W4A16 GEMM), K2 (paged decode), K3 (paged chunked prefill),
    B5 (W4A8 GEMM), the int8-pool branches of K2/K3, B6/B7 (grouped W4A16 /
-   W4A8 expert GEMMs, ragged zero capacity rows), B4 (flash attention) and
-   B8/B9 (absorbed MLA paged decode / chunked prefill, fp and int8 latent
-   pools) against their plain PyTorch versions at the paths' shapes, with
+   W4A8 expert GEMMs, ragged zero capacity rows; B6 also on deepseek's
+   routed decode with per-expert ``rows`` and the idle experts' scales
+   NaN), B4 (flash attention), B8/B9 (absorbed MLA paged decode / chunked
+   prefill, fp and int8 latent pools), and K1/B6 with an offset-only group,
+   against their plain PyTorch versions at the paths' shapes, with
    CUDA-event times beside the plain version's, one PyTorch library call's
-   (never used by the port) and the card's bound;
+   (never used by the port) and the card's bound.  K1 and B6 (and their
+   library call) are timed as CUDA graphs of the calls, their kernels'
+   device time, with the eager wrapper's time beside it; their bound counts
+   bf16 tensor-core passes (three for f32 X) at 989 TFLOP/s and, with
+   ``rows``, only the live experts' bytes; then the phase's peak memory;
 3. paths — full width with random seeded weights, 8 requests (prompts of
    32-200 tokens, 16 new tokens, batch 4, greedy), every launch counter set
    to 0 just before and read just after each path; during each path the
@@ -96,6 +102,9 @@ HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA-core f32 (the kernels' route)
               torch.bfloat16: 989e12,
               torch.int8: 1979e12}    # int8 tensor cores
+# K1/B6 run bf16 tensor-core MMAs on the raw int4 codes: one pass for bf16
+# X, three for f32 X (split into three bf16 terms)
+TC_PASSES = {torch.float32: 3, torch.bfloat16: 1}
 L2_BYTES = 50 * 2 ** 20
 DEV = torch.device("cuda")
 RESULTS = {"kernels": {}, "rows": []}
@@ -134,28 +143,111 @@ def time_ms(fns, min_total_ms=60.0):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fns, calls=24, min_total_ms=60.0):
+    """Device time of one call: ``calls`` calls cycling through ``fns``
+    captured in one CUDA graph, replayed, CUDA-event time over the calls.
+    No host launch cost is in it: where a call's kernels take less time
+    than the Python wrapper needs to launch them, :func:`time_ms` measures
+    the wrapper."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize()
+    once = max((time.perf_counter() - t0) * 1e3, 1e-3)
+    reps = int(min(max(min_total_ms / once, 3), 100))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def bound(nbytes, flops, dtype):
     t_b, t_f = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def tc_bound(nbytes, macs, dtype):
+    """K1/B6's bound: ``macs`` multiply-adds in ``TC_PASSES`` bf16
+    tensor-core passes at 989 TFLOP/s, against the bytes."""
+    return bound(nbytes, TC_PASSES[dtype] * 2.0 * macs, torch.bfloat16)
 
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def record(kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, by):
+def record(kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, by,
+           wrapper_ms=None):
     row = dict(kernel=kernel, case=case, max_abs_err=err, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                bound_by=by)
+    if wrapper_ms is not None:
+        row["wrapper_ms"] = wrapper_ms
     RESULTS["rows"].append(row)
+    wrap = "" if wrapper_ms is None else f" (eager wrapper {wrapper_ms:.4f}ms)"
     print(f"  {kernel:18s} {case:44s} err={err:.3g} (tol {tol:.3g}) "
-          f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms library={lib_ms:.4f}ms "
-          f"bound={bnd:.4f}ms ({by})", flush=True)
+          f"kernel={ms:.4f}ms{wrap} plain={plain_ms:.4f}ms "
+          f"library={lib_ms:.4f}ms bound={bnd:.4f}ms ({by})", flush=True)
     require(err <= tol, f"{kernel} {case}: max |kernel - plain| = {err} > {tol}")
     return row
 
 
 # --------------------------------------------------------------- kernels ---
+def _gemm_case(name, cuda_fn, plain_fn, qt, x, a8, tag):
+    """One K1 (``a8=False``) or B5 case: the kernel against its plain
+    version, then timed over copies of the weight that together exceed L2,
+    beside the plain version and bf16 ``torch.matmul`` on the dequantized
+    weight (the library)."""
+    t, ci = x.shape
+    co, dt = qt.shape[-1], x.dtype
+    n_copy = max(1, math.ceil(2 * L2_BYTES / qt.nbytes_quant()))
+    qts = [qt] + [qt.map(torch.clone) for _ in range(n_copy - 1)]
+    w_lib = dequantize(qt, torch.bfloat16)
+    libs = [w_lib] + [w_lib.clone() for _ in range(
+        max(0, math.ceil(2 * L2_BYTES / w_lib.nbytes) - 1))]
+    ref = plain_fn(x, qt)
+    y = cuda_fn(x, qt)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    tol = (1e-5 if dt == torch.float32 else 1e-2) * scale
+    # B5's time is its wrapper's: activation quantization + kernel.  K1's is
+    # its kernels' device time (a CUDA graph of the calls; the library
+    # likewise), with the eager wrapper's time beside it
+    kern_fns = [lambda q=q: cuda_fn(x, q) for q in qts]
+    ms = time_ms(kern_fns) if a8 else graph_ms(kern_fns)
+    wrapper = None if a8 else time_ms(kern_fns)
+    plain = time_ms([lambda q=q: plain_fn(x, q) for q in qts])
+    xb = x.to(torch.bfloat16)
+    lib_fns = [lambda m=m: torch.matmul(xb, m) for m in libs]
+    lib = time_ms(lib_fns) if a8 else graph_ms(lib_fns)
+    el = x.element_size()
+    if a8:   # int8 codes and a scale per token, at the int8 rate
+        bnd, by = bound((t * ci + t * 4) + qt.nbytes_quant() + t * co * el,
+                        2.0 * t * ci * co, torch.int8)
+    else:
+        bnd, by = tc_bound(t * ci * el + qt.nbytes_quant() + t * co * el,
+                           t * ci * co, dt)
+    case = f"T={t} {ci}x{co} G=128{tag} {str(dt)[6:]}"
+    return record(name, case, max_err(y, ref), tol, ms, plain, lib, bnd, by,
+                  wrapper)
+
+
 def _check_gemm(name, cuda_fn, plain_fn, ts, a8):
     """K1 (``a8=False``) or B5 at the paths' GEMM shapes, G=128, f32 and
     bf16 X.  For B5 group 0 holds zeros whose int8 fold needs the clip."""
@@ -169,35 +261,45 @@ def _check_gemm(name, cuda_fn, plain_fn, ts, a8):
                 zeros = qt.zeros.clone()
                 zeros[0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
                 qt = dataclasses.replace(qt, zeros=zeros)
-            n_copy = max(1, math.ceil(2 * L2_BYTES / qt.nbytes_quant()))
-            qts = [qt] + [qt.map(torch.clone) for _ in range(n_copy - 1)]
-            w_lib = dequantize(qt, torch.bfloat16)
-            libs = [w_lib] + [w_lib.clone() for _ in range(
-                max(0, math.ceil(2 * L2_BYTES / w_lib.nbytes) - 1))]
             for t in ts:
                 x = torch.randn(t, ci, generator=gen, device=DEV).to(dt)
-                ref = plain_fn(x, qt)
-                y = cuda_fn(x, qt)
-                torch.cuda.synchronize()
-                scale = max(1.0, float(ref.float().abs().max()))
-                tol = (1e-5 if dt == torch.float32 else 1e-2) * scale
-                # B5's time is its wrapper's: activation quantization + kernel
-                ms = time_ms([lambda q=q: cuda_fn(x, q) for q in qts])
-                plain = time_ms([lambda q=q: plain_fn(x, q) for q in qts])
-                xb = x.to(torch.bfloat16)
-                lib = time_ms([lambda m=m: torch.matmul(xb, m) for m in libs])
-                el = x.element_size()
-                # B5 reads int8 codes and a scale per token, at the int8 rate
-                nbytes = ((t * ci + t * 4) if a8 else t * ci * el) \
-                    + qt.nbytes_quant() + t * co * el
-                bnd, by = bound(nbytes, 2.0 * t * ci * co,
-                                torch.int8 if a8 else dt)
-                case = (f"T={t} {ci}x{co} G=128{' clip-group' if a8 else ''} "
-                        f"{str(dt)[6:]}")
-                rows[(t, ci, co, dt)] = record(name, case, max_err(y, ref),
-                                               tol, ms, plain, lib, bnd, by)
-            del qts, libs
+                rows[(t, ci, co, dt)] = _gemm_case(
+                    name, cuda_fn, plain_fn, qt, x, a8,
+                    " clip-group" if a8 else "")
     return rows
+
+
+def check_offset_only():
+    """K1 and B6 with an offset-only group (group 0's zero point -15000,
+    past bf16's exact integers), f32 and bf16 X: K1 at T=4 and 512 on
+    4096x11008, B6 at granite's decode and prefill capacities (E=32,
+    1024x512, every row live)."""
+    print("K1 / B6 with an offset-only group (zero point -15000)")
+    from repro_torch.configs import get_config
+
+    c_pre = MLP.moe_capacity(512, get_config("granite-moe-1b-a400m").moe)
+    gen = torch.Generator(device=DEV).manual_seed(15000)
+    w1 = torch.randn(4096, 11008, generator=gen, device=DEV) * 4096 ** -0.5
+    w6 = torch.randn(32, 1024, 512, generator=gen, device=DEV) * 1024 ** -0.5
+    for dt in (torch.float32, torch.bfloat16):
+        qt = quantize(w1, group_size=128, dtype=dt)
+        zeros = qt.zeros.clone()
+        zeros[0] = -15000.0
+        qt = dataclasses.replace(qt, zeros=zeros)
+        for t in (4, 512):
+            x = torch.randn(t, 4096, generator=gen, device=DEV).to(dt)
+            _gemm_case("w4a16_matmul", W4.w4a16_matmul_cuda,
+                       W4.w4a16_matmul_plain, qt, x, False,
+                       " offset-only group")
+        qt = quantize(w6, group_size=128, dtype=dt)
+        zeros = qt.zeros.clone()
+        zeros[:, 0] = -15000.0
+        qt = dataclasses.replace(qt, zeros=zeros)
+        for c in (8, c_pre):
+            x = torch.randn(32, c, 1024, generator=gen, device=DEV).to(dt)
+            _grouped_case(qt, x, torch.full((32,), c, device=DEV), False,
+                          " offset-only group")
+    del w1, w6
 
 
 def check_k1():
@@ -396,18 +498,20 @@ def check_k3():
     return rows
 
 
-def _grouped_case(q_, x, filled, a8, tag):
+def _grouped_case(q_, x, filled, a8, tag, rows=None):
     """One B6 (``a8=False``) or B7 case: the kernel on ``x`` [E, C, Ci]
     whose rows ``filled[e]:`` are zero (their outputs must be exactly zero)
     against its plain version, then timed over copies of the weights that
     together exceed L2, beside the plain version and bf16 ``torch.bmm`` on
-    the dequantized weights (the library)."""
+    the dequantized weights (the library).  ``rows`` (B6 only) is handed
+    to both: the kernel reads only the live experts' weights and rows."""
     e, c, ci = x.shape
     co, dt = q_.shape[-1], x.dtype
     kern = W4G.w4a8_grouped_cuda if a8 else W4G.w4a16_grouped_cuda
     plain = W4G.w4a8_grouped_plain if a8 else W4G.w4a16_grouped_plain
-    ref = plain(x, q_)
-    y = kern(x, q_)
+    extra = () if rows is None else (rows,)
+    ref = plain(x, q_, *extra)
+    y = kern(x, q_, *extra)
     torch.cuda.synchronize()
     require(all(not y[i, n:].any() for i, n in enumerate(filled.tolist())),
             f"{kern.__name__}: zero capacity rows not zero")
@@ -417,21 +521,32 @@ def _grouped_case(q_, x, filled, a8, tag):
     qts = [q_] + [q_.map(torch.clone) for _ in range(n_copy - 1)]
     w_lib = dequantize(q_, torch.bfloat16)
     libs = [w_lib] + [w_lib.clone() for _ in range(n_copy - 1)]
-    # B7's time is its wrapper's: activation quantization + kernel
-    ms = time_ms([lambda q=q: kern(x, q) for q in qts])
-    plain_ms = time_ms([lambda q=q: plain(x, q) for q in qts])
+    # B7's time is its wrapper's: activation quantization + kernel.  B6's
+    # is its kernels' device time (a CUDA graph of the calls; the library
+    # likewise), with the eager wrapper's time beside it
+    kern_fns = [lambda q=q: kern(x, q, *extra) for q in qts]
+    ms = time_ms(kern_fns) if a8 else graph_ms(kern_fns)
+    wrapper = None if a8 else time_ms(kern_fns)
+    plain_ms = time_ms([lambda q=q: plain(x, q, *extra) for q in qts])
     xb = x.to(torch.bfloat16)
-    lib = time_ms([lambda m=m: torch.bmm(xb, m) for m in libs])
+    lib_fns = [lambda m=m: torch.bmm(xb, m) for m in libs]
+    lib = time_ms(lib_fns) if a8 else graph_ms(lib_fns)
     el = x.element_size()
     live = int(filled.sum())
-    nbytes = ((e * c * ci + e * c * 4) if a8 else e * c * ci * el) \
-        + q_.nbytes_quant() + e * c * co * el
-    bnd, by = bound(nbytes, 2.0 * live * ci * co, torch.int8 if a8 else dt)
     name = "w4a8_grouped" if a8 else "w4a16_grouped"
+    if a8:
+        bnd, by = bound(e * c * ci + e * c * 4 + q_.nbytes_quant()
+                        + e * c * co * el, 2.0 * live * ci * co, torch.int8)
+    else:   # with rows, only the live experts' weights and rows are read
+        n_exp = e if rows is None else int((rows > 0).sum())
+        x_rows = e * c if rows is None else live
+        bnd, by = tc_bound(x_rows * ci * el + q_.nbytes_quant() * n_exp // e
+                           + e * c * co * el + 4 * len(extra) * e,
+                           live * ci * co, dt)
     case = (f"E={e} C={c} ({live} live rows) {ci}x{co} G=128"
             f"{' clip-group' if a8 else ''} {str(dt)[6:]}{tag}")
     return record(name, case, max_err(y, ref), tol, ms, plain_ms, lib, bnd,
-                  by)
+                  by, wrapper)
 
 
 def check_grouped():
@@ -471,6 +586,7 @@ def check_grouped():
                 rows[(a8, c, ci, dt)] = _grouped_case(qt8 if a8 else qt, x,
                                                       filled, a8, "")
     print("B6 w4a16_grouped at deepseek-v2-236b's shapes (path 4)")
+    moe = get_config("deepseek-v2-236b").moe
     for e, c, ci, co in ((160, 6, 5120, 1536), (160, 6, 1536, 5120),
                          (128, 4, 128, 512), (128, 4, 512, 128),
                          (128, 128, 128, 512), (128, 128, 512, 128)):
@@ -481,6 +597,24 @@ def check_grouped():
         x = torch.randn(e, c, ci, generator=gen, device=DEV)
         filled = torch.full((e,), c, device=DEV)
         _grouped_case(qt, x, filled, False, " (deepseek)")
+        if e == moe.num_experts:
+            # decode with real routing: 4 tokens x top-6 from a seeded
+            # router, the capacity rows past each expert's count zero, the
+            # idle experts' scales NaN (never read)
+            probs = torch.softmax(torch.randn(4, e, generator=gen,
+                                              device=DEV), dim=-1)
+            top = torch.topk(probs, moe.top_k, dim=-1).indices
+            counts = torch.zeros(e, dtype=torch.long, device=DEV).index_add_(
+                0, top.reshape(-1), torch.ones_like(top.reshape(-1)))
+            rows_e = torch.clamp(counts, max=c).to(torch.int32)
+            xr = torch.where(torch.arange(c, device=DEV)[None, :, None]
+                             < rows_e[:, None, None], x, 0.0)
+            scales = qt.scales.clone()
+            scales[rows_e == 0] = float("nan")
+            _grouped_case(dataclasses.replace(qt, scales=scales), xr,
+                          rows_e, False,
+                          f" routed, {int((rows_e > 0).sum())} live experts"
+                          " (deepseek)", rows=rows_e)
         del qt, x
     return rows
 
@@ -1381,8 +1515,17 @@ def main():
     RESULTS.update(card=card, torch=torch.__version__,
                    cuda=torch.version.cuda, build_s=build_s)
 
+    torch.cuda.reset_peak_memory_stats()
     k1, b5, k2, k3 = check_k1(), check_b5(), check_k2(), check_k3()
     b67, b4, b89 = check_grouped(), check_flash(), check_mla()
+    check_offset_only()
+    RESULTS["kernel_phase_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"kernel phase peak memory "
+          f"{RESULTS['kernel_phase_peak_mem_bytes'] / 2 ** 30:.2f} GiB "
+          f"(of {torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+          " GiB)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     counts1 = main_path()
     gc.collect()
     torch.cuda.empty_cache()        # path 1's engine and params are gone

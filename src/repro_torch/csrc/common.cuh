@@ -85,14 +85,14 @@ static cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Group-wise int4 GEMM tiles: the bodies of K1 (w4a16_matmul.cu, A16) and B5
-// (w4a8_matmul.cu, per-token int8 activations), shared with their grouped
-// (stacked-expert) forms B6 (w4a16_grouped.cu) and B7 (w4a8_grouped.cu).
-// One call computes the [kTTile tokens, kBlockCo columns] output tile
-// (t_blk, col_blk) of Y[T, Co] = X[T, Ci] @ W[Ci, Co]; the kernels pick the
-// tile from blockIdx and, in the grouped forms, offset every operand to one
-// expert first.  Each source's header says how the tile is laid out and
-// what bounds it on the card.
+// Group-wise int4 GEMM tile with per-token int8 activations: the body of B5
+// (w4a8_matmul.cu), shared with its grouped (stacked-expert) form B7
+// (w4a8_grouped.cu).  One call computes the [kTTile tokens, kBlockCo
+// columns] output tile (t_blk, col_blk) of Y[T, Co] = X[T, Ci] @ W[Ci, Co];
+// the kernels pick the tile from blockIdx and, in the grouped form, offset
+// every operand to one expert first.  Each source's header says how the
+// tile is laid out and what bounds it on the card.  (The W4A16 tile of K1
+// and B6 is w4a16_tile.cuh.)
 namespace w4 {
 
 constexpr int kColsPerThread = 4;
@@ -102,100 +102,9 @@ constexpr int kSplits = 8;
 constexpr int kTTile = 8;
 constexpr int kThreads = kColLanes * kSplits;          // 128
 
-inline size_t a16_smem_bytes(int G) {
-  return sizeof(float) * (size_t)kSplits * kTTile * (G + kBlockCo);
-}
-
 inline size_t a8_smem_bytes(int G) {
   return (size_t)kSplits * kTTile * G                          // int8 X codes
          + sizeof(float) * (size_t)kSplits * kTTile * kBlockCo;  // reduction
-}
-
-template <typename XT, typename ST>
-__device__ __forceinline__ void a16_tile(
-    const XT* __restrict__ x, const uint8_t* __restrict__ packed,
-    const ST* __restrict__ scales, const ST* __restrict__ zeros,
-    XT* __restrict__ y, int T, int Ci, int Co, int G, int col_blk, int t_blk,
-    float* __restrict__ smem) {
-  const int lane = threadIdx.x % kColLanes;
-  const int ks = threadIdx.x / kColLanes;
-  float* xs = smem + (size_t)ks * kTTile * G;                 // [kTTile][G]
-  float* red = smem + (size_t)kSplits * kTTile * G;           // [kSplits][kTTile][kBlockCo]
-
-  const int col0 = col_blk * kBlockCo + lane * kColsPerThread;
-  const int t0 = t_blk * kTTile;
-  const bool col_ok = col0 < Co;
-  const int n_groups = Ci / G;
-  const int half = G / 2;
-
-  float acc[kTTile][kColsPerThread];
-#pragma unroll
-  for (int tt = 0; tt < kTTile; ++tt)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[tt][j] = 0.f;
-
-  for (int round = 0; round < n_groups; round += kSplits) {
-    const int g = round + ks;
-    __syncthreads();  // the previous round's reads of xs are finished
-    if (g < n_groups) {
-      for (int i = lane; i < kTTile * G; i += kColLanes) {
-        const int tt = i / G, kk = i - tt * G;
-        const int t = t0 + tt;
-        xs[i] = t < T ? to_f32(x[(size_t)t * Ci + (size_t)g * G + kk]) : 0.f;
-      }
-    }
-    __syncthreads();
-    if (g < n_groups && col_ok) {
-      float sc[kColsPerThread], zr[kColsPerThread];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        sc[j] = to_f32(scales[(size_t)g * Co + col0 + j]);
-        zr[j] = to_f32(zeros[(size_t)g * Co + col0 + j]);
-      }
-      const uint8_t* prow = packed + (size_t)g * half * Co + col0;
-#pragma unroll 4
-      for (int r = 0; r < half; ++r) {
-        const uint32_t word =
-            __ldg(reinterpret_cast<const unsigned int*>(prow + (size_t)r * Co));
-        float wlo[kColsPerThread], whi[kColsPerThread];
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) {
-          const uint32_t b = (word >> (8 * j)) & 0xFFu;
-          wlo[j] = (static_cast<float>(b & 0xFu) - zr[j]) * sc[j];
-          whi[j] = (static_cast<float>(b >> 4) - zr[j]) * sc[j];
-        }
-#pragma unroll
-        for (int tt = 0; tt < kTTile; ++tt) {
-          const float xl = xs[tt * G + r];
-          const float xh = xs[tt * G + half + r];
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) {
-            acc[tt][j] = fmaf(xl, wlo[j], acc[tt][j]);
-            acc[tt][j] = fmaf(xh, whi[j], acc[tt][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int tt = 0; tt < kTTile; ++tt)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j)
-      red[((size_t)ks * kTTile + tt) * kBlockCo + lane * kColsPerThread + j] =
-          acc[tt][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTTile * kBlockCo; i += kThreads) {
-    const int tt = i / kBlockCo, c = i - tt * kBlockCo;
-    const int t = t0 + tt, col = col_blk * kBlockCo + c;
-    if (t < T && col < Co) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < kSplits; ++k)
-        s += red[((size_t)k * kTTile + tt) * kBlockCo + c];
-      store_as(&y[(size_t)t * Co + col], s);
-    }
-  }
 }
 
 __device__ __forceinline__ uint32_t splat(int v) {

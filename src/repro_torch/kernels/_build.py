@@ -132,7 +132,8 @@ def check(err: int, what: str) -> None:
 
 
 def vp(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """The device pointer of tensor ``t`` (NULL for None)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

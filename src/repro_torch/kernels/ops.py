@@ -8,6 +8,7 @@ falls back from the kernel to the plain version.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -50,20 +51,27 @@ def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
 
 
 def w4a16_grouped_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
-                         act: str = "a16") -> torch.Tensor:
+                         act: str = "a16",
+                         rows: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Expert-batched contraction ``x[E, C, D] @ dequant(qt)[E, D, F]``: B6,
     or B7 where :func:`_resolve_act` grants A8 with the per-expert row count
-    ``C`` as the token count (decode's capacity stays A16)."""
+    ``C`` as the token count (decode's capacity stays A16).  ``rows``
+    (int32[E], optional) is the count of live leading rows of each expert;
+    the rows past it must be zero rows of ``x``.  B6 then skips the idle
+    experts' weights; B7 takes no ``rows`` (zero rows give zero rows)."""
     if qt.ndim != 3:
         raise ValueError(f"grouped matmul needs stacked [E, Ci, Co] weights; "
                          f"got {qt.shape}")
     if x.ndim != 3:
         raise ValueError(f"expected x[E, C, D], got shape {tuple(x.shape)}")
-    a8 = _resolve_act(act, qt, x.shape[1]) == "a8"
+    if _resolve_act(act, qt, x.shape[1]) == "a8":
+        if _route(x) == "cpu":
+            return _w4g.w4a8_grouped_plain(x, qt)
+        return _w4g.w4a8_grouped_cuda(x, qt)
     if _route(x) == "cpu":
-        return (_w4g.w4a8_grouped_plain if a8
-                else _w4g.w4a16_grouped_plain)(x, qt)
-    return (_w4g.w4a8_grouped_cuda if a8 else _w4g.w4a16_grouped_cuda)(x, qt)
+        return _w4g.w4a16_grouped_plain(x, qt, rows)
+    return _w4g.w4a16_grouped_cuda(x, qt, rows)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

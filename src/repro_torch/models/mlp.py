@@ -65,23 +65,28 @@ def moe_capacity(n: int, m: MoEConfig) -> int:
     return max(int(n * m.top_k / m.num_experts * m.capacity_factor), m.top_k)
 
 
-def _expert_matmul(x: torch.Tensor, w, *, act: str = "a16") -> torch.Tensor:
+def _expert_matmul(x: torch.Tensor, w, *, act: str = "a16",
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-expert contraction ``x[E, C, D] @ w[E, D, F] → [E, C, F]`` in f32:
     a stacked fp tensor, or after PTQ a stacked int4 QuantizedTensor through
-    the grouped kernel (never dequantized model-side)."""
+    the grouped kernel (never dequantized model-side), told each expert's
+    filled rows ``rows`` (int32[E]; the rows past them are zero)."""
     if isinstance(w, QuantizedTensor):
         return kops.w4a16_grouped_matmul(x.to(torch.float32).contiguous(), w,
-                                         act=act)
+                                         act=act, rows=rows)
     return torch.bmm(x.to(torch.float32), w.to(torch.float32))
 
 
 def _dispatch_indices(expert_ids: torch.Tensor, num_experts: int,
-                      capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      capacity: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort-based dispatch bookkeeping.
 
     expert_ids: [N] (token slot → expert).  Returns (buf_idx [N], keep [N]
-    bool): token slot i goes to flat buffer row ``buf_idx[i]`` (= expert ·
-    capacity + position) iff ``keep[i]``.
+    bool, counts [E]): token slot i goes to flat buffer row ``buf_idx[i]``
+    (= expert · capacity + position) iff ``keep[i]``; ``counts[e]`` slots
+    chose expert e (before the capacity drop), so its filled rows are the
+    prefix ``min(counts[e], capacity)``.
     """
     n = expert_ids.shape[0]
     ids = expert_ids.long()
@@ -102,7 +107,7 @@ def _dispatch_indices(expert_ids: torch.Tensor, num_experts: int,
     buf_idx[sort_idx] = buf_sorted
     keep = torch.empty_like(keep_sorted)
     keep[sort_idx] = keep_sorted
-    return buf_idx, keep
+    return buf_idx, keep, counts
 
 
 def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
@@ -122,7 +127,9 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
 
     capacity = moe_capacity(n, m)
     flat_e = gate_e.reshape(-1)                                 # [N·K]
-    buf_idx, keep = _dispatch_indices(flat_e, m.num_experts, capacity)
+    buf_idx, keep, counts = _dispatch_indices(flat_e, m.num_experts,
+                                              capacity)
+    rows = torch.clamp(counts, max=capacity).to(torch.int32)
     # scatter only the slot → token map, then gather the rows
     n_slots = m.num_experts * capacity
     slot_tok = torch.full((n_slots + 1,), -1, dtype=torch.long,
@@ -136,8 +143,8 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
 
     act = cfg.act_kernel
     ew = p["experts"]
-    gate_h = _expert_matmul(buf, ew["gate"], act=act)
-    up_h = _expert_matmul(buf, ew["up"], act=act)
+    gate_h = _expert_matmul(buf, ew["gate"], act=act, rows=rows)
+    up_h = _expert_matmul(buf, ew["up"], act=act, rows=rows)
     hidden = F.silu(gate_h) * up_h
     col = _calib.current_collector()
     if col is not None:   # per-expert input stats (no apply_linear here)
@@ -147,7 +154,7 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
         col.record_explicit(("mlp", "experts", "down"),
                             hidden.abs().amax(dim=1),
                             a8_err=a8_roundtrip_error(hidden))
-    out = _expert_matmul(hidden, ew["down"], act=act).to(x.dtype)
+    out = _expert_matmul(hidden, ew["down"], act=act, rows=rows).to(x.dtype)
 
     gathered = out.reshape(n_slots, d)[buf_idx]                 # [N·K, D]
     gathered = torch.where(keep[:, None], gathered,

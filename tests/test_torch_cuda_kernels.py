@@ -8,9 +8,13 @@ Marked ``cuda``: skipped where there is no GPU.  Run on the GPU machine with
 
 Tolerances, relative to the largest |reference| value: f32 outputs 1e-5
 (sums in another order); K1/B5/B6/B7 and B4 with bf16 activations 1e-2
-(the output is rounded to bf16).  Dead table entries point at a trash page filled with NaN
-(int8 pools: codes -128 and NaN scales): the kernels must never read it (the
-plain versions are given a clean copy).
+(the output is rounded to bf16).  K1 and B6 run the tensor-core tile of
+``csrc/w4a16_tile.cuh``: its row tiles (8 and 64), split-K, an offset-only
+group, bitwise repeatability and B6's ``rows`` (idle experts' scales
+poisoned with NaN: never read) are tested on their own.  Dead table
+entries point at a trash page filled with NaN (int8 pools: codes -128 and
+NaN scales): the kernels must never read it (the plain versions are given
+a clean copy).
 """
 import dataclasses
 
@@ -253,6 +257,105 @@ def test_grouped_kernels_match_plain(dev, e, c, ci, co, g, xdt, sdt, a8):
     assert _rel_err(y, plain(x, qt)) <= tol
     for i, n in enumerate(filled.tolist()):
         assert not y[i, n:].any()
+
+
+def _a16_case(dev, kind, t, ci, co, g, xdt, seed, e=3):
+    """A K1 (``kind="k1"``: x[t, ci]) or B6 (x[e, t, ci]) case: operands,
+    the wrapper, its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead = () if kind == "k1" else (e,)
+    w = torch.randn(*lead, ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=g, dtype=xdt)
+    x = torch.randn(*lead, t, ci, generator=gen, device=dev).to(xdt)
+    if kind == "k1":
+        return x, qt, W4.w4a16_matmul_cuda, W4.w4a16_matmul_plain
+    return x, qt, W4G.w4a16_grouped_cuda, W4G.w4a16_grouped_plain
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("co", [200, 256])
+@pytest.mark.parametrize("t", [1, 7, 9, 17, 65, 129])
+@pytest.mark.parametrize("kind", ["k1", "b6"])
+def test_a16_tile_row_counts(dev, kind, t, co, xdt):
+    """Ragged row counts across the 8- and 64-row tiles; Co = 200 (not a
+    multiple of 16: 4-byte copies; the 128-column prefill tile) and 256
+    (the 256-column prefill tile)."""
+    x, qt, kern, plain = _a16_case(dev, kind, t, 256, co, 32, xdt, t)
+    y = kern(x, qt)
+    torch.cuda.synchronize()
+    assert y.dtype == xdt and y.shape == plain(x, qt).shape
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y, plain(x, qt)) <= tol
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,t,ci,co,g", [("k1", 4, 128, 512, 128),
+                                            ("k1", 129, 128, 96, 128),
+                                            ("b6", 6, 128, 512, 128),
+                                            ("b6", 65, 128, 512, 128),
+                                            ("b6", 129, 48, 112, 48)])
+def test_a16_tile_one_group(dev, kind, t, ci, co, g, xdt):
+    """Ci = G: a single quantization group (no split-K possible)."""
+    x, qt, kern, plain = _a16_case(dev, kind, t, ci, co, g, xdt, ci + t)
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(kern(x, qt), plain(x, qt)) <= tol
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,t", [("k1", 4), ("k1", 100), ("b6", 8),
+                                    ("b6", 40)])
+def test_a16_tile_offset_only_group(dev, kind, t, xdt):
+    """Group 0 with zero point -15000 (past bf16's exact integers): the tile
+    keeps the zero in f32 and never rounds (code - zero) to 16 bits."""
+    x, qt, kern, plain = _a16_case(dev, kind, t, 512, 256, 128, xdt, 5 + t)
+    zeros = qt.zeros.clone()
+    zeros[..., 0, :] = -15000.0
+    qt = dataclasses.replace(qt, zeros=zeros)
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(kern(x, qt), plain(x, qt)) <= tol
+
+
+@pytest.mark.parametrize("kind,t,ci,co", [("k1", 4, 4096, 4096),
+                                          ("k1", 64, 4096, 1024),
+                                          ("b6", 8, 1024, 512)])
+def test_a16_tile_split_k_bitwise_repeatable(dev, kind, t, ci, co):
+    """Shapes that split the groups over blocks: the partials are summed in
+    a fixed order, so two calls agree bit for bit."""
+    x, qt, kern, plain = _a16_case(dev, kind, t, ci, co, 128, torch.float32,
+                                   7, e=32)
+    rows = x.shape[-2]
+    assert W4._a16_plan("k", x, qt, rows, x.numel() // (rows * ci))[1] > 1
+    y1, y2 = kern(x, qt), kern(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    assert _rel_err(y1, plain(x, qt)) <= 1e-5
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,ci,co", [(16, 6, 256, 192), (8, 70, 128, 96)])
+def test_b6_rows_skip_idle_experts(dev, e, c, ci, co, xdt):
+    """``rows``: idle experts (rows 0) have NaN scales and come out exactly
+    zero, so their weights were never read; rows past rows[e] of a live
+    expert come out zero even where x is not zero there."""
+    x, qt, kern, plain = _a16_case(dev, "b6", c, ci, co, 32, xdt, e + c, e=e)
+    rows = torch.tensor([0, c, 1, 0, c // 2, 3] + [0, c] * ((e - 6) // 2),
+                        dtype=torch.int32, device=dev)
+    idle = rows == 0
+    scales = qt.scales.clone()
+    scales[idle] = float("nan")
+    qt = dataclasses.replace(qt, scales=scales)
+    before = kern.launches
+    y = kern(x, qt, rows)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    for i, n in enumerate(rows.tolist()):
+        assert not y[i, n:].any()
+    assert bool(torch.isfinite(y).all())
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y, plain(x, qt, rows)) <= tol
+    y_ops = ops.w4a16_grouped_matmul(x, qt, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(y_ops, y)
 
 
 def test_grouped_gate_on_the_card(dev):

@@ -49,9 +49,10 @@ def model():
 def test_dispatch_indices_equal_reference(n, e, cap, seed):
     ids = np.random.default_rng(seed).integers(0, e, n).astype(np.int32)
     jb, jk = JM._dispatch_indices(jnp.asarray(ids), e, cap)
-    tb, tk = TM._dispatch_indices(torch.from_numpy(ids), e, cap)
+    tb, tk, tc = TM._dispatch_indices(torch.from_numpy(ids), e, cap)
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tc.numpy(), np.bincount(ids, minlength=e))
 
 
 def test_dispatch_capacity_drops_at_half_capacity_factor(model):
@@ -65,7 +66,8 @@ def test_dispatch_capacity_drops_at_half_capacity_factor(model):
     ids = np.random.default_rng(9).integers(
         0, m.num_experts, n * m.top_k).astype(np.int32)
     jb, jk = JM._dispatch_indices(jnp.asarray(ids), m.num_experts, cap)
-    tb, tk = TM._dispatch_indices(torch.from_numpy(ids), m.num_experts, cap)
+    tb, tk, _ = TM._dispatch_indices(torch.from_numpy(ids), m.num_experts,
+                                     cap)
     assert not bool(tk.all())
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
