@@ -19,8 +19,9 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    (never used by the port) and the card's bound.  K1 and B6 (and their
    library call) are timed as CUDA graphs of the calls, their kernels'
    device time, with the eager wrapper's time beside it; their bound counts
-   bf16 tensor-core passes (three for f32 X) at 989 TFLOP/s and, with
-   ``rows``, only the live experts' bytes; then the phase's peak memory;
+   the function's 2*rows*Ci*Co operations at the bf16 tensor-core rate
+   (989 TFLOP/s) for f32 and bf16 X alike and, with ``rows``, only the live
+   experts' bytes; then the phase's peak memory;
 3. paths — full width with random seeded weights, 8 requests (prompts of
    32-200 tokens, 16 new tokens, batch 4, greedy), every launch counter set
    to 0 just before and read just after each path; during each path the
@@ -102,11 +103,12 @@ HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA-core f32 (the kernels' route)
               torch.bfloat16: 989e12,
               torch.int8: 1979e12}    # int8 tensor cores
-# K1/B6 run bf16 tensor-core MMAs on the raw int4 codes: one pass for bf16
-# X, three for f32 X (split into three bf16 terms)
-TC_PASSES = {torch.float32: 3, torch.bfloat16: 1}
 L2_BYTES = 50 * 2 ** 20
 DEV = torch.device("cuda")
+# one stream for every graph's warm-up and capture: each new stream that
+# runs a cuBLAS call (the library rows) gets a cuBLAS workspace that lives
+# as long as the process and would count in every later peak memory
+GRAPH_STREAM = torch.cuda.Stream()
 RESULTS = {"kernels": {}, "rows": []}
 
 
@@ -149,14 +151,14 @@ def graph_ms(fns, calls=24, min_total_ms=60.0):
     No host launch cost is in it: where a call's kernels take less time
     than the Python wrapper needs to launch them, :func:`time_ms` measures
     the wrapper."""
-    side = torch.cuda.Stream()
+    side = GRAPH_STREAM
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for f in fns:
             f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(calls):
             fns[i % len(fns)]()
     graph.replay()
@@ -182,10 +184,12 @@ def bound(nbytes, flops, dtype):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def tc_bound(nbytes, macs, dtype):
-    """K1/B6's bound: ``macs`` multiply-adds in ``TC_PASSES`` bf16
-    tensor-core passes at 989 TFLOP/s, against the bytes."""
-    return bound(nbytes, TC_PASSES[dtype] * 2.0 * macs, torch.bfloat16)
+def tc_bound(nbytes, macs):
+    """K1/B6's bound: the function's ``macs`` multiply-adds at the bf16
+    tensor-core rate, whatever X's type (the three MMA passes that f32 X
+    costs the tile are its design's, not the function's), against the
+    bytes."""
+    return bound(nbytes, 2.0 * macs, torch.bfloat16)
 
 
 def max_err(a, b):
@@ -242,7 +246,7 @@ def _gemm_case(name, cuda_fn, plain_fn, qt, x, a8, tag):
                         2.0 * t * ci * co, torch.int8)
     else:
         bnd, by = tc_bound(t * ci * el + qt.nbytes_quant() + t * co * el,
-                           t * ci * co, dt)
+                           t * ci * co)
     case = f"T={t} {ci}x{co} G=128{tag} {str(dt)[6:]}"
     return record(name, case, max_err(y, ref), tol, ms, plain, lib, bnd, by,
                   wrapper)
@@ -542,7 +546,7 @@ def _grouped_case(q_, x, filled, a8, tag, rows=None):
         x_rows = e * c if rows is None else live
         bnd, by = tc_bound(x_rows * ci * el + q_.nbytes_quant() * n_exp // e
                            + e * c * co * el + 4 * len(extra) * e,
-                           live * ci * co, dt)
+                           live * ci * co)
     case = (f"E={e} C={c} ({live} live rows) {ci}x{co} G=128"
             f"{' clip-group' if a8 else ''} {str(dt)[6:]}{tag}")
     return record(name, case, max_err(y, ref), tol, ms, plain_ms, lib, bnd,
@@ -1526,6 +1530,10 @@ def main():
           " GiB)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    RESULTS["kernel_phase_left_bytes"] = torch.cuda.memory_allocated()
+    print(f"kernel phase leaves "
+          f"{RESULTS['kernel_phase_left_bytes'] / 2 ** 30:.3f} GiB allocated",
+          flush=True)
     counts1 = main_path()
     gc.collect()
     torch.cuda.empty_cache()        # path 1's engine and params are gone

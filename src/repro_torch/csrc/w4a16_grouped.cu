@@ -20,8 +20,8 @@
 // packed weight bytes bound it at 3.35 TB/s: with `rows`, an expert no
 // token was routed to costs nothing (path 4 decode: at most 24 of 160
 // experts are live).  At prefill capacities (hundreds of rows) the
-// tensor-core operations bound it (2*rows*Ci*Co per pass at 989 TFLOP/s;
-// three passes for f32 X).
+// tensor-core operations bound it (2*rows*Ci*Co at 989 TFLOP/s; the tile
+// pays them three times for f32 X, split in three bf16 terms).
 //
 // Design: the tile of w4a16_tile.cuh with the expert as grid axis z (every
 // operand offset to expert e in the block), rows[e] read by each block;

@@ -12,9 +12,9 @@
 //
 // What bounds it on an H100: at decode sizes (T <= batch) it is a GEMV and
 // the packed weight bytes (Ci*Co/2 + scales + zeros) bound it at 3.35 TB/s.
-// At prefill sizes the tensor-core operations bound it: 2*T*Ci*Co per pass
-// at 989 TFLOP/s, one pass for bf16 X, three for f32 X (split in bf16
-// terms).
+// At prefill sizes the tensor-core operations bound it: 2*T*Ci*Co at
+// 989 TFLOP/s.  The tile pays that once for bf16 X and three times for f32
+// X (split in three bf16 terms), so f32 X sits at least 3x over the bound.
 //
 // Design: the tile of w4a16_tile.cuh with one "expert" (E = 1, no row
 // counts): raw int4 codes into mma.sync bf16 MMAs with the group's zero and

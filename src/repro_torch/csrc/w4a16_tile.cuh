@@ -37,7 +37,7 @@
 // groups; three tiles (launch_tiled): 8 rows x 128 columns at decode, 64
 // rows x 128 or x 256 columns at prefill (the wider stages X once for twice
 // the columns).  The groups stream through a ring of 3 shared-memory stages
-// (2 where 3 do not fit) by 16-byte cp.async (4-byte copies where Co or the
+// (every G <= 128 fits) by 16-byte cp.async (4-byte copies where Co or the
 // scales' rows are not 16-byte multiples), one group per stage: the packed
 // [G/2, columns] tile, its scales and zeros rows and the X [rows, G] slice.
 // Once a group has landed, the block turns its X slice into the MMA's B
@@ -51,9 +51,9 @@
 //
 // Measured on an H100 (PERF.md): the decode tile is latency-bound (a ring
 // of 3 stages, with more blocks per SM, beats 4 or 6 stages); at prefill
-// the 256-column tile reaches about a quarter (f32 X) and a sixth (bf16 X)
-// of the bf16 tensor-core peak, the B-operand pass and the fold idling the
-// tensor cores once per group.
+// the 256-column tile reaches about a twelfth (f32 X, three MMA passes) and
+// a sixth (bf16 X) of the bf16 tensor-core peak on 2*T*Ci*Co operations,
+// the B-operand pass and the fold idling the tensor cores once per group.
 #pragma once
 
 #include <algorithm>
@@ -62,10 +62,11 @@
 
 namespace w4tc {
 // internal linkage: K1 and B6 are separate libraries, each with its own
-// CUDA runtime, kernels and the one-time opt-in below
+// CUDA runtime and kernels, so neither may bind the other's instantiations
 namespace {
 
 constexpr int kWPad = 32;               // bytes padding a staged packed row
+constexpr int kStages = 3;              // ring stages (one group each)
 constexpr size_t kMaxSmem = 232448;     // dynamic shared memory per block
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -89,14 +90,9 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// wait until at most `n` (0..2) committed copy groups are still in flight
-__device__ __forceinline__ void cp_wait(int n) {
-  if (n <= 0)
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else if (n == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+// wait until at most kStages - 2 committed copy groups are still in flight
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
 }
 
 // One thread's share of copying [rows, row_bytes] in `chunk`-byte pieces
@@ -228,7 +224,7 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
            const ST* __restrict__ scales, const ST* __restrict__ zeros,
            const int* __restrict__ rows, XT* __restrict__ y,
            float* __restrict__ part, int E, int T, int Ci, int Co, int G,
-           int splits, int stages, int vec) {
+           int splits, int vec) {
   constexpr int kThreads = 32 * kWM * kWN;
   constexpr int kBM = 32 * kWM;
   constexpr int kBN = 8 * kNT * kWN;
@@ -270,7 +266,7 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
     const size_t st_bytes =
         stage_bytes(G, kBM, kBN, sizeof(XT), sizeof(ST));
     const int b_stride = (G + 8) / 2;       // 32-bit words per B row
-    uint32_t* bop = reinterpret_cast<uint32_t*>(smem + stages * st_bytes);
+    uint32_t* bop = reinterpret_cast<uint32_t*>(smem + kStages * st_bytes);
     float* xsum_s = reinterpret_cast<float*>(bop + kTerms * kBN * b_stride);
     const int valid_cols = min(kBM, Co - col0);
     const size_t sz = (size_t)n_groups * Co;
@@ -284,7 +280,7 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
     const CopyLane s_lane(s_bytes, s16 ? 16 : 4, kThreads);
     const CopyLane x_lane(G * (int)sizeof(XT), 16, kThreads);
     auto load = [&](int i) {
-      unsigned char* st = smem + (size_t)(i % stages) * st_bytes;
+      unsigned char* st = smem + (size_t)(i % kStages) * st_bytes;
       const int g = g_begin + i;
       const int s_valid = valid_cols * (int)sizeof(ST);
       copy_rows(st, w_stride, pk + (size_t)g * half * Co, Co, half, half,
@@ -301,17 +297,17 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
                 G * (int)sizeof(XT), true, x_lane);
     };
 
-    for (int i = 0; i < stages - 1; ++i) {
+    for (int i = 0; i < kStages - 1; ++i) {
       if (i < n) load(i);
       cp_commit();
     }
     for (int i = 0; i < n; ++i) {
-      cp_wait(stages - 2);   // group i has landed (this thread's copies)
+      cp_wait_ring();        // group i has landed (this thread's copies)
       __syncthreads();       // everyone's copies; slot of i-1 is free
-      if (i + stages - 1 < n) load(i + stages - 1);
+      if (i + kStages - 1 < n) load(i + kStages - 1);
       cp_commit();
 
-      const unsigned char* st = smem + (size_t)(i % stages) * st_bytes;
+      const unsigned char* st = smem + (size_t)(i % kStages) * st_bytes;
       {
         // the group's X slice into the B operand, once for all warps.  Per
         // k-step s (16 MMA k) a row holds 8 words: lane t4's register b0
@@ -488,14 +484,11 @@ cudaError_t launch_tile(const void* x, const uint8_t* packed,
   constexpr int kBN = 8 * kNT * kWN;
   const size_t per = stage_bytes(G, kBM, kBN, sizeof(XT), sizeof(ST));
   const size_t fixed = operand_bytes(G, kBN, sizeof(XT) == 4 ? 3 : 1);
-  int stages = 3;
-  while (stages > 2 && stages * per + fixed > kMaxSmem) --stages;
-  const size_t smem = stages * per + fixed;
+  const size_t smem = kStages * per + fixed;
   if (smem > kMaxSmem || splits < 1 || splits > Ci / G)
     return cudaErrorInvalidValue;
   auto kernel = a16_kernel<XT, ST, kWM, kWN, kNT>;
-  // opt in to the most shared memory once per library, not at every launch
-  static const cudaError_t opt_in = reserve_smem(kernel, kMaxSmem);
+  const cudaError_t opt_in = reserve_smem(kernel, smem);
   if (opt_in != cudaSuccess) return opt_in;
   const uintptr_t pa = reinterpret_cast<uintptr_t>(packed);
   const uintptr_t sa = reinterpret_cast<uintptr_t>(scales) |
@@ -506,7 +499,7 @@ cudaError_t launch_tile(const void* x, const uint8_t* packed,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), packed, static_cast<const ST*>(scales),
       static_cast<const ST*>(zeros), rows, static_cast<XT*>(y), part, E, T,
-      Ci, Co, G, splits, stages, vec);
+      Ci, Co, G, splits, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t n4 = (size_t)E * T * Co / 4;
