@@ -13,15 +13,17 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    W4A8 expert GEMMs, ragged zero capacity rows; B6 also on deepseek's
    routed decode with per-expert ``rows`` and the idle experts' scales
    NaN), B4 (flash attention), B8/B9 (absorbed MLA paged decode / chunked
-   prefill, fp and int8 latent pools), and K1/B6 with an offset-only group,
-   against their plain PyTorch versions at the paths' shapes, with
-   CUDA-event times beside the plain version's, one PyTorch library call's
-   (never used by the port) and the card's bound.  K1 and B6 (and their
-   library call) are timed as CUDA graphs of the calls, their kernels'
-   device time, with the eager wrapper's time beside it; their bound counts
-   the function's 2*rows*Ci*Co operations at the bf16 tensor-core rate
-   (989 TFLOP/s) for f32 and bf16 X alike and, with ``rows``, only the live
-   experts' bytes; then the phase's peak memory;
+   prefill, fp and int8 latent pools), K1/B6 with an offset-only group and
+   K1/B5/B6/B7 with G=256, against their plain PyTorch versions at the
+   paths' shapes, with CUDA-event times beside the plain version's, one
+   PyTorch library call's (never used by the port) and the card's bound.
+   K1, B5, B6 and B7 (and their library call) are timed as CUDA graphs of
+   the calls, their kernels' device time (B5/B7: with the activation
+   quantization, whose graph time alone is printed beside), with the eager
+   wrapper's time beside it; K1/B6's bound counts the function's
+   2*rows*Ci*Co operations at the bf16 tensor-core rate (989 TFLOP/s) for
+   f32 and bf16 X alike, B5/B7's at the int8 rate (1,979 TOP/s) and, with
+   ``rows``, only the live experts' bytes; then the phase's peak memory;
 3. paths — full width with random seeded weights, 8 requests (prompts of
    32-200 tokens, 16 new tokens, batch 4, greedy), every launch counter set
    to 0 just before and read just after each path; during each path the
@@ -44,7 +46,9 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    stacks (capacity >= 16 rows) and decode runs B6; launch counts must equal
    the prediction from the A8 flags, the chunk log and the calibration set;
    step checks (a)-(c) as path 2's, and (d) ``api.forward_fn`` on a
-   2048-token sequence under flash against chunked (both A16);
+   2048-token sequence under flash against chunked (both A16); then the
+   same model served with ``--group-size 256`` (4 requests): K1/B6 and
+   B7 launch, each held against its plain version on the path's operands;
    path 4 — deepseek-v2-236b at full width, depth cut to 2 layers (MLA with
    128 heads over a 512-wide latent, 160 routed experts top-6 beside 2
    shared ones), SmoothQuant+ quantize-on-load in f32 (G=128) through the
@@ -88,7 +92,7 @@ if not torch.cuda.is_available():
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core.quantize import (QuantizedTensor, dequantize,  # noqa: E402,E501
-                                        quantize)
+                                        quantize, quantize_acts_per_token)
 from repro_torch.device import strict_fp32_matmul  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -197,14 +201,18 @@ def max_err(a, b):
 
 
 def record(kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, by,
-           wrapper_ms=None):
+           wrapper_ms=None, quant_ms=None):
     row = dict(kernel=kernel, case=case, max_abs_err=err, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                bound_by=by)
     if wrapper_ms is not None:
         row["wrapper_ms"] = wrapper_ms
+    if quant_ms is not None:
+        row["act_quant_ms"] = quant_ms
     RESULTS["rows"].append(row)
     wrap = "" if wrapper_ms is None else f" (eager wrapper {wrapper_ms:.4f}ms)"
+    if quant_ms is not None:
+        wrap += f" (of which activation quantization {quant_ms:.4f}ms)"
     print(f"  {kernel:18s} {case:44s} err={err:.3g} (tol {tol:.3g}) "
           f"kernel={ms:.4f}ms{wrap} plain={plain_ms:.4f}ms "
           f"library={lib_ms:.4f}ms bound={bnd:.4f}ms ({by})", flush=True)
@@ -217,7 +225,10 @@ def _gemm_case(name, cuda_fn, plain_fn, qt, x, a8, tag):
     """One K1 (``a8=False``) or B5 case: the kernel against its plain
     version, then timed over copies of the weight that together exceed L2,
     beside the plain version and bf16 ``torch.matmul`` on the dequantized
-    weight (the library)."""
+    weight (the library).  The kernel's time is its device time (a CUDA
+    graph of the wrapper's calls: for B5 the activation quantization and
+    the kernels; the library likewise), the eager wrapper's time beside it;
+    for B5 also the graph time of the activation quantization alone."""
     t, ci = x.shape
     co, dt = qt.shape[-1], x.dtype
     n_copy = max(1, math.ceil(2 * L2_BYTES / qt.nbytes_quant()))
@@ -230,16 +241,13 @@ def _gemm_case(name, cuda_fn, plain_fn, qt, x, a8, tag):
     torch.cuda.synchronize()
     scale = max(1.0, float(ref.float().abs().max()))
     tol = (1e-5 if dt == torch.float32 else 1e-2) * scale
-    # B5's time is its wrapper's: activation quantization + kernel.  K1's is
-    # its kernels' device time (a CUDA graph of the calls; the library
-    # likewise), with the eager wrapper's time beside it
     kern_fns = [lambda q=q: cuda_fn(x, q) for q in qts]
-    ms = time_ms(kern_fns) if a8 else graph_ms(kern_fns)
-    wrapper = None if a8 else time_ms(kern_fns)
+    ms = graph_ms(kern_fns)
+    wrapper = time_ms(kern_fns)
+    quant = graph_ms([lambda: quantize_acts_per_token(x)]) if a8 else None
     plain = time_ms([lambda q=q: plain_fn(x, q) for q in qts])
     xb = x.to(torch.bfloat16)
-    lib_fns = [lambda m=m: torch.matmul(xb, m) for m in libs]
-    lib = time_ms(lib_fns) if a8 else graph_ms(lib_fns)
+    lib = graph_ms([lambda m=m: torch.matmul(xb, m) for m in libs])
     el = x.element_size()
     if a8:   # int8 codes and a scale per token, at the int8 rate
         bnd, by = bound((t * ci + t * 4) + qt.nbytes_quant() + t * co * el,
@@ -247,9 +255,9 @@ def _gemm_case(name, cuda_fn, plain_fn, qt, x, a8, tag):
     else:
         bnd, by = tc_bound(t * ci * el + qt.nbytes_quant() + t * co * el,
                            t * ci * co)
-    case = f"T={t} {ci}x{co} G=128{tag} {str(dt)[6:]}"
+    case = f"T={t} {ci}x{co} G={qt.group_size}{tag} {str(dt)[6:]}"
     return record(name, case, max_err(y, ref), tol, ms, plain, lib, bnd, by,
-                  wrapper)
+                  wrapper, quant)
 
 
 def _check_gemm(name, cuda_fn, plain_fn, ts, a8):
@@ -304,6 +312,44 @@ def check_offset_only():
             _grouped_case(qt, x, torch.full((32,), c, device=DEV), False,
                           " offset-only group")
     del w1, w6
+
+
+def check_large_groups():
+    """G=256, where a group walks two ring stages: K1 at T=4 and 512 and B5
+    at T=64 and 512 (a clip group) on codellama's 4096x11008, B6 at
+    granite's decode capacity and B7 at its prefill capacity (E=32,
+    1024x512, rows), f32."""
+    print("K1 / B5 / B6 / B7 with G=256 (two ring stages a group)")
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=DEV).manual_seed(256)
+    w = torch.randn(4096, 11008, generator=gen, device=DEV) * 4096 ** -0.5
+    qt = quantize(w, group_size=256)
+    for t in (4, 512):
+        x = torch.randn(t, 4096, generator=gen, device=DEV)
+        _gemm_case("w4a16_matmul", W4.w4a16_matmul_cuda,
+                   W4.w4a16_matmul_plain, qt, x, False, "")
+    zeros = qt.zeros.clone()
+    zeros[0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
+    qt = dataclasses.replace(qt, zeros=zeros)
+    for t in (64, 512):
+        x = torch.randn(t, 4096, generator=gen, device=DEV)
+        _gemm_case("w4a8_matmul", W4.w4a8_matmul_cuda, W4.w4a8_matmul_plain,
+                   qt, x, True, " clip-group")
+    del w, qt
+    moe = get_config("granite-moe-1b-a400m").moe
+    w = torch.randn(32, 1024, 512, generator=gen, device=DEV) * 1024 ** -0.5
+    qt = quantize(w, group_size=256)
+    for c, a8 in ((8, False), (MLP.moe_capacity(512, moe), True)):
+        filled = torch.randint(c // 2, c + 1, (32,), generator=gen,
+                               device=DEV)
+        x = torch.where(torch.arange(c, device=DEV)[None, :, None]
+                        < filled[:, None, None],
+                        torch.randn(32, c, 1024, generator=gen, device=DEV),
+                        0.0)
+        _grouped_case(qt, x, filled, a8, ", rows" if a8 else "",
+                      rows=filled.to(torch.int32) if a8 else None)
+    del w, qt
 
 
 def check_k1():
@@ -507,8 +553,9 @@ def _grouped_case(q_, x, filled, a8, tag, rows=None):
     whose rows ``filled[e]:`` are zero (their outputs must be exactly zero)
     against its plain version, then timed over copies of the weights that
     together exceed L2, beside the plain version and bf16 ``torch.bmm`` on
-    the dequantized weights (the library).  ``rows`` (B6 only) is handed
-    to both: the kernel reads only the live experts' weights and rows."""
+    the dequantized weights (the library), as :func:`_gemm_case` times K1
+    and B5.  ``rows`` is handed to both: the kernel reads only the live
+    experts' weights and rows."""
     e, c, ci = x.shape
     co, dt = q_.shape[-1], x.dtype
     kern = W4G.w4a8_grouped_cuda if a8 else W4G.w4a16_grouped_cuda
@@ -525,32 +572,30 @@ def _grouped_case(q_, x, filled, a8, tag, rows=None):
     qts = [q_] + [q_.map(torch.clone) for _ in range(n_copy - 1)]
     w_lib = dequantize(q_, torch.bfloat16)
     libs = [w_lib] + [w_lib.clone() for _ in range(n_copy - 1)]
-    # B7's time is its wrapper's: activation quantization + kernel.  B6's
-    # is its kernels' device time (a CUDA graph of the calls; the library
-    # likewise), with the eager wrapper's time beside it
     kern_fns = [lambda q=q: kern(x, q, *extra) for q in qts]
-    ms = time_ms(kern_fns) if a8 else graph_ms(kern_fns)
-    wrapper = None if a8 else time_ms(kern_fns)
+    ms = graph_ms(kern_fns)
+    wrapper = time_ms(kern_fns)
+    quant = graph_ms([lambda: quantize_acts_per_token(x)]) if a8 else None
     plain_ms = time_ms([lambda q=q: plain(x, q, *extra) for q in qts])
     xb = x.to(torch.bfloat16)
-    lib_fns = [lambda m=m: torch.bmm(xb, m) for m in libs]
-    lib = time_ms(lib_fns) if a8 else graph_ms(lib_fns)
+    lib = graph_ms([lambda m=m: torch.bmm(xb, m) for m in libs])
     el = x.element_size()
     live = int(filled.sum())
     name = "w4a8_grouped" if a8 else "w4a16_grouped"
-    if a8:
-        bnd, by = bound(e * c * ci + e * c * 4 + q_.nbytes_quant()
-                        + e * c * co * el, 2.0 * live * ci * co, torch.int8)
-    else:   # with rows, only the live experts' weights and rows are read
-        n_exp = e if rows is None else int((rows > 0).sum())
-        x_rows = e * c if rows is None else live
-        bnd, by = tc_bound(x_rows * ci * el + q_.nbytes_quant() * n_exp // e
-                           + e * c * co * el + 4 * len(extra) * e,
+    # with rows, only the live experts' weights and rows are read
+    n_exp = e if rows is None else int((rows > 0).sum())
+    x_rows = e * c if rows is None else live
+    w_bytes = q_.nbytes_quant() * n_exp // e + 4 * len(extra) * e
+    if a8:   # int8 codes and a scale per row, at the int8 rate
+        bnd, by = bound(x_rows * (ci + 4) + w_bytes + e * c * co * el,
+                        2.0 * live * ci * co, torch.int8)
+    else:
+        bnd, by = tc_bound(x_rows * ci * el + w_bytes + e * c * co * el,
                            live * ci * co)
-    case = (f"E={e} C={c} ({live} live rows) {ci}x{co} G=128"
+    case = (f"E={e} C={c} ({live} live rows) {ci}x{co} G={q_.group_size}"
             f"{' clip-group' if a8 else ''} {str(dt)[6:]}{tag}")
     return record(name, case, max_err(y, ref), tol, ms, plain_ms, lib, bnd,
-                  by, wrapper)
+                  by, wrapper, quant)
 
 
 def check_grouped():
@@ -578,7 +623,7 @@ def check_grouped():
         for dt in (torch.float32, torch.bfloat16):
             qt = quantize(w, group_size=128, dtype=dt)
             zeros = qt.zeros.clone()
-            zeros[0, 0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
+            zeros[1, 0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
             qt8 = dataclasses.replace(qt, zeros=zeros)
             for c, a8 in ((8, False), (c_pre, False), (c_pre, True)):
                 x = torch.randn(e, c, ci, generator=gen, device=DEV)
@@ -587,8 +632,11 @@ def check_grouped():
                 filled[0] = 0
                 x = torch.where(torch.arange(c, device=DEV)[None, :, None]
                                 < filled[:, None, None], x, 0.0).to(dt)
-                rows[(a8, c, ci, dt)] = _grouped_case(qt8 if a8 else qt, x,
-                                                      filled, a8, "")
+                # B7 takes the filled counts as rows, as on path 3
+                live = filled.to(torch.int32) if a8 else None
+                rows[(a8, c, ci, dt)] = _grouped_case(
+                    qt8 if a8 else qt, x, filled, a8,
+                    ", rows" if a8 else "", rows=live)
     print("B6 w4a16_grouped at deepseek-v2-236b's shapes (path 4)")
     moe = get_config("deepseek-v2-236b").moe
     for e, c, ci, co in ((160, 6, 5120, 1536), (160, 6, 1536, 5120),
@@ -1377,6 +1425,45 @@ def path3():
     return counts
 
 
+def path3_group256():
+    """Path 3's model served with G=256 through the serve entry (4
+    requests, A16 decode, ``a8_prefill``): K1/B6 and B5/B7 walk each group
+    in two ring stages.  Every request finishes, K1 and B6 (and B7 where a
+    stack is A8-eligible) launch, and every kernel is held against its
+    plain version on the path's operands."""
+    from repro_torch.launch import serve
+
+    print("path 3 at G=256: granite-moe-1b-a400m, --group-size 256, "
+          "act_quant=a8_prefill, 4 requests", flush=True)
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        res = serve.main(["--arch", "granite-moe-1b-a400m", "--requests", "4",
+                          "--batch-size", "4", "--max-seq", "256",
+                          "--max-tokens", "8", "--min-prompt", "32",
+                          "--max-prompt", "200", "--seed", "1",
+                          "--group-size", "256", "--act-quant",
+                          "a8_prefill"])
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    reqs, cfg, rep = res["requests"], res["cfg"], res["report"]
+    print(f"  launches {counts}; A8 flags {rep.a8_eligibility}")
+    require(all(r.finish_reason in ("completed", "length") for r in reqs),
+            "path 3 at G=256: a request did not finish")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+            "path 3 at G=256: token out of range")
+    need = ["w4a16_matmul", "w4a16_grouped"]
+    if any(v for k, v in rep.a8_eligibility.items() if "/experts/" in k):
+        need.append("w4a8_grouped")
+    for name in need:
+        require(counts[name] > 0, f"path 3 at G=256: {name} not launched")
+    RESULTS["path3_g256"] = dict(
+        launches=counts, ptq_s=res["ptq_s"], serve_s=res["serve_s"],
+        ttft_s=sorted(res["ttft_s"]),
+        path_operands=check_path_operands(seen, "path 3 at G=256"))
+    del seen, res
+    return counts
+
+
 def _path4_engine(params, cfg, reqs, label):
     """One engine over ``params`` serving ``reqs`` (fresh copies of them):
     the launch counts held to the prediction from the engine's steps and
@@ -1523,6 +1610,7 @@ def main():
     k1, b5, k2, k3 = check_k1(), check_b5(), check_k2(), check_k3()
     b67, b4, b89 = check_grouped(), check_flash(), check_mla()
     check_offset_only()
+    check_large_groups()
     RESULTS["kernel_phase_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     print(f"kernel phase peak memory "
           f"{RESULTS['kernel_phase_peak_mem_bytes'] / 2 ** 30:.2f} GiB "
@@ -1541,6 +1629,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     counts3 = path3()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path3_group256()
     gc.collect()
     torch.cuda.empty_cache()
     counts4, counts4b = path4()

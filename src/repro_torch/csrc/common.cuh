@@ -85,166 +85,6 @@ static cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Group-wise int4 GEMM tile with per-token int8 activations: the body of B5
-// (w4a8_matmul.cu), shared with its grouped (stacked-expert) form B7
-// (w4a8_grouped.cu).  One call computes the [kTTile tokens, kBlockCo
-// columns] output tile (t_blk, col_blk) of Y[T, Co] = X[T, Ci] @ W[Ci, Co];
-// the kernels pick the tile from blockIdx and, in the grouped form, offset
-// every operand to one expert first.  Each source's header says how the
-// tile is laid out and what bounds it on the card.  (The W4A16 tile of K1
-// and B6 is w4a16_tile.cuh.)
-namespace w4 {
-
-constexpr int kColsPerThread = 4;
-constexpr int kColLanes = 16;
-constexpr int kBlockCo = kColLanes * kColsPerThread;  // 64 columns per block
-constexpr int kSplits = 8;
-constexpr int kTTile = 8;
-constexpr int kThreads = kColLanes * kSplits;          // 128
-
-inline size_t a8_smem_bytes(int G) {
-  return (size_t)kSplits * kTTile * G                          // int8 X codes
-         + sizeof(float) * (size_t)kSplits * kTTile * kBlockCo;  // reduction
-}
-
-__device__ __forceinline__ uint32_t splat(int v) {
-  return (uint32_t)(uint8_t)(int8_t)v * 0x01010101u;
-}
-
-// int8 zero-point fold of 4 codes in [0, 15]: clip(code - z, -128, 127),
-// with z split into two int8 steps z1 + z2 (both clamped) so the signed
-// saturation of each step reproduces the single clip exactly.
-__device__ __forceinline__ uint32_t fold(uint32_t codes, uint32_t z1,
-                                         uint32_t z2) {
-  return __vsubss4(__vsubss4(codes, z1), z2);
-}
-
-template <typename ST, typename YT>
-__device__ __forceinline__ void a8_tile(
-    const int8_t* __restrict__ xq, const float* __restrict__ xs,
-    const uint8_t* __restrict__ packed, const ST* __restrict__ scales,
-    const ST* __restrict__ zeros, YT* __restrict__ y, int T, int Ci, int Co,
-    int G, int col_blk, int t_blk, unsigned char* __restrict__ smem_raw) {
-  const int lane = threadIdx.x % kColLanes;
-  const int ks = threadIdx.x / kColLanes;
-  const int wpr = G / 4;  // 32-bit words per staged activation row
-  int* xw = reinterpret_cast<int*>(smem_raw) + (size_t)ks * kTTile * wpr;
-  float* red = reinterpret_cast<float*>(
-      smem_raw + (size_t)kSplits * kTTile * G);  // [kSplits][kTTile][kBlockCo]
-
-  const int col0 = col_blk * kBlockCo + lane * kColsPerThread;
-  const int t0 = t_blk * kTTile;
-  const bool col_ok = col0 < Co;
-  const int n_groups = Ci / G;
-  const int half = G / 2;
-
-  float acc[kTTile][kColsPerThread];
-#pragma unroll
-  for (int tt = 0; tt < kTTile; ++tt)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[tt][j] = 0.f;
-
-  for (int round = 0; round < n_groups; round += kSplits) {
-    const int g = round + ks;
-    __syncthreads();  // the previous round's reads of xw are finished
-    if (g < n_groups) {
-      for (int i = lane; i < kTTile * wpr; i += kColLanes) {
-        const int tt = i / wpr, w = i - tt * wpr;
-        const int t = t0 + tt;
-        xw[i] = t < T ? __ldg(reinterpret_cast<const int*>(
-                            xq + (size_t)t * Ci + (size_t)g * G) + w)
-                      : 0;
-      }
-    }
-    __syncthreads();
-    if (g < n_groups && col_ok) {
-      float sc[kColsPerThread];
-      uint32_t z1[kColsPerThread], z2[kColsPerThread];
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        sc[j] = to_f32(scales[(size_t)g * Co + col0 + j]);
-        const float z = rintf(to_f32(zeros[(size_t)g * Co + col0 + j]));
-        const float a = fminf(fmaxf(z, -128.f), 127.f);
-        const float b = fminf(fmaxf(z - a, -128.f), 127.f);
-        z1[j] = splat((int)a);
-        z2[j] = splat((int)b);
-      }
-      int part[kTTile][kColsPerThread];
-#pragma unroll
-      for (int tt = 0; tt < kTTile; ++tt)
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) part[tt][j] = 0;
-      const uint8_t* prow = packed + (size_t)g * half * Co + col0;
-#pragma unroll 2
-      for (int r = 0; r < half; r += 4) {
-        const uint32_t w0 = __ldg(reinterpret_cast<const unsigned int*>(
-            prow + (size_t)r * Co));
-        const uint32_t w1 = __ldg(reinterpret_cast<const unsigned int*>(
-            prow + (size_t)(r + 1) * Co));
-        const uint32_t w2 = __ldg(reinterpret_cast<const unsigned int*>(
-            prow + (size_t)(r + 2) * Co));
-        const uint32_t w3 = __ldg(reinterpret_cast<const unsigned int*>(
-            prow + (size_t)(r + 3) * Co));
-        // 4x4 byte transpose: col[j] = byte j of w0..w3 (rows r..r+3)
-        const uint32_t t01a = __byte_perm(w0, w1, 0x5140);
-        const uint32_t t01b = __byte_perm(w0, w1, 0x7362);
-        const uint32_t t23a = __byte_perm(w2, w3, 0x5140);
-        const uint32_t t23b = __byte_perm(w2, w3, 0x7362);
-        uint32_t col[kColsPerThread];
-        col[0] = __byte_perm(t01a, t23a, 0x5410);
-        col[1] = __byte_perm(t01a, t23a, 0x7632);
-        col[2] = __byte_perm(t01b, t23b, 0x5410);
-        col[3] = __byte_perm(t01b, t23b, 0x7632);
-        int lo[kColsPerThread], hi[kColsPerThread];
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) {
-          lo[j] = (int)fold(col[j] & 0x0F0F0F0Fu, z1[j], z2[j]);
-          hi[j] = (int)fold((col[j] >> 4) & 0x0F0F0F0Fu, z1[j], z2[j]);
-        }
-#pragma unroll
-        for (int tt = 0; tt < kTTile; ++tt) {
-          const int xl = xw[tt * wpr + r / 4];
-          const int xh = xw[tt * wpr + (half + r) / 4];
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) {
-            part[tt][j] = __dp4a(xl, lo[j], part[tt][j]);
-            part[tt][j] = __dp4a(xh, hi[j], part[tt][j]);
-          }
-        }
-      }
-      // the group's exact int32 sums leave integer space here, scaled by
-      // the group's weight scale (|part| < 2^24, so the f32 cast is exact)
-#pragma unroll
-      for (int tt = 0; tt < kTTile; ++tt)
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          acc[tt][j] += static_cast<float>(part[tt][j]) * sc[j];
-    }
-  }
-
-#pragma unroll
-  for (int tt = 0; tt < kTTile; ++tt)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j)
-      red[((size_t)ks * kTTile + tt) * kBlockCo + lane * kColsPerThread + j] =
-          acc[tt][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTTile * kBlockCo; i += kThreads) {
-    const int tt = i / kBlockCo, c = i - tt * kBlockCo;
-    const int t = t0 + tt, col = col_blk * kBlockCo + c;
-    if (t < T && col < Co) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < kSplits; ++k)
-        s += red[((size_t)k * kTTile + tt) * kBlockCo + c];
-      store_as(&y[(size_t)t * Co + col], s * xs[t]);
-    }
-  }
-}
-
-}  // namespace w4
-
-// ---------------------------------------------------------------------------
 // Absorbed MLA attention tiles: the shared body of B8 (mla_paged_decode.cu)
 // and B9 (mla_paged_prefill.cu).  A block holds NR query rows (q_lat [NR, r]
 // and q_pe [NR, dr], f32) and streams key tiles of KT latent rows (ckv

@@ -25,7 +25,8 @@
 //
 // Design: the tile of w4a16_tile.cuh with the expert as grid axis z (every
 // operand offset to expert e in the block), rows[e] read by each block;
-// split-K over quantization groups when E x column tiles is small.  A zero
+// split-K over quantization groups when E x column tiles is small; any
+// G % 8 == 0 through the chunked ring of w4_ring.cuh.  A zero
 // capacity row yields an exact zero output row whatever the zero points
 // (its P and group sums are exact zeros).
 

@@ -18,7 +18,9 @@
 //
 // Design: the tile of w4a16_tile.cuh with one "expert" (E = 1, no row
 // counts): raw int4 codes into mma.sync bf16 MMAs with the group's zero and
-// scale folded in f32 at the group's end, a cp.async ring of packed tiles,
+// scale folded in f32 at the group's end, the cp.async ring of w4_ring.cuh
+// (chunks of at most 128 weight rows, so any G % 8 == 0: a larger group
+// walks several stages, a smaller one is padded to a whole k-step),
 // split-K over quantization groups when the column tiles alone leave the
 // SMs idle (decode: Co/128 blocks) or a block would walk many groups, 8-row
 // tiles at decode and 64-row tiles at prefill.  The wrapper

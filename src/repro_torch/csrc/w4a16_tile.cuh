@@ -36,18 +36,22 @@
 // MMA tile of its row warps, of one expert, and a range of quantization
 // groups; three tiles (launch_tiled): 8 rows x 128 columns at decode, 64
 // rows x 128 or x 256 columns at prefill (the wider stages X once for twice
-// the columns).  The groups stream through a ring of 3 shared-memory stages
-// (every G <= 128 fits) by 16-byte cp.async (4-byte copies where Co or the
-// scales' rows are not 16-byte multiples), one group per stage: the packed
-// [G/2, columns] tile, its scales and zeros rows and the X [rows, G] slice.
-// Once a group has landed, the block turns its X slice into the MMA's B
-// operand (the bf16 terms in MMA k order) and its group sums xs, once for
-// all warps, in shared memory beside the ring.  When the output tiles alone
-// give the card fewer than two blocks per SM, the wrapper splits the groups
-// over `splits` blocks (split-K); each writes an f32 partial and a second
-// kernel sums them in split order (no float atomics: bitwise
-// reproducible).  A block whose first row is at or past rows[e] reads
-// nothing and writes zeros (with split-K, the sum writes them).
+// the columns).  The groups stream through the ring of w4_ring.cuh (3
+// shared-memory stages, 16-byte cp.async, 4-byte copies where Co, the
+// scales' rows or G/2 of X are not 16-byte multiples), one chunk of at most
+// 64 packed rows per stage: the packed [chunk, columns] tile, the group's
+// scales and zeros rows and X's two [rows, chunk] slices (the chunk's
+// low-nibble rows r0.. and high-nibble rows G/2 + r0..).  A group of G > 128
+// takes several stages and is folded once, at its last; G % 16 != 0 pads
+// the chunk to whole k-steps with zero X.  Once a chunk has landed, the
+// block turns its X slices into the MMA's B operand (the bf16 terms in MMA
+// k order) and adds their sums to the group sums xs, once for all warps, in
+// shared memory beside the ring.  When the output tiles alone give the card
+// fewer than two blocks per SM, the wrapper splits the groups over `splits`
+// blocks (split-K); each writes an f32 partial and the ring's second kernel
+// sums them in split order (no float atomics: bitwise reproducible).  A
+// block whose first row is at or past rows[e] reads nothing and writes
+// zeros (with split-K, the sum writes them).
 //
 // Measured on an H100 (PERF.md): the decode tile is latency-bound (a ring
 // of 3 stages, with more blocks per SM, beats 4 or 6 stages); at prefill
@@ -56,91 +60,28 @@
 // the B-operand pass and the fold idling the tensor cores once per group.
 #pragma once
 
-#include <algorithm>
-
-#include "common.cuh"
+#include "w4_ring.cuh"
 
 namespace w4tc {
-// internal linkage: K1 and B6 are separate libraries, each with its own
-// CUDA runtime and kernels, so neither may bind the other's instantiations
 namespace {
 
+constexpr int kStages = 3;              // ring stages (one chunk each)
 constexpr int kWPad = 32;               // bytes padding a staged packed row
-constexpr int kStages = 3;              // ring stages (one group each)
-constexpr size_t kMaxSmem = 232448;     // dynamic shared memory per block
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16- or 4-byte asynchronous copy; `n` < size bytes are read, the rest of
-// the destination is zero-filled (n = 0: nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most kStages - 2 committed copy groups are still in flight
-__device__ __forceinline__ void cp_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+// Bytes of one ring stage: packed [padded][bm + kWPad], scales and zeros
+// [bm] each, X [bn][2 * padded + 16 / xsize] (the chunk's low-nibble rows,
+// then its high-nibble rows).
+__host__ __device__ inline size_t a16_stage_bytes(int padded, int bm, int bn,
+                                                  int xsize, int ssize) {
+  return (size_t)padded * (bm + kWPad) + 2 * (size_t)bm * ssize +
+         (size_t)bn * (2 * padded + 16 / xsize) * xsize;
 }
 
-// One thread's share of copying [rows, row_bytes] in `chunk`-byte pieces
-// (row_bytes / chunk <= threads): its byte within a row, its first row and
-// the step to its next row; threads past the last whole row stay idle.
-struct CopyLane {
-  int col, row0, step;
-  __device__ __forceinline__ CopyLane(int row_bytes, int chunk, int threads) {
-    const int per_row = row_bytes / chunk;
-    step = threads / per_row;
-    col = (threadIdx.x % per_row) * chunk;
-    row0 = (int)threadIdx.x < step * per_row ? (int)threadIdx.x / per_row
-                                             : 1 << 30;
-  }
-};
-
-// Copy `rows` rows into shared memory (row stride `dst_stride`) from global
-// rows `src_stride` bytes apart by 16-byte (vec16: source rows, stride and
-// valid_bytes are 16-byte multiples) or 4-byte cp.async; per row only the
-// first `valid_bytes` are read and only rows < valid_rows, the rest of the
-// destination is zero-filled.
-__device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_stride,
-                                          const unsigned char* src,
-                                          size_t src_stride, int rows,
-                                          int valid_rows, int valid_bytes,
-                                          bool vec16, const CopyLane& l) {
-  for (int r = l.row0; r < rows; r += l.step) {
-    const bool ok = r < valid_rows && l.col < valid_bytes;
-    const unsigned char* s = ok ? src + r * src_stride + l.col : src;
-    if (vec16)
-      cp_async16(dst + r * dst_stride + l.col, s, ok ? 16 : 0);
-    else
-      cp_async4(dst + r * dst_stride + l.col, s, ok ? 4 : 0);
-  }
-}
-
-// Bytes of one ring stage: packed [G/2][bm + kWPad], scales and zeros
-// [bm] each, X [bn][G + 16 / xsize].
-__host__ __device__ inline size_t stage_bytes(int G, int bm, int bn,
-                                              int xsize, int ssize) {
-  return (size_t)(G / 2) * (bm + kWPad) + 2 * (size_t)bm * ssize +
-         (size_t)bn * (G + 16 / xsize) * xsize;
-}
-
-// Bytes after the ring: the current group's B operand, [terms][bn][G + 8]
-// bf16 in MMA k order, and its group sums xs [bn] f32.
-__host__ __device__ inline size_t operand_bytes(int G, int bn, int terms) {
-  return (size_t)terms * bn * (G + 8) * 2 + (size_t)bn * 4;
+// Bytes after the ring: the current chunk's B operand, [terms][bn]
+// [2 * padded + 8] bf16 in MMA k order, and its group sums xs [bn] f32.
+__host__ __device__ inline size_t operand_bytes(int padded, int bn,
+                                                int terms) {
+  return (size_t)terms * bn * (2 * padded + 8) * 2 + (size_t)bn * 4;
 }
 
 // Two codes of one packed column from the byte pair u (byte 0: row r,
@@ -150,11 +91,6 @@ __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t nibbles) {
   const uint32_t v = nibbles | 0x43004300u;
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
                              __floats2bfloat162_rn(128.f, 128.f));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
@@ -203,22 +139,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  uint2 u;
-  u.x = pack_bf16x2(v[0], v[1]);
-  u.y = pack_bf16x2(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 // One block: columns [blockIdx.x * kBM, +kBM), rows [row tile * kBN, +kBN)
 // of expert blockIdx.z, groups of split blockIdx.y % splits.  Its warps: kWM
 // along the columns (32 each) and kWN along the rows (kNT MMA tiles of 8
-// each).  vec: bit 0 packed rows take 16-byte copies, bit 1 scales/zeros
-// rows do.
-template <typename XT, typename ST, int kWM, int kWN, int kNT>
+// each).  vec: copy_vec()'s bits.  kWhole: every ring stage holds one
+// whole, unpadded group (G % 16 == 0, G <= 128, 16-byte X copies), so
+// stage i is group g_begin + i, its X is one run of G values and P and xs
+// start afresh at every stage; otherwise (G > 128, or a padded chunk) the
+// stages walk the groups' chunks by a cursor and P and xs carry over from
+// a group's chunk to the next.  The general walk cost the bf16 tile 4-7 %
+// at prefill against the one-group-a-stage ring it replaced (measured on an
+// H100, PERF.md), hence the two.
+template <typename XT, typename ST, int kWM, int kWN, int kNT, bool kWhole>
 __global__ void __launch_bounds__(32 * kWM * kWN)
 a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
            const ST* __restrict__ scales, const ST* __restrict__ zeros,
@@ -258,14 +190,15 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
       for (int r = 0; r < 4; ++r) acc[m][nt][r] = 0.f;
 
   if (row0 < live) {
-    const int half = G / 2;
+    const Chunking ch(G, 8);
+    const int half = ch.half, pad = ch.padded;
     const int w_stride = kBM + kWPad;
-    const int x_stride = G + 16 / (int)sizeof(XT);
+    const int x_stride = 2 * pad + 16 / (int)sizeof(XT);
     const int s_bytes = kBM * (int)sizeof(ST);
-    const int w_bytes = half * w_stride;
+    const int w_bytes = pad * w_stride;
     const size_t st_bytes =
-        stage_bytes(G, kBM, kBN, sizeof(XT), sizeof(ST));
-    const int b_stride = (G + 8) / 2;       // 32-bit words per B row
+        a16_stage_bytes(pad, kBM, kBN, sizeof(XT), sizeof(ST));
+    const int b_stride = pad + 4;           // 32-bit words per B row
     uint32_t* bop = reinterpret_cast<uint32_t*>(smem + kStages * st_bytes);
     float* xsum_s = reinterpret_cast<float*>(bop + kTerms * kBN * b_stride);
     const int valid_cols = min(kBM, Co - col0);
@@ -275,54 +208,77 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
     const ST* zr_g = zeros + (size_t)e * sz + col0;
     const XT* xg = x + ((size_t)e * T + row0) * Ci;
 
-    const bool w16 = vec & 1, s16 = vec & 2;
+    const bool w16 = vec & 1, s16 = vec & 2, x16 = vec & 4;
     const CopyLane w_lane(kBM, w16 ? 16 : 4, kThreads);
     const CopyLane s_lane(s_bytes, s16 ? 16 : 4, kThreads);
-    const CopyLane x_lane(G * (int)sizeof(XT), 16, kThreads);
-    auto load = [&](int i) {
+    const CopyLane x_lane(kWhole ? G * (int)sizeof(XT)
+                                 : x_copy_bytes(ch, sizeof(XT)),
+                          kWhole || x16 ? 16 : 4, kThreads);
+    ChunkCursor next{g_begin, 0};    // the chunk the next load stages
+    auto load = [&](int i) {         // stage i of the block's walk
       unsigned char* st = smem + (size_t)(i % kStages) * st_bytes;
-      const int g = g_begin + i;
+      int g = g_begin + i, c = 0;
+      if (!kWhole) {
+        g = next.g;
+        c = next.c;
+        next.next(ch.per_group);
+      }
       const int s_valid = valid_cols * (int)sizeof(ST);
-      copy_rows(st, w_stride, pk + (size_t)g * half * Co, Co, half, half,
-                valid_cols, w16, w_lane);
+      copy_rows(st, w_stride,
+                pk + ((size_t)g * half + (size_t)c * kMaxChunk) * Co, Co,
+                kWhole ? half : pad, kWhole ? half : ch.valid(c), valid_cols,
+                w16, w_lane);
       copy_rows(st + w_bytes, 0,
                 reinterpret_cast<const unsigned char*>(sc_g + (size_t)g * Co),
                 0, 1, 1, s_valid, s16, s_lane);
       copy_rows(st + w_bytes + s_bytes, 0,
                 reinterpret_cast<const unsigned char*>(zr_g + (size_t)g * Co),
                 0, 1, 1, s_valid, s16, s_lane);
-      copy_rows(st + w_bytes + 2 * s_bytes, x_stride * (int)sizeof(XT),
-                reinterpret_cast<const unsigned char*>(xg + (size_t)g * G),
-                (size_t)Ci * sizeof(XT), kBN, live - row0,
-                G * (int)sizeof(XT), true, x_lane);
+      if (kWhole)
+        copy_rows(st + w_bytes + 2 * s_bytes, x_stride * (int)sizeof(XT),
+                  reinterpret_cast<const unsigned char*>(xg + (size_t)g * G),
+                  (size_t)Ci * sizeof(XT), kBN, live - row0,
+                  G * (int)sizeof(XT), true, x_lane);
+      else
+        copy_x_chunk(st + w_bytes + 2 * s_bytes, x_stride * (int)sizeof(XT),
+                     reinterpret_cast<const unsigned char*>(xg),
+                     (size_t)Ci * sizeof(XT), kBN, live - row0, ch, g, c,
+                     sizeof(XT), x16, x_lane);
     };
 
+    float P[2][kNT][4];   // the group's raw-code sums, over its chunks
+    const int n_st = n * ch.per_group;
+    ChunkCursor cur{g_begin, 0};     // the chunk this iteration computes
     for (int i = 0; i < kStages - 1; ++i) {
-      if (i < n) load(i);
+      if (i < n_st) load(i);
       cp_commit();
     }
-    for (int i = 0; i < n; ++i) {
-      cp_wait_ring();        // group i has landed (this thread's copies)
+    for (int i = 0; i < n_st; ++i) {
+      cp_wait_ring<kStages>();  // chunk i has landed (this thread's copies)
       __syncthreads();       // everyone's copies; slot of i-1 is free
-      if (i + kStages - 1 < n) load(i + kStages - 1);
+      if (i + kStages - 1 < n_st) load(i + kStages - 1);
       cp_commit();
 
       const unsigned char* st = smem + (size_t)(i % kStages) * st_bytes;
+      const int c = kWhole ? 0 : cur.c;
+      if (!kWhole) cur.next(ch.per_group);
+      const int steps = (ch.valid(c) + 7) / 8;
       {
-        // the group's X slice into the B operand, once for all warps.  Per
+        // the chunk's X slice into the B operand, once for all warps.  Per
         // k-step s (16 MMA k) a row holds 8 words: lane t4's register b0
         // {x[8s+t4], x[8s+t4+4]} at word 2 t4 and b1 {x[h+8s+t4],
         // x[h+8s+t4+4]} at word 2 t4 + 1 (h = G/2), one 64-bit load apart.
         // A thread converts whole k-steps: 16 x values, 8 words per term.
+        // The group sums xs add up over the group's chunks.
         const XT* xrow = reinterpret_cast<const XT*>(st + w_bytes +
                                                      2 * s_bytes) +
                          (size_t)(threadIdx.x / kTPR) * x_stride;
         uint32_t* brow = bop + (threadIdx.x / kTPR) * b_stride;
         float sum = 0.f;
-        for (int ks = threadIdx.x % kTPR; ks < half / 8; ks += kTPR) {
+        for (int ks = threadIdx.x % kTPR; ks < steps; ks += kTPR) {
           float lo[8], hi[8];
           load8(xrow + 8 * ks, lo);
-          load8(xrow + half + 8 * ks, hi);
+          load8(xrow + pad + 8 * ks, hi);
           uint32_t w[kTerms][8];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -347,25 +303,27 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
 #pragma unroll
         for (int o = kTPR / 2; o > 0; o /= 2)
           sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (threadIdx.x % kTPR == 0) xsum_s[threadIdx.x / kTPR] = sum;
+        if (threadIdx.x % kTPR == 0) {
+          float* xr = xsum_s + threadIdx.x / kTPR;
+          *xr = !kWhole && c ? *xr + sum : sum;
+        }
       }
       __syncthreads();   // the B operand and xs are complete
 
       const unsigned char* ws = st + cw;
-      const ST* ss = reinterpret_cast<const ST*>(st + w_bytes) + cw;
-      const ST* zs = reinterpret_cast<const ST*>(st + w_bytes + s_bytes) + cw;
       const uint32_t* bw = bop + (tw + g8) * b_stride + 2 * t4;
 
-      float P[2][kNT][4];   // the group's raw-code sums
+      if (kWhole || c == 0) {
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
+        for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+          for (int m = 0; m < 2; ++m)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) P[m][nt][r] = 0.f;
+            for (int r = 0; r < 4; ++r) P[m][nt][r] = 0.f;
+      }
 
 #pragma unroll 1
-      for (int s = 0; s < half / 8; ++s) {
+      for (int s = 0; s < steps; ++s) {
         const int r = 8 * s + t4;
         const uint32_t w0 =
             *reinterpret_cast<const uint32_t*>(ws + r * w_stride);
@@ -393,8 +351,11 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
             for (int m = 0; m < 2; ++m) mma_bf16(P[m][nt], a[m], b.x, b.y);
           }
       }
+      if (!kWhole && c + 1 < ch.per_group) continue;
 
-      // fold the group in: acc += scale * (P - zero * xs)
+      // the group's last chunk: fold it in, acc += scale * (P - zero * xs)
+      const ST* ss = reinterpret_cast<const ST*>(st + w_bytes) + cw;
+      const ST* zs = reinterpret_cast<const ST*>(st + w_bytes + s_bytes) + cw;
       float sc[4], zr[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -443,36 +404,6 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
     }
 }
 
-// Sum the split partials part[split][E, T, Co] in split order into y; rows
-// at or past rows[e] (when given) are zeros, their partials unwritten.
-template <typename XT>
-__global__ void splitk_reduce(const float4* __restrict__ part,
-                              const int* __restrict__ rows,
-                              XT* __restrict__ y, int T, int Co, size_t n4,
-                              int splits) {
-  const size_t row4 = Co / 4;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    const size_t et = i / row4;
-    if (!rows || (int)(et % T) < rows[et / T]) {
-      float4 s = part[i];
-      for (int k = 1; k < splits; ++k) {
-        const float4 p = part[(size_t)k * n4 + i];
-        s.x += p.x;
-        s.y += p.y;
-        s.z += p.z;
-        s.w += p.w;
-      }
-      v[0] = s.x;
-      v[1] = s.y;
-      v[2] = s.z;
-      v[3] = s.w;
-    }
-    store4(y + 4 * i, v);
-  }
-}
-
 template <typename XT, typename ST, int kWM, int kWN, int kNT>
 cudaError_t launch_tile(const void* x, const uint8_t* packed,
                         const void* scales, const void* zeros,
@@ -482,19 +413,19 @@ cudaError_t launch_tile(const void* x, const uint8_t* packed,
   constexpr int kThreads = 32 * kWM * kWN;
   constexpr int kBM = 32 * kWM;
   constexpr int kBN = 8 * kNT * kWN;
-  const size_t per = stage_bytes(G, kBM, kBN, sizeof(XT), sizeof(ST));
-  const size_t fixed = operand_bytes(G, kBN, sizeof(XT) == 4 ? 3 : 1);
-  const size_t smem = kStages * per + fixed;
+  const Chunking ch(G, 8);
+  const size_t smem =
+      kStages * a16_stage_bytes(ch.padded, kBM, kBN, sizeof(XT), sizeof(ST)) +
+      operand_bytes(ch.padded, kBN, sizeof(XT) == 4 ? 3 : 1);
   if (smem > kMaxSmem || splits < 1 || splits > Ci / G)
     return cudaErrorInvalidValue;
-  auto kernel = a16_kernel<XT, ST, kWM, kWN, kNT>;
+  const int vec = copy_vec(packed, scales, zeros, x, Co, sizeof(ST), ch.half,
+                           sizeof(XT));
+  const bool whole = ch.per_group == 1 && ch.padded == ch.half && (vec & 4);
+  auto kernel = whole ? a16_kernel<XT, ST, kWM, kWN, kNT, true>
+                      : a16_kernel<XT, ST, kWM, kWN, kNT, false>;
   const cudaError_t opt_in = reserve_smem(kernel, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  const uintptr_t pa = reinterpret_cast<uintptr_t>(packed);
-  const uintptr_t sa = reinterpret_cast<uintptr_t>(scales) |
-                       reinterpret_cast<uintptr_t>(zeros);
-  const int vec = ((Co % 16 == 0 && pa % 16 == 0) ? 1 : 0) |
-                  ((Co * sizeof(ST) % 16 == 0 && sa % 16 == 0) ? 2 : 0);
   dim3 grid((Co + kBM - 1) / kBM, ((T + kBN - 1) / kBN) * splits, E);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), packed, static_cast<const ST*>(scales),
@@ -502,15 +433,10 @@ cudaError_t launch_tile(const void* x, const uint8_t* packed,
       Ci, Co, G, splits, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t n4 = (size_t)E * T * Co / 4;
-  const int blocks = (int)std::min<size_t>((n4 + 255) / 256, 4096);
-  splitk_reduce<XT><<<blocks, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(part), rows, static_cast<XT*>(y), T,
-      Co, n4, splits);
-  return cudaGetLastError();
+  return reduce_splits<XT>(part, rows, nullptr, y, E, T, Co, splits, stream);
 }
 
-// The tiles (the wrapper's plan, kernels/w4a16_matmul.py:_a16_plan, picks
+// The tiles (the wrapper's plan, kernels/w4a16_matmul.py:_plan, picks
 // one): 0 = 8 rows x 128 columns (decode), 1 = 64 rows x 128 columns, 2 =
 // 64 rows x 256 columns (prefill; the wider tile stages X once for twice
 // the columns and builds each A fragment for twice the MMAs).
@@ -541,7 +467,7 @@ inline int launch(const void* x, int x_dtype, const void* packed,
                   int Co, int G, int tile, int splits, void* stream) {
   const uint8_t* p = static_cast<const uint8_t*>(packed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (G % 16 || Ci % G || Co % 4) return (int)cudaErrorInvalidValue;
+  if (G < 8 || G % 8 || Ci % G || Co % 4) return (int)cudaErrorInvalidValue;
   if (x_dtype == kF32 && s_dtype == kF32)
     return launch_tiled<float, float>(x, p, scales, zeros, rows, y, part, E,
                                       T, Ci, Co, G, tile, splits, s);

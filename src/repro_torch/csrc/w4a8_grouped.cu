@@ -13,7 +13,11 @@
 //   packed  u8   [E, Ci/2, Co]  int4 codes, group-split layout
 //   scales  S    [E, Ci/G, Co]  S = f32 or bf16
 //   zeros   S    [E, Ci/G, Co]  integer-valued zero points
+//   rows    i32 [E] or null     live rows per expert: rows >= rows[e] come
+//                               out zero and expert e's weights are read
+//                               only if rows[e] > 0 (read on the device)
 //   y       Y    [E, C, Co]     Y = the activations' type (f32 or bf16)
+//   part    f32  [splits, E, C, Co] split-K partials (splits > 1 only)
 //
 // Arithmetic, as the oracle ref.w4a8_grouped_ref: B5's, per expert — the
 // weight codes folded to clip(code - round(zero), -128, 127), one exact
@@ -21,79 +25,30 @@
 // and the row's activation scale applied at the end.  A zero row has zero
 // codes and so an exact zero output row.
 //
-// What bounds it on an H100: at prefill capacities the int8 multiply-adds,
-// 2 * E * C * Ci * Co operations; issued as __dp4a on the CUDA cores (not
-// the int8 tensor cores), so far above the tensor-core bound.
+// What bounds it on an H100: at prefill capacities the int8 multiply-adds
+// of the filled rows, 2 * rows * Ci * Co operations at the int8
+// tensor-core rate (1,979 TOP/s), or the live experts' packed weight bytes
+// at 3.35 TB/s, whichever is larger (granite's 512x1024 experts at C=160:
+// the bytes).
 //
-// Design: B5's tile (w4::a8_tile in common.cuh) with the expert as the
-// outermost grid axis, blockIdx.y = e * row_tiles + row_tile, and every
-// operand offset to expert e before the tile runs.  Preconditions (checked
-// by the wrapper): G % 8 == 0, Ci % G == 0, Co % 4 == 0.
+// Design: B5's tile (w4a8_tile.cuh: int8 mma.sync on zero-folded codes
+// built in registers, the shared cp.async ring and split-K) with the
+// expert as grid axis z (every operand offset to expert e in the block) and
+// rows[e] read by each block: a block whose first row is at or past it
+// reads nothing, so the capacity rows that no token filled cost no MMA and
+// an idle expert no weight bytes.  Preconditions (checked by the wrapper):
+// G % 8 == 0, Ci % G == 0, Co % 4 == 0.
 
-#include "common.cuh"
-
-namespace {
-
-using w4::kBlockCo;
-using w4::kThreads;
-using w4::kTTile;
-
-template <typename ST, typename YT>
-__global__ void __launch_bounds__(kThreads)
-w4a8_grouped_kernel(const int8_t* __restrict__ xq,
-                    const float* __restrict__ xs,
-                    const uint8_t* __restrict__ packed,
-                    const ST* __restrict__ scales,
-                    const ST* __restrict__ zeros, YT* __restrict__ y, int C,
-                    int Ci, int Co, int G, int row_tiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int e = blockIdx.y / row_tiles;
-  const int tile = blockIdx.y - e * row_tiles;
-  const size_t sz = (size_t)(Ci / G) * Co;
-  w4::a8_tile<ST, YT>(xq + (size_t)e * C * Ci, xs + (size_t)e * C,
-                      packed + (size_t)e * (Ci / 2) * Co, scales + e * sz,
-                      zeros + e * sz, y + (size_t)e * C * Co, C, Ci, Co, G,
-                      blockIdx.x, tile, smem_raw);
-}
-
-template <typename ST, typename YT>
-cudaError_t launch(const int8_t* xq, const float* xs, const uint8_t* packed,
-                   const void* scales, const void* zeros, void* y, int E,
-                   int C, int Ci, int Co, int G, cudaStream_t stream) {
-  const size_t smem = w4::a8_smem_bytes(G);
-  cudaError_t err = reserve_smem(w4a8_grouped_kernel<ST, YT>, smem);
-  if (err != cudaSuccess) return err;
-  const int row_tiles = (C + kTTile - 1) / kTTile;
-  dim3 grid((Co + kBlockCo - 1) / kBlockCo, E * row_tiles);
-  w4a8_grouped_kernel<ST, YT><<<grid, kThreads, smem, stream>>>(
-      xq, xs, packed, static_cast<const ST*>(scales),
-      static_cast<const ST*>(zeros), static_cast<YT*>(y), C, Ci, Co, G,
-      row_tiles);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "w4a8_tile.cuh"
 
 extern "C" int repro_w4a8_grouped(const void* xq, const void* xs,
                                   const void* packed, const void* scales,
-                                  const void* zeros, int s_dtype, void* y,
-                                  int y_dtype, int E, int C, int Ci, int Co,
-                                  int G, void* stream) {
-  const int8_t* x = static_cast<const int8_t*>(xq);
-  const float* s = static_cast<const float*>(xs);
-  const uint8_t* p = static_cast<const uint8_t*>(packed);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s_dtype == kF32 && y_dtype == kF32)
-    return launch<float, float>(x, s, p, scales, zeros, y, E, C, Ci, Co, G,
-                                st);
-  if (s_dtype == kF32 && y_dtype == kBF16)
-    return launch<float, __nv_bfloat16>(x, s, p, scales, zeros, y, E, C, Ci,
-                                        Co, G, st);
-  if (s_dtype == kBF16 && y_dtype == kF32)
-    return launch<__nv_bfloat16, float>(x, s, p, scales, zeros, y, E, C, Ci,
-                                        Co, G, st);
-  if (s_dtype == kBF16 && y_dtype == kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, s, p, scales, zeros, y, E,
-                                                 C, Ci, Co, G, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                  const void* zeros, int s_dtype,
+                                  const void* rows, void* y, int y_dtype,
+                                  void* part, int E, int C, int Ci, int Co,
+                                  int G, int tile, int splits, void* stream) {
+  return w4tc::launch_a8(xq, xs, packed, scales, zeros, s_dtype,
+                         static_cast<const int*>(rows), y, y_dtype,
+                         static_cast<float*>(part), E, C, Ci, Co, G, tile,
+                         splits, stream);
 }

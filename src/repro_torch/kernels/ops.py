@@ -58,8 +58,8 @@ def w4a16_grouped_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     or B7 where :func:`_resolve_act` grants A8 with the per-expert row count
     ``C`` as the token count (decode's capacity stays A16).  ``rows``
     (int32[E], optional) is the count of live leading rows of each expert;
-    the rows past it must be zero rows of ``x``.  B6 then skips the idle
-    experts' weights; B7 takes no ``rows`` (zero rows give zero rows)."""
+    the rows past it must be zero rows of ``x``.  Both kernels then skip
+    the idle experts' weights and the row tiles past ``rows``."""
     if qt.ndim != 3:
         raise ValueError(f"grouped matmul needs stacked [E, Ci, Co] weights; "
                          f"got {qt.shape}")
@@ -67,8 +67,8 @@ def w4a16_grouped_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
         raise ValueError(f"expected x[E, C, D], got shape {tuple(x.shape)}")
     if _resolve_act(act, qt, x.shape[1]) == "a8":
         if _route(x) == "cpu":
-            return _w4g.w4a8_grouped_plain(x, qt)
-        return _w4g.w4a8_grouped_cuda(x, qt)
+            return _w4g.w4a8_grouped_plain(x, qt, rows)
+        return _w4g.w4a8_grouped_cuda(x, qt, rows)
     if _route(x) == "cpu":
         return _w4g.w4a16_grouped_plain(x, qt, rows)
     return _w4g.w4a16_grouped_cuda(x, qt, rows)

@@ -5,17 +5,23 @@ K1 replaces the Pallas TPU kernel ``repro/kernels/w4a16_matmul.py:_kernel``
 (A16 body), source ``csrc/w4a16_matmul.cu`` on the tensor-core tile of
 ``csrc/w4a16_tile.cuh`` (shared with B6); its plain version is the
 reference's ``ref.w4a16_matmul_ref``: dequantize the whole weight to f32,
-one f32 matmul, cast to ``x``'s dtype.  The wrapper picks the tile's row
-count and the split-K count (:func:`_a16_plan`) and allocates the split
-partials.
+one f32 matmul, cast to ``x``'s dtype.
 
 B5 replaces ``_kernel_a8`` (with ``_dequant_block_i8``), source
-``csrc/w4a8_matmul.cu``; its plain version is the reference's exact oracle
-``ref.w4a8_matmul_ref``: per-token int8 activations, zero-folded int8 weight
-codes, an integer contraction within each group (in f32, exact below 2^24),
-then ``sum(part · scale) · xs``.  The B5 wrapper quantizes the activations
-with PyTorch ops before the launch.  Each source's header says what bounds
-the kernel on the card and how it is laid out.
+``csrc/w4a8_matmul.cu`` on the int8 tensor-core tile of
+``csrc/w4a8_tile.cuh`` (shared with B7); its plain version is the
+reference's exact oracle ``ref.w4a8_matmul_ref``: per-token int8
+activations, zero-folded int8 weight codes, an integer contraction within
+each group (in f32, exact below 2^24), then ``sum(part · scale) · xs``.
+The B5 wrapper quantizes the activations with PyTorch ops before the
+launch.
+
+Both tiles stream the weights through one shared-memory ring
+(``csrc/w4_ring.cuh``) in chunks of at most 128 weight rows, so every group
+size G with G % 8 == 0 and Ci % G == 0 is taken.  The wrappers pick the
+tile and the split-K count (:func:`_plan`) and allocate the split partials.
+Each source's header says what bounds the kernel on the card and how it is
+laid out.
 """
 from __future__ import annotations
 
@@ -29,18 +35,23 @@ from repro_torch.core.quantize import (QuantizedTensor, dequantize,
 from repro_torch.kernels import _build as B
 
 _DTYPES = {torch.float32: B.DTYPE_F32, torch.bfloat16: B.DTYPE_BF16}
-_T_TILE = 8              # B5/B7: token rows per block (csrc common.cuh kTTile)
 _MAX_GRID_Y = 65535
-# K1/B6 (csrc/w4a16_tile.cuh): up to _A16_DECODE_ROWS rows per expert a
-# block takes 8 rows and 128 output columns (tile 0), above it 64 rows and
-# 256 columns (tile 2) where Co is a multiple of 256, else 128 (tile 1).
-# Split-K when the blocks would fill fewer than 2 per SM (up to 4 per SM),
-# and at decode so that a block walks at most _A16_DECODE_GROUPS groups (a
-# MoE's idle experts leave most of its blocks empty); at most 16 splits
+# The tiles (csrc/w4a16_tile.cuh, w4a8_tile.cuh): K1/B6 up to
+# _A16_DECODE_ROWS rows per expert take 8 rows and 128 output columns (tile
+# 0); above it, and B5/B7 always, 64 rows and 256 columns (tile 2) where Co
+# is a multiple of 256, else 128 (tile 1).  Split-K when the blocks would
+# fill fewer than 2 per SM for K1/B6, fewer than half a block per SM for
+# B5/B7 (measured on an H100: the partials cost B5 more than they save at a
+# T=512 chunk of 128 blocks, and save 2-4x at a T=64 one), to up to 4 blocks
+# per SM; and for K1/B6 at decode so that a block walks at most
+# _A16_DECODE_GROUPS groups (a MoE's idle experts leave most of its blocks
+# empty); at most 16 splits
 _A16_DECODE_ROWS = 16
 _A16_DECODE_GROUPS = 16
-_A16_MAX_SPLITS = 16
-_A16_MAX_GROUP = 128     # the 64-row tile's ring and B operand fit shared memory
+_MAX_SPLITS = 16
+#: every quantization group the W4 kernels take is a multiple of this (the
+#: shared ring pads a chunk of a group to whole k-steps)
+GROUP_MULTIPLE = 8
 
 
 def w4a16_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -76,11 +87,12 @@ def w4a8_matmul_plain(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 _C, _I = ctypes.c_void_p, ctypes.c_int
 _W4A16_ARGS = [_C, _I, _C, _C, _C, _I, _C, _C, _I, _I, _I, _I, _I, _I, _C]
-_W4A8_ARGS = [_C, _C, _C, _C, _C, _I, _C, _I, _I, _I, _I, _I, _C]
+_W4A8_ARGS = [_C, _C, _C, _C, _C, _I, _C, _I, _C, _I, _I, _I, _I, _I, _I,
+              _C]
 
 
 def _check_common(name: str, x: torch.Tensor, qt: QuantizedTensor,
-                  group_multiple: int, stacked: bool) -> int:
+                  stacked: bool) -> int:
     """Raise on anything K1/B5 (a 2-D weight, ``x[..., Ci]``) or B6/B7 (a
     stacked ``[E, Ci, Co]`` weight, ``x[E, C, Ci]``) do not take; returns
     the row count of ``x``."""
@@ -106,9 +118,9 @@ def _check_common(name: str, x: torch.Tensor, qt: QuantizedTensor,
     g = qt.group_size
     if x.shape[-1] != ci:
         raise ValueError(f"x Ci={x.shape[-1]} != weight Ci={ci}")
-    if ci % g or g % group_multiple:
+    if ci % g or g % GROUP_MULTIPLE:
         raise ValueError(f"{name}: Ci={ci} must be a multiple of the group "
-                         f"{g}, itself a multiple of {group_multiple}")
+                         f"{g}, itself a multiple of {GROUP_MULTIPLE}")
     if co % 4:
         raise ValueError(f"Co={co} must be a multiple of 4 (uint32 reads)")
     for nm, t in (("x", x), ("packed", qt.packed), ("scales", qt.scales),
@@ -120,47 +132,31 @@ def _check_common(name: str, x: torch.Tensor, qt: QuantizedTensor,
     return x.numel() // ci
 
 
-def _check_operands(name: str, x: torch.Tensor, qt: QuantizedTensor,
-                    group_multiple: int, stacked: bool = False) -> int:
-    """:func:`_check_common`, then B5/B7's grid: one block row per 8 rows
-    (per expert when stacked)."""
-    t = _check_common(name, x, qt, group_multiple, stacked)
-    tiles = (qt.shape[0] * -(-x.shape[1] // _T_TILE) if stacked
-             else -(-t // _T_TILE))
-    if tiles > _MAX_GRID_Y:
-        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid")
-    return t
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _a16_plan(name: str, x: torch.Tensor, qt: QuantizedTensor,
-              rows: int, experts: int) -> tuple:
-    """The K1/B6 tile for ``rows`` rows per expert: (tile, split count).
-    Raises on what the tile does not take (G > 128, scales not 4-byte
-    aligned, the grid)."""
+def _plan(name: str, x: torch.Tensor, qt: QuantizedTensor, rows: int,
+          experts: int, a8: bool = False) -> tuple:
+    """The tile for ``rows`` rows per expert, K1/B6 or (``a8``) B5/B7:
+    (tile, split count).  Raises on what the tiles do not take (scales not
+    4-byte aligned, the grid)."""
     ci, co = qt.shape[-2:]
-    g = qt.group_size
-    if g > _A16_MAX_GROUP:
-        raise ValueError(f"{name}: group {g} > {_A16_MAX_GROUP} does not fit "
-                         "the shared-memory ring")
     if qt.scales.data_ptr() % 4 or qt.zeros.data_ptr() % 4:
         raise ValueError(f"{name}: scales/zeros are not 4-byte aligned")
-    decode = rows <= _A16_DECODE_ROWS
+    decode = not a8 and rows <= _A16_DECODE_ROWS
     tile = 0 if decode else (2 if co % 256 == 0 else 1)
     bn, bm = (8, 128) if decode else (64, 256 if tile == 2 else 128)
     row_tiles = -(-rows // bn)
     blocks = -(-co // bm) * row_tiles * experts
     sms = _sm_count(x.device.index if x.device.index is not None
                     else torch.cuda.current_device())
-    n_groups = ci // g
+    n_groups = ci // qt.group_size
     splits = -(-n_groups // _A16_DECODE_GROUPS) if decode else 1
-    if blocks < 2 * sms:
+    if blocks < (sms // 2 if a8 else 2 * sms):
         splits = max(splits, -(-4 * sms // blocks))
-    splits = max(1, min(splits, n_groups, _A16_MAX_SPLITS))
+    splits = max(1, min(splits, n_groups, _MAX_SPLITS))
     if row_tiles * splits > _MAX_GRID_Y or experts > _MAX_GRID_Y:
         raise ValueError(f"{name}: {tuple(x.shape)} exceeds the grid")
     return tile, splits
@@ -175,14 +171,14 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """Launch K1 on ``x``'s device (current stream): the tile kernel and,
     when split over groups, the kernel that sums the split partials.
-    Raises on anything the kernel does not take (it needs G % 16 == 0);
+    Raises on anything the kernel does not take (it needs G % 8 == 0);
     never falls back to the plain version."""
-    t = _check_common("w4a16_matmul_cuda", x, qt, 16, False)
+    t = _check_common("w4a16_matmul_cuda", x, qt, False)
     ci, co = qt.shape
     y = torch.empty(*x.shape[:-1], co, dtype=x.dtype, device=x.device)
     if t == 0:
         return y
-    tile, splits = _a16_plan("w4a16_matmul_cuda", x, qt, t, 1)
+    tile, splits = _plan("w4a16_matmul_cuda", x, qt, t, 1)
     part = (torch.empty(splits, t, co, dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     xa = _aligned(x)
@@ -197,19 +193,24 @@ def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
 
 
 def w4a8_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Quantize ``x`` per token (PyTorch ops on the card), then launch B5.
-    Raises on anything the kernel does not take (it needs G % 8 == 0);
-    never falls back."""
-    t = _check_operands("w4a8_matmul_cuda", x, qt, 8)
+    """Quantize ``x`` per token (PyTorch ops on the card), then launch B5:
+    the tile kernel and, when split over groups, the kernel that sums the
+    split partials and applies the token scales.  Raises on anything the
+    kernel does not take (it needs G % 8 == 0); never falls back."""
+    name = "w4a8_matmul_cuda"
+    t = _check_common(name, x, qt, False)
     ci, co = qt.shape
     y = torch.empty(*x.shape[:-1], co, dtype=x.dtype, device=x.device)
     if t == 0:
         return y
+    tile, splits = _plan(name, x, qt, t, 1, a8=True)
+    part = (torch.empty(splits, t, co, dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     xq, xs = quantize_acts_per_token(x.reshape(t, ci))
     err = B.cfunc("w4a8_matmul", _W4A8_ARGS)(
         B.vp(xq), B.vp(xs), B.vp(qt.packed), B.vp(qt.scales), B.vp(qt.zeros),
-        _DTYPES[qt.scales.dtype], B.vp(y), _DTYPES[x.dtype], t, ci, co,
-        qt.group_size, B.stream_ptr(x.device))
+        _DTYPES[qt.scales.dtype], B.vp(y), _DTYPES[x.dtype], B.vp(part), t,
+        ci, co, qt.group_size, tile, splits, B.stream_ptr(x.device))
     B.check(err, "w4a8_matmul")
     w4a8_matmul_cuda.launches += 1
     return y

@@ -32,6 +32,7 @@ from repro_torch.core.calibration import synthetic_calibration_set
 from repro_torch.core.smoothing import smoothing_groups
 from repro_torch.device import resolve_device, strict_fp32_matmul
 from repro_torch.kernels import _build
+from repro_torch.kernels.w4a16_matmul import GROUP_MULTIPLE
 from repro_torch.models import api
 from repro_torch.serving.engine import Request, ServingEngine, load_or_quantize
 
@@ -61,7 +62,9 @@ def main(argv=None, *, attn_impl=None) -> dict:
                     help="a16 (default) or a8_prefill: per-token int8 "
                          "activations on prefill-chunk GEMMs of A8-eligible "
                          "layers; decode stays A16")
-    ap.add_argument("--group-size", type=int, default=None)
+    ap.add_argument("--group-size", type=int, default=None,
+                    help="PTQ group size G (default 128, 16 under --smoke); "
+                         "the W4 kernels take any positive multiple of 8")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-mode", choices=("bucketed", "slotwise"),
                     default="bucketed")
@@ -70,6 +73,12 @@ def main(argv=None, *, attn_impl=None) -> dict:
                     default="lazy")
     ap.add_argument("--num-pages", type=int, default=None)
     args = ap.parse_args(argv)
+    gs = (args.group_size if args.group_size is not None
+          else 16 if args.smoke else 128)
+    if not args.no_quant and (gs <= 0 or gs % GROUP_MULTIPLE):
+        # refused before the model is built: no W4 kernel takes this group
+        ap.error(f"--group-size {gs}: the W4 kernels take a positive "
+                 f"multiple of {GROUP_MULTIPLE}")
 
     device = resolve_device(args.device)
     strict_fp32_matmul()
@@ -89,7 +98,6 @@ def main(argv=None, *, attn_impl=None) -> dict:
 
     rep, ptq_s, calib = None, 0.0, []
     if not args.no_quant:
-        gs = args.group_size or (16 if args.smoke else 128)
         calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
         t0 = time.perf_counter()
         params, rep = load_or_quantize(

@@ -9,9 +9,11 @@ Marked ``cuda``: skipped where there is no GPU.  Run on the GPU machine with
 Tolerances, relative to the largest |reference| value: f32 outputs 1e-5
 (sums in another order); K1/B5/B6/B7 and B4 with bf16 activations 1e-2
 (the output is rounded to bf16).  K1 and B6 run the tensor-core tile of
-``csrc/w4a16_tile.cuh``: its row tiles (8 and 64), split-K, an offset-only
-group, bitwise repeatability and B6's ``rows`` (idle experts' scales
-poisoned with NaN: never read) are tested on their own.  Dead table
+``csrc/w4a16_tile.cuh``, B5 and B7 the int8 one of ``csrc/w4a8_tile.cuh``,
+both on the ring of ``csrc/w4_ring.cuh``: group sizes 8 to 256 (G = 256
+walks two ring stages a group), row tiles (8 and 64), split-K, an
+offset-only group, bitwise repeatability and B6's and B7's ``rows`` (idle
+experts' scales poisoned with NaN: never read) are tested on their own.  Dead table
 entries point at a trash page filled with NaN (int8 pools: codes -128 and
 NaN scales): the kernels must never read it (the plain versions are given
 a clean copy).
@@ -52,7 +54,9 @@ def _rel_err(a, b):
                                      (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("t,ci,co,g", [(1, 256, 96, 32), (5, 128, 48, 16),
                                        (21, 512, 200, 128), (4, 4096, 11008, 128),
-                                       (64, 11008, 4096, 128)])
+                                       (64, 11008, 4096, 128),
+                                       (4, 4096, 4096, 256),
+                                       (65, 768, 200, 256), (9, 64, 40, 8)])
 def test_w4a16_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
     gen = torch.Generator(device=dev).manual_seed(t + co)
     w = torch.randn(ci, co, generator=gen, device=dev) * ci ** -0.5
@@ -72,7 +76,10 @@ def test_w4a16_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
                                      (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("t,ci,co,g", [(16, 256, 96, 32), (21, 512, 200, 128),
                                        (33, 96, 112, 16), (64, 4096, 11008, 128),
-                                       (512, 11008, 4096, 128)])
+                                       (512, 11008, 4096, 128),
+                                       (40, 144, 72, 48), (16, 64, 40, 8),
+                                       (64, 4096, 4096, 256),
+                                       (129, 768, 256, 256)])
 def test_w4a8_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
     gen = torch.Generator(device=dev).manual_seed(t + co + 1)
     w = torch.randn(ci, co, generator=gen, device=dev) * ci ** -0.5
@@ -231,7 +238,8 @@ def test_int8_prefill_kernel_matches_plain(dev, sdt, grp, t):
 @pytest.mark.parametrize("e,c,ci,co,g", [(3, 21, 96, 48, 48),
                                          (32, 8, 1024, 512, 128),
                                          (32, 40, 512, 1024, 128),
-                                         (4, 17, 256, 200, 32)])
+                                         (4, 17, 256, 200, 32),
+                                         (4, 33, 512, 256, 256)])
 def test_grouped_kernels_match_plain(dev, e, c, ci, co, g, xdt, sdt, a8):
     """B6 (a8=False) and B7 with ragged zero capacity rows, which must come
     out exactly zero; B7 with a group whose zero fold needs the clip."""
@@ -324,7 +332,7 @@ def test_a16_tile_split_k_bitwise_repeatable(dev, kind, t, ci, co):
     x, qt, kern, plain = _a16_case(dev, kind, t, ci, co, 128, torch.float32,
                                    7, e=32)
     rows = x.shape[-2]
-    assert W4._a16_plan("k", x, qt, rows, x.numel() // (rows * ci))[1] > 1
+    assert W4._plan("k", x, qt, rows, x.numel() // (rows * ci))[1] > 1
     y1, y2 = kern(x, qt), kern(x, qt)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)
@@ -354,6 +362,67 @@ def test_b6_rows_skip_idle_experts(dev, e, c, ci, co, xdt):
     tol = 1e-5 if xdt == torch.float32 else 1e-2
     assert _rel_err(y, plain(x, qt, rows)) <= tol
     y_ops = ops.w4a16_grouped_matmul(x, qt, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(y_ops, y)
+
+
+@pytest.mark.parametrize("xdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("kind,t,ci,co,g", [("b5", 64, 4096, 4096, 128),
+                                            ("b5", 64, 4096, 1024, 256),
+                                            ("b7", 40, 1024, 512, 128)])
+def test_a8_tile_split_k_bitwise_repeatable(dev, kind, t, ci, co, g, xdt,
+                                            sdt):
+    """B5/B7 at shapes whose tiles leave the SMs idle (a T = 64 chunk of
+    codellama's 4096x4096, a small grouped call): the groups are split over
+    blocks, the partials summed in split order and then scaled by xs, so
+    two calls agree bit for bit and match the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(t + ci + g)
+    lead = () if kind == "b5" else (2,)
+    w = torch.randn(*lead, ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=g, dtype=sdt)
+    x = torch.randn(*lead, t, ci, generator=gen, device=dev).to(xdt)
+    experts = lead[0] if lead else 1
+    assert W4._plan("k", x, qt, t, experts, a8=True)[1] > 1
+    kern, plain = ((W4.w4a8_matmul_cuda, W4.w4a8_matmul_plain)
+                   if kind == "b5" else
+                   (W4G.w4a8_grouped_cuda, W4G.w4a8_grouped_plain))
+    y1, y2 = kern(x, qt), kern(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y1, plain(x, qt)) <= tol
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,ci,co,g", [(16, 70, 256, 192, 32),
+                                         (8, 40, 512, 256, 256)])
+def test_b7_rows_skip_idle_experts(dev, e, c, ci, co, g, xdt):
+    """B7 with ``rows``: idle experts (rows 0) have NaN scales and come out
+    exactly zero, so their weights were never read; rows past rows[e] of a
+    live expert come out exactly zero even where x is not zero there; a
+    clip group in expert 1."""
+    gen = torch.Generator(device=dev).manual_seed(e + c + g)
+    w = torch.randn(e, ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=g, dtype=xdt)
+    zeros = qt.zeros.clone()
+    zeros[1, 0, :4] = torch.tensor([140.0, 130.0, -150.0, -114.0])
+    x = torch.randn(e, c, ci, generator=gen, device=dev).to(xdt)
+    rows = torch.tensor([0, c, 1, 0, c // 2, 3, 17, 0] + [c, 0] * ((e - 8) // 2),
+                        dtype=torch.int32, device=dev)
+    scales = qt.scales.clone()
+    scales[rows == 0] = float("nan")
+    qt = dataclasses.replace(qt, scales=scales, zeros=zeros)
+    before = W4G.w4a8_grouped_cuda.launches
+    y = W4G.w4a8_grouped_cuda(x, qt, rows)
+    torch.cuda.synchronize()
+    assert W4G.w4a8_grouped_cuda.launches == before + 1
+    for i, n in enumerate(rows.tolist()):
+        assert not y[i, n:].any()
+    assert bool(torch.isfinite(y).all())
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y, W4G.w4a8_grouped_plain(x, qt, rows)) <= tol
+    y_ops = ops.w4a16_grouped_matmul(x, qt, act="a8", rows=rows)
     torch.cuda.synchronize()
     assert torch.equal(y_ops, y)
 

@@ -259,3 +259,20 @@ def test_unported_features_raise(models):
         quantize_params({"layers": []}, gcfg, QuantConfig(skip_router=False))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("zamba2-7b")
+
+
+@pytest.mark.parametrize("gs", [12, 4, 0, -8])
+def test_serve_refuses_groups_no_kernel_takes(monkeypatch, capsys, gs):
+    """A group size that no W4 kernel takes (G % 8 != 0, or G <= 0) is
+    refused by the serve entry before the model is built or calibration
+    starts, on the CPU as on the card."""
+    from repro_torch.launch import serve
+
+    def started(*args, **kwargs):
+        raise AssertionError("the serve entry went past its argument check")
+
+    monkeypatch.setattr(serve, "synthetic_calibration_set", started)
+    monkeypatch.setattr(serve, "resolve_device", started)
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--group-size", str(gs)])
+    assert f"--group-size {gs}" in capsys.readouterr().err

@@ -7,10 +7,11 @@ The emulation follows the kernel step by step: f32 X split into three bf16
 terms (bf16 X is one term), the A operand built from the packed bytes as
 the kernel builds it (byte pairs of packed rows r and r + 4, nibble masks,
 the bf16 ``0x4300 | code`` minus 128), the MMA k order and column order of
-the fragments, one f32 raw-code sum P per group beside the group sum xs
-(summed in the kernel's staging order),
-the fold ``acc += scale · (P − zero · xs)``, and the split-K partition of
-the groups summed in split order.  Tolerances relative to max |ref|: f32
+the fragments, the ring's chunks (a group of G > 128 walks several stages,
+a chunk of G % 16 != 0 is padded to a whole k-step with zero X), one f32
+raw-code sum P per group beside the group sum xs (summed in the kernel's
+staging order, chunk by chunk), the fold ``acc += scale · (P − zero ·
+xs)``, and the split-K partition of the groups summed in split order.  Tolerances relative to max |ref|: f32
 1e-5 (sums in another order), bf16 1e-2 (the output is rounded to bf16).
 """
 import functools
@@ -51,28 +52,39 @@ def _bf16_bits(v):
     return (v.astype(np.uint32) << 16).view(np.float32)
 
 
-def _a_operand(pg, half):
-    """The kernel's A operand of one group: codes[k, c] in MMA k order
-    (k = 16 s + kk) built from the packed bytes pg[half, Co], and the
-    weight row (within the group) each MMA k reads."""
-    co = pg.shape[1]
-    codes = np.zeros((half * 2, co), np.float32)
-    wrow = np.zeros(half * 2, np.int64)
-    for s in range(half // 8):
+def _a_operand(pc):
+    """The kernel's A operand of one staged chunk: codes[k, c] in MMA k
+    order (k = 16 s + kk) built from the packed bytes pc[rows, Co] (rows a
+    multiple of 8), and the staged X position each MMA k reads: r for the
+    low nibble of packed row r, rows + r for its high nibble."""
+    n, co = pc.shape
+    codes = np.zeros((2 * n, co), np.float32)
+    src = np.zeros(2 * n, np.int64)
+    for s in range(n // 8):
         for t4 in range(4):
             r = 8 * s + t4
             # __byte_perm(w0, w1, j | (4 + j) << 8): byte 0 row r, byte 2
             # row r + 4 of the same column
-            u = pg[r].astype(np.uint32) | (pg[r + 4].astype(np.uint32) << 16)
+            u = pc[r].astype(np.uint32) | (pc[r + 4].astype(np.uint32) << 16)
             lo = (u & 0x000F000F) | 0x43004300
             hi = ((u >> 4) & 0x000F000F) | 0x43004300
             for reg, base in ((lo, 0), (hi, 8)):
                 k = 16 * s + base + 2 * t4
                 codes[k] = _bf16_bits(reg & 0xFFFF) - 128.0
                 codes[k + 1] = _bf16_bits(reg >> 16) - 128.0
-                wrow[k] = r + (half if base else 0)
-                wrow[k + 1] = r + 4 + (half if base else 0)
-    return codes, wrow
+                src[k] = r + (n if base else 0)
+                src[k + 1] = r + 4 + (n if base else 0)
+    return codes, src
+
+
+def _chunks(g, step):
+    """The ring's chunks of a group (csrc/w4_ring.cuh Chunking): (first
+    packed row, packed rows holding weights, staged rows padded to whole
+    k-steps of ``step`` packed rows)."""
+    half = g // 2
+    for r0 in range(0, half, 64):
+        nv = min(64, half - r0)
+        yield r0, nv, -(-nv // step) * step
 
 
 def _fragment_columns(co):
@@ -103,30 +115,37 @@ def _tile(x, packed, scales, zeros, g, splits, f32):
         acc = np.zeros((t, co + pad), np.float32)
         for gi in range(sp * n_groups // splits,
                         (sp + 1) * n_groups // splits):
-            codes, wrow = _a_operand(pk[gi * half:(gi + 1) * half], half)
-            assert sorted(wrow.tolist()) == list(range(g))
-            xg = x[:, gi * g:(gi + 1) * g]
-            terms = [tm[:, wrow] for tm in _terms(xg, f32)]
-            # xs: each of a row's threads sums whole k-steps ks = l (mod
-            # tpr) of the B operand's staging, then an xor-shuffle tree
-            lane = np.zeros((tpr, t), np.float32)
-            for ks in range(half // 8):
-                for i in range(4):
-                    r = 8 * ks + i
-                    lane[ks % tpr] += (xg[:, r] + xg[:, r + 4]) \
-                        + (xg[:, half + r] + xg[:, half + r + 4])
-            o = tpr // 2
-            while o:
-                lane = lane + lane[np.arange(tpr) ^ o]
-                o //= 2
-            xs = lane[0][:, None]
             P = np.zeros((t, co + pad), np.float32)
-            for s in range(g // 16):
-                ks = slice(16 * s, 16 * s + 16)
-                for tm in terms:              # one MMA per 16-column tile
-                    prod = tm[:, ks].astype(np.float64) \
-                        @ codes[ks][:, frag].astype(np.float64)
-                    P[:, frag] = (P[:, frag] + prod).astype(np.float32)
+            for c, (r0, nv, rows) in enumerate(_chunks(g, 8)):
+                # the stage: packed rows past nv and their X are zero
+                pc = np.zeros((rows, co + pad), np.uint8)
+                pc[:nv] = pk[gi * half + r0:gi * half + r0 + nv]
+                codes, src = _a_operand(pc)
+                xc = np.zeros((t, 2 * rows), np.float32)
+                xc[:, :nv] = x[:, gi * g + r0:gi * g + r0 + nv]
+                xc[:, rows:rows + nv] = x[:, gi * g + half + r0:
+                                          gi * g + half + r0 + nv]
+                terms = [tm[:, src] for tm in _terms(xc, f32)]
+                # xs: each of a row's threads sums whole k-steps ks = l
+                # (mod tpr) of the B operand's staging, then an xor-shuffle
+                # tree; the chunks' sums add up
+                lane = np.zeros((tpr, t), np.float32)
+                for ks in range(rows // 8):
+                    for i in range(4):
+                        r = 8 * ks + i
+                        lane[ks % tpr] += (xc[:, r] + xc[:, r + 4]) \
+                            + (xc[:, rows + r] + xc[:, rows + r + 4])
+                o = tpr // 2
+                while o:
+                    lane = lane + lane[np.arange(tpr) ^ o]
+                    o //= 2
+                xs = lane[0][:, None] if c == 0 else xs + lane[0][:, None]
+                for s in range(rows // 8):
+                    ks = slice(16 * s, 16 * s + 16)
+                    for tm in terms:          # one MMA per 16-column tile
+                        prod = tm[:, ks].astype(np.float64) \
+                            @ codes[ks][:, frag].astype(np.float64)
+                        P[:, frag] = (P[:, frag] + prod).astype(np.float32)
             inner = (P.astype(np.float64)
                      - zr[gi].astype(np.float64) * xs).astype(np.float32)
             acc = (acc.astype(np.float64) + sc[gi].astype(np.float64)
@@ -177,6 +196,8 @@ CASES = [  # (t, ci, co, g, splits, offset_only): weights shared per (ci..)
     (9, 256, 48, 128, 2, True),            # offset-only group
     (7, 64, 48, 16, 4, False),             # G = 16
     (17, 96, 48, 48, 2, False),            # G = 48
+    (17, 512, 72, 256, 2, False),          # G = 256: two ring stages a group
+    (9, 64, 40, 8, 3, False),              # G = 8: a chunk padded to a k-step
 ]
 _ROWS = 65     # the oracle runs once per weight at the most rows of a case
 
@@ -206,7 +227,8 @@ def test_three_bf16_terms_hold_f32_exactly():
 
 @pytest.mark.parametrize("f32", [True, False])
 @pytest.mark.parametrize("e,c,ci,co,g,splits,offset_only", [
-    (3, 9, 96, 48, 48, 2, False), (4, 6, 128, 40, 128, 1, True)])
+    (3, 9, 96, 48, 48, 2, False), (4, 6, 128, 40, 128, 1, True),
+    (2, 20, 512, 40, 256, 1, False), (3, 9, 48, 40, 8, 2, False)])
 def test_tile_arithmetic_matches_grouped_oracle(e, c, ci, co, g, splits,
                                                 offset_only, f32):
     x, (packed, scales, zeros), want = _oracle_case((e,), c, ci, co, g,
