@@ -17,13 +17,17 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    K1/B5/B6/B7 with G=256, against their plain PyTorch versions at the
    paths' shapes, with CUDA-event times beside the plain version's, one
    PyTorch library call's (never used by the port) and the card's bound.
-   K1, B5, B6 and B7 (and their library call) are timed as CUDA graphs of
-   the calls, their kernels' device time (B5/B7: with the activation
-   quantization, whose graph time alone is printed beside), with the eager
-   wrapper's time beside it; K1/B6's bound counts the function's
-   2*rows*Ci*Co operations at the bf16 tensor-core rate (989 TFLOP/s) for
-   f32 and bf16 X alike, B5/B7's at the int8 rate (1,979 TOP/s) and, with
-   ``rows``, only the live experts' bytes; then the phase's peak memory;
+   K1, B5, B6, B7, K2 and K3 (and their library call) are timed as CUDA
+   graphs of the calls, their kernels' device time (B5/B7: with the
+   activation quantization, whose graph time alone is printed beside; K2:
+   the split kernel and its combine), with the eager wrapper's time beside
+   it, over copies of the weights or pools that together exceed L2; K1/B6's
+   bound counts the function's 2*rows*Ci*Co operations at the bf16
+   tensor-core rate (989 TFLOP/s) for f32 and bf16 X alike, K3's its
+   2*pairs*(Dh+Dv) likewise (the f32 CUDA-core rate's bound beside it),
+   B5/B7's at the int8 rate (1,979 TOP/s) and, with ``rows``, only the live
+   experts' bytes; K2/K3 also at the paths' own shapes; then the phase's
+   peak memory;
 3. paths — full width with random seeded weights, 8 requests (prompts of
    32-200 tokens, 16 new tokens, batch 4, greedy), every launch counter set
    to 0 just before and read just after each path; during each path the
@@ -201,10 +205,10 @@ def max_err(a, b):
 
 
 def record(kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, by,
-           wrapper_ms=None, quant_ms=None):
+           wrapper_ms=None, quant_ms=None, extra=None):
     row = dict(kernel=kernel, case=case, max_abs_err=err, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-               bound_by=by)
+               bound_by=by, **(extra or {}))
     if wrapper_ms is not None:
         row["wrapper_ms"] = wrapper_ms
     if quant_ms is not None:
@@ -213,6 +217,9 @@ def record(kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, by,
     wrap = "" if wrapper_ms is None else f" (eager wrapper {wrapper_ms:.4f}ms)"
     if quant_ms is not None:
         wrap += f" (of which activation quantization {quant_ms:.4f}ms)"
+    if extra:
+        wrap += "".join(f" {k}={v:.4f}" if isinstance(v, float)
+                        else f" {k}={v}" for k, v in extra.items())
     print(f"  {kernel:18s} {case:44s} err={err:.3g} (tol {tol:.3g}) "
           f"kernel={ms:.4f}ms{wrap} plain={plain_ms:.4f}ms "
           f"library={lib_ms:.4f}ms bound={bnd:.4f}ms ({by})", flush=True)
@@ -419,132 +426,181 @@ def _pool_label(kind):
     return "int8 pools" if kind == torch.int8 else str(kind)[6:]
 
 
+def _copies(tensors, nbytes):
+    """``tensors`` and clones of them that together exceed twice the L2
+    cache: a path's layers each read their own pool, so a timed call must
+    not find the previous call's pool in L2."""
+    n = max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
+    return [tensors] + [tuple(None if t is None else t.clone()
+                              for t in tensors) for _ in range(n - 1)]
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _attn_times(kern_fn, plain_fn, lib_fn, pools, lib_ops):
+    """Graph (device) time of the kernel's wrapper cycling over copies of
+    its pools, the eager wrapper's time, the plain version's time and the
+    library call's graph time over copies of its dense operands."""
+    pcs = _copies(pools, _nbytes(pools))
+    kern = [lambda c=c: kern_fn(c) for c in pcs]
+    lcs = _copies(lib_ops, _nbytes(lib_ops))
+    return (graph_ms(kern), time_ms(kern), time_ms([plain_fn]),
+            graph_ms([lambda c=c: lib_fn(*c) for c in lcs]))
+
+
+# K2 cases: the table's (B=4, 32 heads, lens 1024/700/333/17, grp 1 and 8)
+# and the paths' own decode shapes (path 1: codellama-7b, path 2 the same
+# with int8 pools, path 3: granite, Hkv=8, grp=2, Dh=64; batch 4, lens as
+# at a path's last decode steps, page size 16)
+K2_CASES = [(f"grp={grp}", 4, 32, grp, 128, [1024, 700, 333, 17], kind)
+            for grp in (1, 8)
+            for kind in (torch.float32, torch.bfloat16, torch.int8)] + [
+    ("path 1", 4, 32, 1, 128, [216, 150, 90, 33], torch.float32),
+    ("path 2", 4, 32, 1, 128, [216, 150, 90, 33], torch.int8),
+    ("path 3", 4, 8, 2, 64, [216, 150, 90, 33], torch.float32)]
+
+
 def check_k2():
     print("K2 gqa_paged_decode (replaces repro/kernels/paged_attention.py:"
-          "_gqa_kernel; fp pools and the int8 branch)")
+          "_gqa_kernel; fp pools and the int8 branch): split-KV; kernel "
+          "time = CUDA graph of the wrapper's calls (both kernels), eager "
+          "wrapper beside it")
     rows = {}
-    lengths = [1024, 700, 333, 17]
-    b, hkv = 4, 32
-    for grp in (1, 8):
-        for kind in (torch.float32, torch.bfloat16, torch.int8):
-            clean, bad, table, gen = _paged_inputs(
-                b, lengths, kind, ((hkv, 128),) * 2, seed=grp)
-            quant = kind == torch.int8
-            name = "gqa_paged_decode_int8" if quant else "gqa_paged_decode"
-            kern = (PA.gqa_paged_attention_int8_cuda if quant
-                    else PA.gqa_paged_attention_cuda)
-            lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
-            q = torch.randn(b, hkv, grp, 128, generator=gen, device=DEV)
-            sc = 128 ** -0.5
-            kargs = (q, bad[0], bad[1], table, lens) + (bad[2:] if quant
-                                                        else ())
-            pargs = (q, clean[0], clean[1], table, lens, *clean[2:])
-            ref = PA.gqa_paged_attention_plain(*pargs, sm_scale=sc)
-            out = kern(*kargs, sm_scale=sc)
-            torch.cuda.synchronize()
-            require(bool(torch.isfinite(out).all()),
-                    f"{name} read the trash page")
-            tol = 1e-5 * max(1.0, float(ref.abs().max()))
-            ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
-            plain = time_ms([lambda: PA.gqa_paged_attention_plain(
-                *pargs, sm_scale=sc)])
-            s = max(lengths)
-            kd = _dense(clean[0], clean[2], table, s).repeat_interleave(
-                grp, dim=1)
-            vd = _dense(clean[1], clean[3], table, s).repeat_interleave(
-                grp, dim=1)
-            mask = (torch.arange(s, device=DEV)[None, :]
-                    < lens[:, None].long())[:, None, None, :]
-            qd = q.reshape(b, hkv * grp, 1, 128).to(kd.dtype)
-            lib = time_ms([lambda: torch.nn.functional.
-                           scaled_dot_product_attention(qd, kd, vd,
-                                                        attn_mask=mask)])
-            live = sum(lengths)
-            nbytes = (q.numel() * 4 + live * hkv * _row_bytes(clean)
-                      + table.numel() * 4 + b * 4 + out.numel() * 4)
-            flops = 2.0 * live * hkv * grp * 256
-            # int8 codes meet f32 queries: f32 arithmetic, f32 rate
-            bnd, by = bound(nbytes, flops, torch.float32 if quant else kind)
-            case = f"B=4 Hkv=32 grp={grp} lens={lengths} {_pool_label(kind)}"
-            rows[(grp, kind)] = record(name, case, max_err(out, ref), tol,
-                                       ms, plain, lib, bnd, by)
+    for tag, b, hkv, grp, dh, lengths, kind in K2_CASES:
+        clean, bad, table, gen = _paged_inputs(
+            b, lengths, kind, ((hkv, dh),) * 2, seed=grp + dh)
+        quant = kind == torch.int8
+        name = "gqa_paged_decode_int8" if quant else "gqa_paged_decode"
+        kern = (PA.gqa_paged_attention_int8_cuda if quant
+                else PA.gqa_paged_attention_cuda)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+        q = torch.randn(b, hkv, grp, dh, generator=gen, device=DEV)
+        sc = dh ** -0.5
+        pargs = (q, clean[0], clean[1], table, lens, *clean[2:])
+        ref = PA.gqa_paged_attention_plain(*pargs, sm_scale=sc)
+        out = kern(q, bad[0], bad[1], table, lens,
+                   *(bad[2:] if quant else ()), sm_scale=sc)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(out).all()),
+                f"{name} read the trash page")
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        s = max(lengths)
+        kd = _dense(clean[0], clean[2], table, s).repeat_interleave(
+            grp, dim=1)
+        vd = _dense(clean[1], clean[3], table, s).repeat_interleave(
+            grp, dim=1)
+        mask = (torch.arange(s, device=DEV)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        qd = q.reshape(b, hkv * grp, 1, dh).to(kd.dtype)
+        ms, wrapper, plain, lib = _attn_times(
+            lambda c: kern(q, c[0], c[1], table, lens,
+                           *(c[2:] if quant else ()), sm_scale=sc),
+            lambda: PA.gqa_paged_attention_plain(*pargs, sm_scale=sc),
+            lambda k, v: torch.nn.functional.scaled_dot_product_attention(
+                qd, k, v, attn_mask=mask), bad, (kd, vd))
+        live = sum(lengths)
+        nbytes = (q.numel() * 4 + live * hkv * _row_bytes(clean)
+                  + table.numel() * 4 + b * 4 + out.numel() * 4)
+        flops = 2.0 * live * hkv * grp * 2 * dh
+        # int8 codes meet f32 queries: f32 arithmetic, f32 rate
+        bnd, by = bound(nbytes, flops, torch.float32 if quant else kind)
+        case = (f"B={b} Hkv={hkv} grp={grp} Dh={dh} lens={lengths} "
+                f"{_pool_label(kind)} ({tag})")
+        splits = PA.gqa_decode_splits(b, hkv, grp, table.shape[1],
+                                      _build.sm_count(DEV))
+        rows[(tag, kind)] = record(name, case, max_err(out, ref), tol, ms,
+                                   plain, lib, bnd, by, wrapper,
+                                   extra=dict(splits=splits))
     return rows
+
+
+# K3 cases: the table's (B=4, T=64/256, no prefix / prefixes 256/130/64/0,
+# the four instances) and the paths' chunk shapes (path 1: two fresh
+# prompts of T=256; path 2: a T=128 chunk after a 128-token int8 prefix;
+# path 3: granite, Hkv=8, grp=2, Dh=64)
+K3_KINDS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+            (torch.int8, torch.float32), (torch.int8, torch.bfloat16))
+K3_CASES = [("table", 4, t, 32, 1, 128, prefix, [t, t - 7, t // 2, 1], kind,
+             sdt)
+            for t in (64, 256) for prefix in ([0, 0, 0, 0], [256, 130, 64, 0])
+            for kind, sdt in K3_KINDS] + [
+    ("path 1", 2, 256, 32, 1, 128, [0, 0], [256, 200], torch.float32,
+     torch.float32),
+    ("path 2", 1, 128, 32, 1, 128, [128], [128], torch.int8, torch.float32),
+    ("path 3", 2, 256, 8, 2, 64, [0, 0], [256, 200], torch.float32,
+     torch.float32)]
 
 
 def check_k3():
     print("K3 gqa_paged_prefill (replaces repro/kernels/paged_attention.py:"
-          "_gqa_prefill_kernel; fp pools and the int8 branch)")
+          "_gqa_prefill_kernel; fp pools and the int8 branch): tensor-core "
+          "tiles; kernel time = CUDA graph of the wrapper's calls, eager "
+          "wrapper beside it; bound at the bf16 tensor-core rate (the f32 "
+          "CUDA-core rate's beside it as bound_f32_ms)")
     rows = {}
-    b, hkv, grp = 4, 32, 1
-    kinds = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-             (torch.int8, torch.float32), (torch.int8, torch.bfloat16))
-    for t in (64, 256):
-        for prefix in ([0, 0, 0, 0], [256, 130, 64, 0]):
-            chunk = [t, t - 7, t // 2, 1]
-            for kind, sdt in kinds:
-                clean, bad, table, gen = _paged_inputs(
-                    b, [p + c for p, c in zip(prefix, chunk)], kind,
-                    ((hkv, 128),) * 2, seed=t + prefix[0])
-                quant = kind == torch.int8
-                name = ("gqa_paged_prefill_int8" if quant
-                        else "gqa_paged_prefill")
-                kern = (PA.gqa_paged_prefill_int8_cuda if quant
-                        else PA.gqa_paged_prefill_cuda)
-                pl = torch.tensor(prefix, dtype=torch.int32, device=DEV)
-                cl = torch.tensor(chunk, dtype=torch.int32, device=DEV)
-                q = torch.randn(b, t, hkv, grp, 128, generator=gen,
-                                device=DEV)
-                ks = torch.randn(b, t, hkv, 128, generator=gen,
-                                 device=DEV).to(sdt)
-                vs = torch.randn(b, t, hkv, 128, generator=gen,
-                                 device=DEV).to(sdt)
-                sc = 128 ** -0.5
-                kargs = (q, ks, vs, bad[0], bad[1], table, pl, cl) \
-                    + (bad[2:] if quant else ())
-                pargs = (q, ks, vs, clean[0], clean[1], table, pl, cl,
-                         *clean[2:])
-                ref = PA.gqa_paged_prefill_plain(*pargs, sm_scale=sc)
-                out = kern(*kargs, sm_scale=sc)
-                torch.cuda.synchronize()
-                require(bool(torch.isfinite(out).all()),
-                        f"{name} read the trash page")
-                tol = 1e-5 * max(1.0, float(ref.abs().max()))
-                ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
-                plain = time_ms([lambda: PA.gqa_paged_prefill_plain(
-                    *pargs, sm_scale=sc)])
-                s = max(prefix)
-                kd = _dense(clean[0], clean[2], table, s)
-                vd = _dense(clean[1], clean[3], table, s)
-                kd = torch.cat([kd, ks.to(kd.dtype).permute(0, 2, 1, 3)],
-                               dim=2).contiguous()
-                vd = torch.cat([vd, vs.to(vd.dtype).permute(0, 2, 1, 3)],
-                               dim=2).contiguous()
-                kv = torch.arange(s, device=DEV)
-                j = torch.arange(t, device=DEV)
-                pre = (kv[None, None, :] < pl.long()[:, None, None]).expand(
-                    b, t, s)
-                suf = (j[None, None, :] <= j[None, :, None]) \
-                    & (j[None, None, :] < cl.long()[:, None, None])
-                mask = torch.cat([pre, suf], dim=-1)[:, None]
-                qd = q.reshape(b, t, hkv, 128).permute(0, 2, 1, 3).to(
-                    kd.dtype).contiguous()
-                lib = time_ms([lambda: torch.nn.functional.
-                               scaled_dot_product_attention(
-                                   qd, kd, vd, attn_mask=mask)])
-                keys = sum(p * t + sum(min(i + 1, c) for i in range(t))
-                           for p, c in zip(prefix, chunk))
-                nbytes = (q.numel() * 4 + (ks.numel() + vs.numel())
-                          * ks.element_size()
-                          + sum(prefix) * hkv * _row_bytes(clean)
-                          + table.numel() * 4 + 2 * b * 4 + out.numel() * 4)
-                flops = 2.0 * keys * hkv * grp * 256
-                bnd, by = bound(nbytes, flops,
-                                torch.float32 if quant else kind)
-                case = (f"B=4 T={t} Hkv=32 prefix={prefix} chunk={chunk} "
-                        f"{_pool_label(kind)}, {str(sdt)[6:]} suffix")
-                rows[(t, sum(prefix) > 0, kind, sdt)] = record(
-                    name, case, max_err(out, ref), tol, ms, plain, lib, bnd,
-                    by)
+    for tag, b, t, hkv, grp, dh, prefix, chunk, kind, sdt in K3_CASES:
+        clean, bad, table, gen = _paged_inputs(
+            b, [p + c for p, c in zip(prefix, chunk)], kind,
+            ((hkv, dh),) * 2, seed=t + prefix[0] + dh)
+        quant = kind == torch.int8
+        name = "gqa_paged_prefill_int8" if quant else "gqa_paged_prefill"
+        kern = (PA.gqa_paged_prefill_int8_cuda if quant
+                else PA.gqa_paged_prefill_cuda)
+        pl = torch.tensor(prefix, dtype=torch.int32, device=DEV)
+        cl = torch.tensor(chunk, dtype=torch.int32, device=DEV)
+        q = torch.randn(b, t, hkv, grp, dh, generator=gen, device=DEV)
+        ks = torch.randn(b, t, hkv, dh, generator=gen, device=DEV).to(sdt)
+        vs = torch.randn(b, t, hkv, dh, generator=gen, device=DEV).to(sdt)
+        sc = dh ** -0.5
+        pargs = (q, ks, vs, clean[0], clean[1], table, pl, cl, *clean[2:])
+        ref = PA.gqa_paged_prefill_plain(*pargs, sm_scale=sc)
+        out = kern(q, ks, vs, bad[0], bad[1], table, pl, cl,
+                   *(bad[2:] if quant else ()), sm_scale=sc)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(out).all()),
+                f"{name} read the trash page")
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        s = max(prefix)
+        kd = _dense(clean[0], clean[2], table, s)
+        vd = _dense(clean[1], clean[3], table, s)
+        kd = torch.cat([kd, ks.to(kd.dtype).permute(0, 2, 1, 3)],
+                       dim=2).repeat_interleave(grp, dim=1).contiguous()
+        vd = torch.cat([vd, vs.to(vd.dtype).permute(0, 2, 1, 3)],
+                       dim=2).repeat_interleave(grp, dim=1).contiguous()
+        kv = torch.arange(s, device=DEV)
+        j = torch.arange(t, device=DEV)
+        pre = (kv[None, None, :] < pl.long()[:, None, None]).expand(b, t, s)
+        suf = (j[None, None, :] <= j[None, :, None]) \
+            & (j[None, None, :] < cl.long()[:, None, None])
+        mask = torch.cat([pre, suf], dim=-1)[:, None]
+        qd = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * grp, t, dh).to(
+            kd.dtype).contiguous()
+        ms, wrapper, plain, lib = _attn_times(
+            lambda c: kern(q, ks, vs, c[0], c[1], table, pl, cl,
+                           *(c[2:] if quant else ()), sm_scale=sc),
+            lambda: PA.gqa_paged_prefill_plain(*pargs, sm_scale=sc),
+            lambda k, v: torch.nn.functional.scaled_dot_product_attention(
+                qd, k, v, attn_mask=mask), bad, (kd, vd))
+        keys = sum(p * t + sum(min(i + 1, c) for i in range(t))
+                   for p, c in zip(prefix, chunk))
+        nbytes = (q.numel() * 4 + (ks.numel() + vs.numel())
+                  * ks.element_size()
+                  + sum(prefix) * hkv * _row_bytes(clean)
+                  + table.numel() * 4 + 2 * b * 4 + out.numel() * 4)
+        macs = float(keys) * hkv * grp * 2 * dh
+        bnd, by = tc_bound(nbytes, macs)
+        bnd_f32, _ = bound(nbytes, 2.0 * macs, torch.float32)
+        case = (f"B={b} T={t} Hkv={hkv} grp={grp} Dh={dh} prefix={prefix} "
+                f"chunk={chunk} {_pool_label(kind)}, {str(sdt)[6:]} suffix "
+                f"({tag})")
+        key = (t, sum(prefix) > 0, kind, sdt) if tag == "table" \
+            else (tag, kind)
+        rows[key] = record(name, case, max_err(out, ref), tol, ms, plain,
+                           lib, bnd, by, wrapper,
+                           extra=dict(bound_f32_ms=bnd_f32))
     return rows
 
 
@@ -1642,7 +1698,7 @@ def main():
         "w4a16_matmul": (k1[(4, 4096, 11008, torch.float32)], counts1,
                          "csrc/w4a16_matmul.cu",
                          "src/repro/kernels/w4a16_matmul.py:72"),
-        "gqa_paged_decode": (k2[(1, torch.float32)], counts1,
+        "gqa_paged_decode": (k2[("grp=1", torch.float32)], counts1,
                              "csrc/gqa_paged_decode.cu",
                              "src/repro/kernels/paged_attention.py:65"),
         "gqa_paged_prefill": (k3[(256, False, torch.float32, torch.float32)],
@@ -1652,7 +1708,7 @@ def main():
         "w4a8_matmul": (b5[(512, 4096, 11008, torch.float32)], counts2,
                         "csrc/w4a8_matmul.cu",
                         "src/repro/kernels/w4a16_matmul.py:94"),
-        "gqa_paged_decode_int8": (k2[(1, torch.int8)], counts2,
+        "gqa_paged_decode_int8": (k2[("grp=1", torch.int8)], counts2,
                                   "csrc/gqa_paged_decode.cu",
                                   "src/repro/kernels/paged_attention.py:65"),
         "gqa_paged_prefill_int8": (k3[(256, True, torch.int8, torch.float32)],

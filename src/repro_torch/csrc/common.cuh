@@ -74,6 +74,33 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld, const PT* src,
   TileStager<kThreads, PT>::run(dst, ld, src, stride, rows, cols);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16- or 4-byte asynchronous copy; `n` < size bytes are read, the rest of
+// the destination is zero-filled (n = 0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most kPending committed copy groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 // Returns cudaSuccess or the error; the launch that follows reports the rest.
 template <typename Kernel>

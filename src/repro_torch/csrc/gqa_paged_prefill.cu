@@ -22,46 +22,563 @@
 // Masks, as in the reference: a prefix key at position kv is valid when
 // kv < prefix_len[b] (every chunk query postdates the prefix, so there is no
 // causal term); a chunk key j is valid for query row t when j <= t and
-// j < chunk_len[b].  Padded query rows (t >= chunk_len) are computed like the
-// reference computes them; a row with no valid key gives zeros.
+// j < chunk_len[b].  Masked scores take -1e30 and contribute exactly 0;
+// padded query rows (t >= chunk_len) are computed as the reference computes
+// them; a row with no valid key gives zeros (acc / max(l, 1e-30)).
 //
 // Int8 pools, as the reference (paged_attention.py:364-368): only the
 // prefix rows come from the int8 pool — their scores are scaled by
 // k_scale[row] and their value weights (not the softmax sum) by
 // v_scale[row]; the chunk's own suffix K/V stay raw fp (:370-384).
 //
-// What bounds it on an H100: at the main path's sizes (T up to a few hundred,
-// Dh = 128) the score and value FLOPs, 2 * grp * (Dh + Dv) per (query, key)
-// pair, on the CUDA cores (f32, 67 TFLOP/s) — this first kernel does not use
-// the tensor cores.
+// What bounds it on an H100: at the main path's sizes (T up to a few
+// hundred, Dh = 128) the score and value products, 2 * grp * (Dh + Dv)
+// operations per (query, key) pair — on the tensor cores here.
 //
-// Design: one block per (tile of 16 query rows of the flattened T*grp axis,
-// kv head, slot).  The block first streams the slot's live prefix pages
-// (ceil(prefix_len / PS), dead table entries never read; int8 codes staged
-// with 4-byte vector loads, the page's row scales beside them), then the
-// chunk's
-// suffix K/V in tiles of PS rows, skipping tiles wholly above the causal
-// diagonal of its rows or past chunk_len.  Each tile's K/V rows are staged in
-// shared memory; the online softmax state (m, l, acc) per query row lives in
-// shared memory.
+// Design (the tensor-core path).  One block per (64 query rows of the
+// flattened T*grp axis, kv head and slice of <= kDV value columns, slot):
+// 4 warps of 16 rows, as in FlashAttention-2; the grp heads of one KV head
+// share every K/V tile.  Key tiles of 64 rows stream through a
+// shared-memory ring filled by cp.async (16-byte pieces where the rows
+// allow, else 4-byte; 2-byte synchronous copies for odd bf16 widths), with
+// two stages the next tile in flight while the current one is computed.
+// The prefix phase gathers each tile's 64 rows through the table one row
+// at a time, so a tile may span any number of pages (PS need not divide
+// 64) and rows at or past prefix_len are zero-filled, never read; the
+// suffix phase takes a contiguous slice of k_suf/v_suf.  Tiles wholly past chunk_len or above a
+// warp's causal diagonal are skipped, the diagonal tile is masked.  Widths
+// are zero-padded to a multiple of 16 in shared memory, so any Dh and Dv
+// run here; a Dv wider than kDV takes several blocks, each recomputing the
+// scores for its slice of the values.  The ring has two stages where two
+// such blocks fit on an SM, else one (f32 tiles at Dh = 128: two blocks of
+// 4 warps, each waiting on its own copies, beat one block that overlaps
+// them); where one stage does not fit (f32 rows of several hundred), the
+// block takes the CUDA-core path below.
+//
+// Arithmetic.  S = Q K^T and O += P V run on mma.sync; the online softmax
+// runs on the accumulator fragments in registers (quad shuffles for the row
+// max; each thread keeps a partial row sum, summed across the quad at the
+// end).  The tolerance against the reference (1e-5 of max |out|) rules out
+// plain TF32 (10-bit mantissa), so every product is exact or nearly so:
+//  - an f32 x f32 product (f32 Q against f32 K, f32 P against f32 V) is
+//    3xTF32 on m16n8k8: each operand x = big + small, big = x cut to tf32,
+//    small = x - big (cut to tf32 by the MMA), and the MMA sums small*big
+//    + big*small + big*big (about 2^-20 relative per product);
+//  - where one operand is exact in bf16 (bf16 K/V, and int8 codes, |c| <=
+//    128), the f32 one (Q, or P) is split into three bf16 terms hi + mid +
+//    lo that hold its 24-bit significand exactly, and three bf16 m16n8k16
+//    MMAs sum exact products — half the MMA issue of 3xTF32 for the same
+//    work, as K1's tile does for f32 X (w4a16_tile.cuh).
+// So (f32 suffix, f32 pools) is 3xTF32 in both phases, (bf16, bf16) bf16x3
+// in both, and with int8 pools the prefix phase is bf16x3 on the codes (the
+// scales applied to the f32 scores and to P in f32) while the suffix phase
+// follows the suffix's type.  For 3xTF32 P V the MMA's k order over a key
+// tile is permuted (MMA k t <-> key 2t, t + 4 <-> key 2t + 1) so the score
+// accumulators serve as the A operand without a shuffle.
+//
+// The CUDA-core path (widths whose tile does not fit in shared memory): one
+// block per (16 query rows, kv head, slot) streams PS-row tiles through
+// shared memory as f32 and runs each score and value product as one
+// thread's f32 loop.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 16;  // query rows (of the flattened T*grp axis) per block
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // query rows per block (tensor cores)
+constexpr int kKeys = 64;            // keys per tile
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory per block
+constexpr size_t kSmemPerSM = 233472;  // shared memory of one SM
+constexpr size_t kBlockReserve = 1024;  // the runtime's share per block
 
-size_t smem_floats(int Dh, int Dv, int KT) {
-  return (size_t)kRows * Dh          // q
+// ---------------------------------------------------------------- copies
+// One `piece`-byte copy from s (ok) or of zeros.
+__device__ __forceinline__ void copy_piece(unsigned char* d,
+                                           const unsigned char* s, bool ok,
+                                           int piece, const void* any) {
+  if (piece == 16) {
+    cp_async16(d, ok ? s : any, ok ? 16 : 0);
+  } else if (piece == 4) {
+    cp_async4(d, ok ? s : any, ok ? 4 : 0);
+  } else if (piece == 2) {
+    *reinterpret_cast<uint16_t*>(d) =
+        ok ? *reinterpret_cast<const uint16_t*>(s) : 0;
+  } else {
+    *d = ok ? *s : 0;
+  }
+}
+
+// Stage `rows` rows into shared memory (rows `ld` bytes apart): row r takes
+// the first `vbytes` bytes at src(r) (nullptr: none), the rest of its
+// `tbytes` is zero-filled.  `piece` is the copy's size: 16 or 4 bytes by
+// cp.async (vbytes, tbytes and the rows' addresses multiples of it), or 2 /
+// 1 by synchronous copies.
+template <typename Src>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int ld,
+                                           int rows, int vbytes, int tbytes,
+                                           int piece, const void* any,
+                                           Src src) {
+  const int per = tbytes / piece;
+  if (kThreads % per == 0) {   // a fixed piece per thread: no division
+    const int off = (threadIdx.x % per) * piece;
+    for (int r = threadIdx.x / per; r < rows; r += kThreads / per) {
+      const unsigned char* s = src(r);
+      copy_piece(dst + (size_t)r * ld + off, s + off,
+                 s != nullptr && off < vbytes, piece, any);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+    const int r = i / per, off = (i - r * per) * piece;
+    const unsigned char* s = src(r);
+    copy_piece(dst + (size_t)r * ld + off, s + off,
+               s != nullptr && off < vbytes, piece, any);
+  }
+}
+
+// The piece size for rows of `bytes` bytes at `base` (every row's address
+// is base + a multiple of bytes, or of a row stride that bytes divides).
+int piece_for(const void* base, size_t bytes, int elem) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  if (bytes % 16 == 0 && a % 16 == 0) return 16;
+  if (bytes % 4 == 0 && a % 4 == 0) return 4;
+  return elem;
+}
+
+// ------------------------------------------------------------ tensor cores
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// x = big + small: big is x cut to tf32 (its low 13 mantissa bits
+// cleared), small = x - big exactly (|small| < 2^-10 |x|); the MMA reads a
+// tf32 operand's top 19 bits, so small loses under 2^-21 |x|.  Two ALU
+// operations, where cvt.rna.tf32 would take the conversion pipe.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+// (x, y) = hi + mid + lo exactly, three bf16x2 terms
+__device__ __forceinline__ void split_bf16(float x, float y,
+                                           uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
+  float2 f = __bfloat1622float2(a);
+  x -= f.x;
+  y -= f.y;
+  __nv_bfloat162 b = __floats2bfloat162_rn(x, y);
+  f = __bfloat1622float2(b);
+  hi = as_u32(a);
+  mid = as_u32(b);
+  lo = as_u32(__floats2bfloat162_rn(x - f.x, y - f.y));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two consecutive staged elements as a bf16x2 (exact: bf16 values or int8
+// codes); two elements of different rows likewise.
+__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pair(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return as_u32(__floats2bfloat162_rn((float)c.x, (float)c.y));
+}
+__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* a,
+                                         const __nv_bfloat16* b) {
+  return (uint32_t)*reinterpret_cast<const uint16_t*>(a) |
+         ((uint32_t)*reinterpret_cast<const uint16_t*>(b) << 16);
+}
+__device__ __forceinline__ uint32_t pair(const int8_t* a, const int8_t* b) {
+  return as_u32(__floats2bfloat162_rn((float)*a, (float)*b));
+}
+
+// s[nt] (the C fragments of 8 n-tiles of 8 keys) = this warp's 16 query
+// rows (f32, row stride ldq) . the staged key tile (rows of type KT, stride
+// ldk elements), over Dhp (a multiple of 16) dimensions.  Lane (g, tq) =
+// (lane / 4, lane % 4).
+template <typename KT>
+__device__ __forceinline__ void scores(float (&s)[8][4],
+                                       const float* __restrict__ qw, int ldq,
+                                       const KT* __restrict__ kt, int ldk,
+                                       int Dhp, int g, int tq) {
+  if constexpr (std::is_same<KT, float>::value) {
+    for (int k0 = 0; k0 < Dhp; k0 += 8) {
+      uint32_t ab[4], as[4];
+      split_tf32(qw[g * ldq + k0 + tq], ab[0], as[0]);
+      split_tf32(qw[(g + 8) * ldq + k0 + tq], ab[1], as[1]);
+      split_tf32(qw[g * ldq + k0 + tq + 4], ab[2], as[2]);
+      split_tf32(qw[(g + 8) * ldq + k0 + tq + 4], ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float* kr = kt + (nt * 8 + g) * ldk + k0;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(kr[tq], bb0, bs0);
+        split_tf32(kr[tq + 4], bb1, bs1);
+        mma_tf32(s[nt], as, bb0, bb1);
+        mma_tf32(s[nt], ab, bs0, bs1);
+        mma_tf32(s[nt], ab, bb0, bb1);
+      }
+    }
+  } else {
+    for (int k0 = 0; k0 < Dhp; k0 += 16) {
+      uint32_t a[3][4];
+      const float* q0 = qw + g * ldq + k0 + 2 * tq;
+      const float* q8 = q0 + 8 * ldq;
+      const float2 x0 = *reinterpret_cast<const float2*>(q0);
+      const float2 x1 = *reinterpret_cast<const float2*>(q8);
+      const float2 x2 = *reinterpret_cast<const float2*>(q0 + 8);
+      const float2 x3 = *reinterpret_cast<const float2*>(q8 + 8);
+      split_bf16(x0.x, x0.y, a[0][0], a[1][0], a[2][0]);
+      split_bf16(x1.x, x1.y, a[0][1], a[1][1], a[2][1]);
+      split_bf16(x2.x, x2.y, a[0][2], a[1][2], a[2][2]);
+      split_bf16(x3.x, x3.y, a[0][3], a[1][3], a[2][3]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const KT* kr = kt + (nt * 8 + g) * ldk + k0 + 2 * tq;
+        const uint32_t b0 = pair(kr), b1 = pair(kr + 8);
+        mma_bf16(s[nt], a[2], b0, b1);
+        mma_bf16(s[nt], a[1], b0, b1);
+        mma_bf16(s[nt], a[0], b0, b1);
+      }
+    }
+  }
+}
+
+// o[n] (C fragments of kNT n-tiles of 8 value columns) += p . the staged
+// value tile (rows of type VT, stride ldv elements); p holds the tile's
+// value weights in the score fragments' layout.
+template <int kNT, typename VT>
+__device__ __forceinline__ void values(float (&o)[kNT][4],
+                                       const float (&p)[8][4],
+                                       const VT* __restrict__ vt, int ldv,
+                                       int g, int tq) {
+  if constexpr (std::is_same<VT, float>::value) {
+    // MMA k tq <-> key 8j + 2tq, k tq + 4 <-> key 8j + 2tq + 1
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ab[4], as[4];
+      split_tf32(p[j][0], ab[0], as[0]);
+      split_tf32(p[j][2], ab[1], as[1]);
+      split_tf32(p[j][1], ab[2], as[2]);
+      split_tf32(p[j][3], ab[3], as[3]);
+      const float* v0 = vt + (8 * j + 2 * tq) * ldv + g;
+      const float* v1 = v0 + ldv;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(v0[8 * n], bb0, bs0);
+        split_tf32(v1[8 * n], bb1, bs1);
+        mma_tf32(o[n], as, bb0, bb1);
+        mma_tf32(o[n], ab, bs0, bs1);
+        mma_tf32(o[n], ab, bb0, bb1);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[3][4];
+      split_bf16(p[2 * kk][0], p[2 * kk][1], a[0][0], a[1][0], a[2][0]);
+      split_bf16(p[2 * kk][2], p[2 * kk][3], a[0][1], a[1][1], a[2][1]);
+      split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], a[0][2], a[1][2],
+                 a[2][2]);
+      split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], a[0][3], a[1][3],
+                 a[2][3]);
+      const VT* r0 = vt + (16 * kk + 2 * tq) * ldv + g;
+      const VT* r1 = r0 + ldv;
+      const VT* r8 = r0 + 8 * ldv;
+      const VT* r9 = r8 + ldv;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const uint32_t b0 = pair(r0 + 8 * n, r1 + 8 * n);
+        const uint32_t b1 = pair(r8 + 8 * n, r9 + 8 * n);
+        mma_bf16(o[n], a[2], b0, b1);
+        mma_bf16(o[n], a[1], b0, b1);
+        mma_bf16(o[n], a[0], b0, b1);
+      }
+    }
+  }
+}
+
+// Launch geometry, computed on the host.
+struct Geo {
+  int T, Hkv, grp, Dh, Dv, PS, P;
+  int Dhp;            // Dh rounded up to 16
+  int n_vs;           // value slices of kDV columns
+  int stages;         // ring stages (1 or 2)
+  int ldk, ldv;       // staged key / value row strides, bytes
+  int stage_bytes;
+  int pq, pkp, pvp, pks, pvs;   // copy pieces: q, pool K/V, suffix K/V
+  float scale;
+};
+
+// One key tile for this warp: scores, masks, the online-softmax step and
+// the value product.  kPre: a prefix tile (valid keys j0 + c < lim =
+// prefix_len), else a suffix tile (valid when j0 + c <= the row's t and
+// < lim = chunk_len).  ksc / vsc: the tile rows' int8 scales.
+template <typename KT, bool kPre, bool kQuant, int kNT>
+__device__ __forceinline__ void tile_step(
+    float (&o)[kNT][4], float (&m)[2], float (&lp)[2], const float* qw,
+    int ldq, const unsigned char* kd, const unsigned char* vd,
+    const float* ksc, const float* vsc, const Geo& G, int j0, int lim,
+    int ta, int tb, int g, int tq) {
+  float s[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  scores<KT>(s, qw, ldq, reinterpret_cast<const KT*>(kd),
+             G.ldk / (int)sizeof(KT), G.Dhp, g, tq);
+  uint32_t valid = 0;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * nt + 2 * tq + (e & 1);
+      const int key = j0 + c;
+      const bool ok = kPre ? key < lim : key <= (e < 2 ? ta : tb) && key < lim;
+      float v = s[nt][e] * G.scale;
+      if (kPre && kQuant) v *= ksc[c];
+      s[nt][e] = ok ? v : REPRO_NEG_INF;
+      valid |= (ok ? 1u : 0u) << (4 * nt + e);
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    }
+  float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = expf(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = (valid >> (4 * nt + e)) & 1u ? expf(s[nt][e] - mx[e >> 1])
+                                             : 0.f;
+      sum[e >> 1] += p;
+      // l takes the unscaled exp; the value weights carry v_scale
+      if (kPre && kQuant) p *= vsc[8 * nt + 2 * tq + (e & 1)];
+      s[nt][e] = p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lp[r] = lp[r] * corr[r] + sum[r];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+  values<kNT>(o, s, reinterpret_cast<const KT*>(vd), G.ldv / (int)sizeof(KT),
+              g, tq);
+}
+
+template <typename ST, typename PT, int kDV>
+__global__ void __launch_bounds__(kThreads)
+prefill_tc_kernel(const float* __restrict__ q, const ST* __restrict__ k_suf,
+                  const ST* __restrict__ v_suf, const PT* __restrict__ k_pool,
+                  const PT* __restrict__ v_pool,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
+                  const int* __restrict__ table,
+                  const int* __restrict__ prefix_len,
+                  const int* __restrict__ chunk_len, float* __restrict__ out,
+                  const Geo G) {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  constexpr int kNT = kDV / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int R0 = blockIdx.x * kRows;
+  const int h = blockIdx.y / G.n_vs;
+  const int v0 = (blockIdx.y - h * G.n_vs) * kDV;
+  const int b = blockIdx.z;
+  const int TG = G.T * G.grp;
+  const int nrows = min(kRows, TG - R0);
+  const int vw = min(kDV, G.Dv - v0);
+  const int pfx = min(max(prefix_len[b], 0), G.P * G.PS);
+  const int cl = min(max(chunk_len[b], 0), G.T);
+  const int kv_end = min((R0 + nrows - 1) / G.grp + 1, cl);
+  const int n_pt = (pfx + kKeys - 1) / kKeys;
+  const int n_tiles = n_pt + (kv_end + kKeys - 1) / kKeys;
+  const size_t k_row = (size_t)G.Hkv * G.Dh, v_row = (size_t)G.Hkv * G.Dv;
+  const int ldq = G.Dhp + 4;
+  float* qs = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + (size_t)kRows * ldq * 4;
+
+  stage_rows(smem, ldq * 4, kRows, G.Dh * 4, G.Dhp * 4, G.pq, q,
+             [&](int r) -> const unsigned char* {
+               const int R = R0 + r;
+               if (R >= TG) return nullptr;
+               const int t = R / G.grp;
+               return reinterpret_cast<const unsigned char*>(
+                   q + (((size_t)b * G.T + t) * G.Hkv + h) * G.grp * G.Dh +
+                   (size_t)(R - t * G.grp) * G.Dh);
+             });
+
+  // stage key tile i (prefix tiles first) into ring stage st
+  auto issue = [&](int i, int st) {
+    unsigned char* kd = ring + (size_t)st * G.stage_bytes;
+    unsigned char* vd = kd + kKeys * G.ldk;
+    if (i < n_pt) {
+      const int j0 = i * kKeys;
+      const int* tb = table + (size_t)b * G.P;
+      auto pos = [&](int r) -> long long {
+        const int kv = j0 + r;
+        if (kv >= pfx) return -1;
+        return (long long)tb[kv / G.PS] * G.PS + kv % G.PS;
+      };
+      stage_rows(kd, G.ldk, kKeys, G.Dh * (int)sizeof(PT),
+                 G.Dhp * (int)sizeof(PT), G.pkp, k_pool,
+                 [&](int r) -> const unsigned char* {
+                   const long long p = pos(r);
+                   return p < 0 ? nullptr
+                                : reinterpret_cast<const unsigned char*>(
+                                      k_pool + p * k_row + (size_t)h * G.Dh);
+                 });
+      stage_rows(vd, G.ldv, kKeys, vw * (int)sizeof(PT),
+                 kDV * (int)sizeof(PT), G.pvp, v_pool,
+                 [&](int r) -> const unsigned char* {
+                   const long long p = pos(r);
+                   return p < 0 ? nullptr
+                                : reinterpret_cast<const unsigned char*>(
+                                      v_pool + p * v_row + (size_t)h * G.Dv +
+                                      v0);
+                 });
+      if (kQuant) {
+        unsigned char* sd = vd + kKeys * G.ldv;
+        stage_rows(sd, 4, kKeys, 4, 4, 4, k_scale,
+                   [&](int r) -> const unsigned char* {
+                     const long long p = pos(r);
+                     return p < 0 ? nullptr
+                                  : reinterpret_cast<const unsigned char*>(
+                                        k_scale + p * G.Hkv + h);
+                   });
+        stage_rows(sd + 4 * kKeys, 4, kKeys, 4, 4, 4, v_scale,
+                   [&](int r) -> const unsigned char* {
+                     const long long p = pos(r);
+                     return p < 0 ? nullptr
+                                  : reinterpret_cast<const unsigned char*>(
+                                        v_scale + p * G.Hkv + h);
+                   });
+      }
+    } else {
+      const int j0 = (i - n_pt) * kKeys;
+      const size_t row0 = (size_t)b * G.T;
+      stage_rows(kd, G.ldk, kKeys, G.Dh * (int)sizeof(ST),
+                 G.Dhp * (int)sizeof(ST), G.pks, k_suf,
+                 [&](int r) -> const unsigned char* {
+                   const int j = j0 + r;
+                   return j >= kv_end ? nullptr
+                                      : reinterpret_cast<const unsigned char*>(
+                                            k_suf + (row0 + j) * k_row +
+                                            (size_t)h * G.Dh);
+                 });
+      stage_rows(vd, G.ldv, kKeys, vw * (int)sizeof(ST),
+                 kDV * (int)sizeof(ST), G.pvs, v_suf,
+                 [&](int r) -> const unsigned char* {
+                   const int j = j0 + r;
+                   return j >= kv_end ? nullptr
+                                      : reinterpret_cast<const unsigned char*>(
+                                            v_suf + (row0 + j) * v_row +
+                                            (size_t)h * G.Dv + v0);
+                 });
+    }
+  };
+
+  if (n_tiles > 0) issue(0, 0);
+  cp_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wr = 16 * warp;                        // the warp's first row
+  const int ta = (R0 + wr + g) / G.grp;            // chunk position of row g
+  const int tb = (R0 + wr + g + 8) / G.grp;        // and of row g + 8
+  const int t_warp = (R0 + wr + 15) / G.grp;       // of the warp's last row
+  const float* qw = qs + wr * ldq;
+  float o[kNT][4], m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, lp[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = G.stages == 2 ? (i & 1) : 0;
+    if (G.stages == 2) {
+      if (i + 1 < n_tiles) issue(i + 1, (i + 1) & 1);
+      cp_commit();
+      cp_wait<1>();          // tile i (and Q) landed: this thread's copies
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();         // everyone's copies
+    const unsigned char* kd = ring + (size_t)st * G.stage_bytes;
+    const unsigned char* vd = kd + kKeys * G.ldk;
+    const float* sc = reinterpret_cast<const float*>(vd + kKeys * G.ldv);
+    if (i < n_pt) {
+      tile_step<PT, true, kQuant, kNT>(o, m, lp, qw, ldq, kd, vd, sc,
+                                       sc + kKeys, G, i * kKeys, pfx, ta, tb,
+                                       g, tq);
+    } else {
+      const int j0 = (i - n_pt) * kKeys;
+      if (j0 <= t_warp)      // else every key is above this warp's diagonal
+        tile_step<ST, false, false, kNT>(o, m, lp, qw, ldq, kd, vd, sc, sc,
+                                         G, j0, cl, ta, tb, g, tq);
+    }
+    __syncthreads();         // the stage is free for the next copies
+    if (G.stages == 1 && i + 1 < n_tiles) {
+      issue(i + 1, 0);
+      cp_commit();
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = lp[r] + __shfl_xor_sync(0xffffffffu, lp[r], 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int rr = wr + g + 8 * r;
+    if (rr >= nrows) continue;
+    const int R = R0 + rr, t = R / G.grp;
+    float* orow = out + (((size_t)b * G.T + t) * G.Hkv + h) * G.grp * G.Dv +
+                  (size_t)(R - t * G.grp) * G.Dv + v0;
+    const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int c = 8 * n + 2 * tq;
+      if (c < vw) orow[c] = o[n][2 * r] / den;
+      if (c + 1 < vw) orow[c + 1] = o[n][2 * r + 1] / den;
+    }
+  }
+}
+
+// ------------------------------------------------------- CUDA-core path
+constexpr int kSimtRows = 16;  // query rows per block
+
+size_t simt_smem_floats(int Dh, int Dv, int KT) {
+  return (size_t)kSimtRows * Dh      // q
          + (size_t)KT * (Dh + 1)     // K tile (padded rows)
          + (size_t)KT * (Dv + 1)     // V tile
          + 2 * (size_t)KT            // K, V row scales (int8 pools)
-         + (size_t)kRows * KT        // scores / probabilities
-         + (size_t)kRows * Dv        // acc
-         + 3 * (size_t)kRows;        // m, l, correction
+         + (size_t)kSimtRows * KT    // scores / probabilities
+         + (size_t)kSimtRows * Dv    // acc
+         + 3 * (size_t)kSimtRows;    // m, l, correction
 }
 
 struct Smem {
@@ -74,7 +591,7 @@ struct Smem {
 __device__ __forceinline__ void online_update(const Smem& s, int KT, int Dv,
                                               int ldv, const float* v_rows) {
   const int tid = threadIdx.x;
-  for (int rr = tid; rr < kRows; rr += kThreads) {
+  for (int rr = tid; rr < kSimtRows; rr += kThreads) {
     const float m_prev = s.m[rr];
     float m_new = m_prev;
     for (int r = 0; r < KT; ++r) m_new = fmaxf(m_new, s.p[rr * KT + r]);
@@ -92,7 +609,7 @@ __device__ __forceinline__ void online_update(const Smem& s, int KT, int Dv,
     s.c[rr] = corr;
   }
   __syncthreads();
-  for (int i = tid; i < kRows * Dv; i += kThreads) {
+  for (int i = tid; i < kSimtRows * Dv; i += kThreads) {
     const int rr = i / Dv, d = i - rr * Dv;
     float a = s.acc[i] * s.c[rr];
     for (int r = 0; r < KT; ++r) a = fmaf(s.p[rr * KT + r], s.v[r * ldv + d], a);
@@ -103,38 +620,39 @@ __device__ __forceinline__ void online_update(const Smem& s, int KT, int Dv,
 
 template <typename ST, typename PT>
 __global__ void __launch_bounds__(kThreads)
-gqa_prefill_kernel(const float* __restrict__ q, const ST* __restrict__ k_suf,
-                   const ST* __restrict__ v_suf, const PT* __restrict__ k_pool,
-                   const PT* __restrict__ v_pool,
-                   const float* __restrict__ k_scale,
-                   const float* __restrict__ v_scale,
-                   const int* __restrict__ table,
-                   const int* __restrict__ prefix_len,
-                   const int* __restrict__ chunk_len, float* __restrict__ out,
-                   int T, int Hkv, int grp, int Dh, int Dv, int PS, int P,
-                   float scale) {
+prefill_simt_kernel(const float* __restrict__ q, const ST* __restrict__ k_suf,
+                    const ST* __restrict__ v_suf,
+                    const PT* __restrict__ k_pool,
+                    const PT* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ table,
+                    const int* __restrict__ prefix_len,
+                    const int* __restrict__ chunk_len, float* __restrict__ out,
+                    int T, int Hkv, int grp, int Dh, int Dv, int PS, int P,
+                    float scale) {
   constexpr bool kQuant = std::is_same<PT, int8_t>::value;
-  extern __shared__ float smem[];
+  extern __shared__ float smem_f[];
   const int KT = PS;
   const int ldk = Dh + 1, ldv = Dv + 1;
   Smem s;
-  s.q = smem;
-  s.k = s.q + kRows * Dh;
+  s.q = smem_f;
+  s.k = s.q + kSimtRows * Dh;
   s.v = s.k + KT * ldk;
   s.ks = s.v + KT * ldv;
   s.vs = s.ks + KT;
   s.p = s.vs + KT;
-  s.acc = s.p + kRows * KT;
-  s.m = s.acc + kRows * Dv;
-  s.l = s.m + kRows;
-  s.c = s.l + kRows;
+  s.acc = s.p + kSimtRows * KT;
+  s.m = s.acc + kSimtRows * Dv;
+  s.l = s.m + kSimtRows;
+  s.c = s.l + kSimtRows;
 
-  const int R0 = blockIdx.x * kRows;
+  const int R0 = blockIdx.x * kSimtRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int nrows = min(kRows, T * grp - R0);
+  const int nrows = min(kSimtRows, T * grp - R0);
 
-  for (int i = tid; i < kRows * Dh; i += kThreads) {
+  for (int i = tid; i < kSimtRows * Dh; i += kThreads) {
     const int rr = i / Dh, d = i - rr * Dh;
     float v = 0.f;
     if (rr < nrows) {
@@ -143,8 +661,8 @@ gqa_prefill_kernel(const float* __restrict__ q, const ST* __restrict__ k_suf,
     }
     s.q[i] = v;
   }
-  for (int i = tid; i < kRows * Dv; i += kThreads) s.acc[i] = 0.f;
-  for (int i = tid; i < kRows; i += kThreads) {
+  for (int i = tid; i < kSimtRows * Dv; i += kThreads) s.acc[i] = 0.f;
+  for (int i = tid; i < kSimtRows; i += kThreads) {
     s.m[i] = REPRO_NEG_INF;
     s.l[i] = 0.f;
   }
@@ -170,7 +688,7 @@ gqa_prefill_kernel(const float* __restrict__ q, const ST* __restrict__ k_suf,
       }
     }
     __syncthreads();
-    for (int i = tid; i < kRows * KT; i += kThreads) {
+    for (int i = tid; i < kSimtRows * KT; i += kThreads) {
       const int rr = i / KT, r = i - rr * KT;
       float sc = REPRO_NEG_INF;
       if (rr < nrows && pg * PS + r < pfx) {
@@ -201,7 +719,7 @@ gqa_prefill_kernel(const float* __restrict__ q, const ST* __restrict__ k_suf,
       s.v[r * ldv + d] = j0 + r < T ? to_f32(vb[(size_t)(j0 + r) * v_row + d]) : 0.f;
     }
     __syncthreads();
-    for (int i = tid; i < kRows * KT; i += kThreads) {
+    for (int i = tid; i < kSimtRows * KT; i += kThreads) {
       const int rr = i / KT, r = i - rr * KT;
       const int j = j0 + r;
       float sc = REPRO_NEG_INF;
@@ -228,23 +746,82 @@ gqa_prefill_kernel(const float* __restrict__ q, const ST* __restrict__ k_suf,
   }
 }
 
+// ----------------------------------------------------------------- launch
+template <typename ST, typename PT, int kDV>
+cudaError_t launch_tc(const float* q, const ST* k_suf, const ST* v_suf,
+                      const PT* k_pool, const PT* v_pool,
+                      const float* k_scale, const float* v_scale,
+                      const int* table, const int* prefix_len,
+                      const int* chunk_len, float* out, int B, Geo G,
+                      size_t q_bytes, cudaStream_t stream) {
+  const size_t smem = q_bytes + (size_t)G.stages * G.stage_bytes;
+  cudaError_t err = reserve_smem(prefill_tc_kernel<ST, PT, kDV>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((G.T * G.grp + kRows - 1) / kRows, G.Hkv * G.n_vs, B);
+  prefill_tc_kernel<ST, PT, kDV><<<grid, kThreads, smem, stream>>>(
+      q, k_suf, v_suf, k_pool, v_pool, k_scale, v_scale, table, prefix_len,
+      chunk_len, out, G);
+  return cudaGetLastError();
+}
+
 template <typename ST, typename PT>
-cudaError_t launch(const float* q, const void* k_suf, const void* v_suf,
-                   const void* k_pool, const void* v_pool,
+cudaError_t launch(const float* q, const void* k_suf_v, const void* v_suf_v,
+                   const void* k_pool_v, const void* v_pool_v,
                    const float* k_scale, const float* v_scale,
                    const int* table, const int* prefix_len,
                    const int* chunk_len, float* out, int B, int T, int Hkv,
                    int grp, int Dh, int Dv, int PS, int P, float scale,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(Dh, Dv, PS);
-  cudaError_t err = reserve_smem(gqa_prefill_kernel<ST, PT>, smem);
+  const ST* k_suf = static_cast<const ST*>(k_suf_v);
+  const ST* v_suf = static_cast<const ST*>(v_suf_v);
+  const PT* k_pool = static_cast<const PT*>(k_pool_v);
+  const PT* v_pool = static_cast<const PT*>(v_pool_v);
+  const bool quant = std::is_same<PT, int8_t>::value;
+  const int kdv = Dv <= 64 ? 64 : 128;
+  const size_t es = std::max(sizeof(ST), sizeof(PT));
+  Geo G;
+  G.T = T;
+  G.Hkv = Hkv;
+  G.grp = grp;
+  G.Dh = Dh;
+  G.Dv = Dv;
+  G.PS = PS;
+  G.P = P;
+  G.Dhp = (Dh + 15) / 16 * 16;
+  G.n_vs = (Dv + kdv - 1) / kdv;
+  G.ldk = (int)(G.Dhp * es + 16);
+  G.ldv = (int)(kdv * es + 16);
+  G.stage_bytes = kKeys * (G.ldk + G.ldv) + (quant ? 2 * kKeys * 4 : 0);
+  G.pq = piece_for(q, (size_t)Dh * 4, 4);
+  G.pkp = piece_for(k_pool, (size_t)Dh * sizeof(PT), sizeof(PT));
+  G.pvp = piece_for(v_pool, (size_t)Dv * sizeof(PT), sizeof(PT));
+  G.pks = piece_for(k_suf, (size_t)Dh * sizeof(ST), sizeof(ST));
+  G.pvs = piece_for(v_suf, (size_t)Dv * sizeof(ST), sizeof(ST));
+  G.scale = scale;
+  // two ring stages only where two such blocks still share an SM (f32
+  // tiles of Dh = 128 take one: two blocks of one stage each were 1.5x
+  // faster on an H100 than one block of two, PERF.md)
+  const size_t q_bytes = (size_t)kRows * (G.Dhp + 4) * 4;
+  G.stages = 2 * (q_bytes + 2 * (size_t)G.stage_bytes + kBlockReserve) <=
+                     kSmemPerSM
+                 ? 2
+                 : 1;
+  if (q_bytes + (size_t)G.stages * G.stage_bytes <= kMaxSmem) {
+    if (kdv == 64)
+      return launch_tc<ST, PT, 64>(q, k_suf, v_suf, k_pool, v_pool, k_scale,
+                                   v_scale, table, prefix_len, chunk_len, out,
+                                   B, G, q_bytes, stream);
+    return launch_tc<ST, PT, 128>(q, k_suf, v_suf, k_pool, v_pool, k_scale,
+                                  v_scale, table, prefix_len, chunk_len, out,
+                                  B, G, q_bytes, stream);
+  }
+  const size_t smem = sizeof(float) * simt_smem_floats(Dh, Dv, PS);
+  cudaError_t err = reserve_smem(prefill_simt_kernel<ST, PT>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T * grp + kRows - 1) / kRows, Hkv, B);
-  gqa_prefill_kernel<ST, PT><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const ST*>(k_suf), static_cast<const ST*>(v_suf),
-      static_cast<const PT*>(k_pool), static_cast<const PT*>(v_pool), k_scale,
-      v_scale, table, prefix_len, chunk_len, out, T, Hkv, grp, Dh, Dv, PS, P,
-      scale);
+  dim3 grid((T * grp + kSimtRows - 1) / kSimtRows, Hkv, B);
+  prefill_simt_kernel<ST, PT><<<grid, kThreads, smem, stream>>>(
+      q, k_suf, v_suf, k_pool, v_pool, k_scale, v_scale, table, prefix_len,
+      chunk_len, out, T, Hkv, grp, Dh, Dv, PS, P, scale);
   return cudaGetLastError();
 }
 

@@ -28,32 +28,11 @@ namespace {
 constexpr int kMaxChunk = 64;           // packed rows per stage (128 k)
 constexpr size_t kMaxSmem = 232448;     // dynamic shared memory per block
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16- or 4-byte asynchronous copy; `n` < size bytes are read, the rest of
-// the destination is zero-filled (n = 0: nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 // In a ring of kStages stages: wait until at most kStages - 2 committed
 // copy groups are still in flight (the oldest has landed).
 template <int kStages>
 __device__ __forceinline__ void cp_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+  cp_wait<kStages - 2>();
 }
 
 // One thread's share of copying [rows, row_bytes] in `chunk`-byte pieces

@@ -13,6 +13,7 @@ Nothing here falls back: a missing compiler or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -134,6 +135,15 @@ def check(err: int, what: str) -> None:
 def vp(t) -> ctypes.c_void_p:
     """The device pointer of tensor ``t`` (NULL for None)."""
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of SMs of CUDA ``device`` (a tensor's ``.device``; cached,
+    since the wrappers ask at every launch)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -26,6 +26,7 @@ Outputs are f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -167,7 +168,30 @@ def mla_paged_prefill_plain(q_lat, q_pe, ckv_suf, kpe_suf, ckv_pool,
 
 # ------------------------------------------------------------ CUDA wrappers
 _C, _I = ctypes.c_void_p, ctypes.c_int
-_DECODE_ARGS = [_C] * 5 + [_I] + [_C] * 3 + [_I] * 7 + [ctypes.c_float, _C]
+_DECODE_ARGS = [_C] * 5 + [_I] + [_C] * 4 + [_I] * 9 + [ctypes.c_float, _C]
+#: K2 aims at this many blocks per SM (bytes in flight), in at most
+#: _DECODE_MAX_SPLITS splits of each slot's pages
+_DECODE_BLOCKS_PER_SM = 4
+_DECODE_MAX_SPLITS = 32
+#: query heads one K2 block holds in registers (csrc/gqa_paged_decode.cu)
+_DECODE_MAX_HEADS = 8
+
+
+@functools.lru_cache(maxsize=None)      # asked at every decode launch
+def gqa_decode_splits(b: int, hkv: int, grp: int, pages: int,
+                      sms: int) -> tuple:
+    """K2's split-KV rule: ``(splits, pages per split)`` for a batch of
+    ``b`` slots, ``hkv`` KV heads of ``grp`` query heads and ``pages``
+    table pages a slot, on a card of ``sms`` SMs.  Static shapes only —
+    never the slots' lengths — so the launch needs no host sync and can be
+    captured in a CUDA graph.  Enough splits for ``_DECODE_BLOCKS_PER_SM``
+    blocks per SM, at most one a page; split s takes pages ``[s * pps,
+    (s + 1) * pps)`` and the last split is never empty of pages."""
+    blocks = max(1, b * hkv * -(-grp // _DECODE_MAX_HEADS))
+    want = -(-_DECODE_BLOCKS_PER_SM * sms // blocks)
+    splits = max(1, min(want, pages, _DECODE_MAX_SPLITS))
+    pps = max(1, -(-pages // splits))
+    return max(1, -(-pages // pps)), pps
 _PREFILL_ARGS = [_C] * 3 + [_I] + [_C] * 4 + [_I] + [_C] * 4 + [_I] * 8 \
     + [ctypes.c_float, _C]
 
@@ -236,12 +260,17 @@ def _decode(name, q, k_pool, v_pool, table, lengths, k_scale, v_scale,
     out = torch.empty(b, hkv, grp, dv, dtype=torch.float32, device=q.device)
     if b == 0:
         return out
+    splits, pps = gqa_decode_splits(b, hkv, grp, p_, B.sm_count(q.device))
+    # the splits' partial states (m, l, acc[Dv]) per query row
+    part = (torch.empty(b * hkv * grp * splits * (2 + dv),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     null = ctypes.c_void_p(None)
     err = B.cfunc("gqa_paged_decode", _DECODE_ARGS)(
         B.vp(q), B.vp(k_pool), B.vp(v_pool),
         B.vp(k_scale) if quant else null, B.vp(v_scale) if quant else null,
-        code, B.vp(table), B.vp(lengths), B.vp(out), b, hkv, grp, dh, dv, ps,
-        p_, float(sm_scale), B.stream_ptr(q.device))
+        code, B.vp(table), B.vp(lengths), B.vp(part), B.vp(out), b, hkv, grp,
+        dh, dv, ps, p_, splits, pps, float(sm_scale), B.stream_ptr(q.device))
     B.check(err, name)
     return out
 

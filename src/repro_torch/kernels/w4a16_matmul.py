@@ -26,7 +26,6 @@ laid out.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -132,11 +131,6 @@ def _check_common(name: str, x: torch.Tensor, qt: QuantizedTensor,
     return x.numel() // ci
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _plan(name: str, x: torch.Tensor, qt: QuantizedTensor, rows: int,
           experts: int, a8: bool = False) -> tuple:
     """The tile for ``rows`` rows per expert, K1/B6 or (``a8``) B5/B7:
@@ -150,8 +144,7 @@ def _plan(name: str, x: torch.Tensor, qt: QuantizedTensor, rows: int,
     bn, bm = (8, 128) if decode else (64, 256 if tile == 2 else 128)
     row_tiles = -(-rows // bn)
     blocks = -(-co // bm) * row_tiles * experts
-    sms = _sm_count(x.device.index if x.device.index is not None
-                    else torch.cuda.current_device())
+    sms = B.sm_count(x.device)
     n_groups = ci // qt.group_size
     splits = -(-n_groups // _A16_DECODE_GROUPS) if decode else 1
     if blocks < (sms // 2 if a8 else 2 * sms):

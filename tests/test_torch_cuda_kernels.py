@@ -16,7 +16,10 @@ offset-only group, bitwise repeatability and B6's and B7's ``rows`` (idle
 experts' scales poisoned with NaN: never read) are tested on their own.  Dead table
 entries point at a trash page filled with NaN (int8 pools: codes -128 and
 NaN scales): the kernels must never read it (the plain versions are given
-a clean copy).
+a clean copy).  K2 (split-KV with a split-order combine) and K3 (tensor-core
+tiles) are also tested at the paths' shapes and at every shape class that
+takes another of their code paths, for bitwise repeatability, and in a CUDA
+graph replayed after the lengths, table and prefix lengths change in place.
 """
 import dataclasses
 
@@ -229,6 +232,242 @@ def test_int8_prefill_kernel_matches_plain(dev, sdt, grp, t):
     assert PA.gqa_paged_prefill_int8_cuda.launches == before + 1
     assert _rel_err(out, ref) <= 1e-5
     assert not out[4].any()
+
+
+# K2/K3 at the paths' shapes and at the shapes that take their other code
+# paths: the split rule at long lengths, page sizes that do not divide a
+# 64-key tile, T not a multiple of 64, prefixes that are not page-aligned,
+# grp > 8 (K2's head chunks), Dv != Dh and Dv > 128 (K3's value slices),
+# widths that are not multiples of 16 (K3 pads them) or 4, pools that are
+# not aligned for wide loads, and rows too wide for K3's tensor-core tile.
+def _pools_general(dev, kind, n_pages, ps, hkv, dh, dv, seed, offset=0):
+    """(k, v, k_scale, v_scale) of ``kind`` (f32, bf16, or int8 codes with
+    f32 row scales), clean; ``offset`` elements shift the pools' data off
+    their allocation's alignment."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def one(d):
+        n = n_pages * ps * hkv * d
+        if kind == torch.int8:
+            flat = torch.randint(-127, 128, (n + offset,), generator=gen,
+                                 device=dev, dtype=torch.int8)
+        else:
+            flat = torch.randn(n + offset, generator=gen, device=dev).to(kind)
+        return flat[offset:].view(n_pages, ps, hkv, d)
+
+    k, v = one(dh), one(dv)
+    if kind != torch.int8:
+        return k, v, None, None
+    ks = torch.rand(n_pages, ps, hkv, generator=gen, device=dev) * 0.03 + 1e-3
+    vs = torch.rand(n_pages, ps, hkv, generator=gen, device=dev) * 0.03 + 1e-3
+    return k, v, ks, vs
+
+
+def _poisoned(pools):
+    """The kernel's copy: trash page 0 NaN (int8: codes -128, NaN scales)."""
+    out = []
+    for t in pools:
+        if t is None:
+            out.append(None)
+            continue
+        t = t.clone()
+        t[0] = -128 if t.dtype == torch.int8 else float("nan")
+        out.append(t)
+    return out
+
+
+def _table_for(dev, rows, ps, width, seed):
+    live = [-(-int(n) // ps) for n in rows]
+    n_pages = 1 + sum(live)
+    perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    table = torch.zeros(len(rows), width, dtype=torch.int32)
+    k = 0
+    for i, n in enumerate(live):
+        table[i, :n] = torch.from_numpy(perm[k:k + n].astype(np.int32))
+        k += n
+    return table.to(dev), n_pages
+
+
+_KINDS = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+# (b, hkv, grp, dh, dv, ps, lengths)
+K2_SHAPES = {
+    "path1": (4, 32, 1, 128, 128, 16, [216, 150, 90, 33]),
+    "path3": (4, 8, 2, 64, 64, 16, [216, 150, 90, 33]),
+    "long": (4, 4, 1, 128, 128, 16, [1024, 700, 333, 17]),
+    "ps8": (3, 4, 2, 64, 64, 8, [77, 1, 0]),
+    "ps32": (3, 4, 3, 128, 128, 32, [100, 33, 64]),
+    "grp12": (2, 2, 12, 64, 64, 16, [50, 7]),
+    "dv192": (2, 2, 2, 128, 192, 16, [40, 17]),
+    "narrow": (2, 2, 1, 36, 20, 16, [40, 17]),
+    "wide": (2, 2, 2, 512, 512, 16, [40, 17]),
+}
+
+
+def _k2_case(dev, kind, shape, seed=0, offset=0):
+    b, hkv, grp, dh, dv, ps, lengths = shape
+    width = max(-(-max(lengths) // ps), 1)
+    table, n_pages = _table_for(dev, lengths, ps, width, seed)
+    clean = _pools_general(dev, kind, n_pages, ps, hkv, dh, dv, seed, offset)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = torch.randn(b, hkv, grp, dh, generator=gen, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, clean, table, lens, dh ** -0.5
+
+
+def _k2_check(q, clean, table, lens, sc):
+    ref = PA.gqa_paged_attention_plain(q, clean[0], clean[1], table, lens,
+                                       *clean[2:], sm_scale=sc)
+    bad = _poisoned(clean)
+    out = ops.gqa_paged_attention(q, bad[0], bad[1], table, lens, *bad[2:],
+                                  sm_scale=sc)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert _rel_err(out, ref) <= 1e-5
+    for i, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert not out[i].any()
+    return out
+
+
+@pytest.mark.parametrize("kind", list(_KINDS))
+@pytest.mark.parametrize("shape", list(K2_SHAPES))
+def test_k2_shapes_match_plain(dev, shape, kind):
+    _k2_check(*_k2_case(dev, _KINDS[kind], K2_SHAPES[shape]))
+
+
+@pytest.mark.parametrize("kind,dh,offset", [("f32", 128, 1), ("bf16", 64, 1),
+                                            ("f32", 33, 0), ("bf16", 33, 0),
+                                            ("int8", 64, 4)])
+def test_k2_unaligned_and_odd_widths(dev, kind, dh, offset):
+    """Pools off 16-byte alignment and widths that are not multiples of 4
+    take the general path (int8 keeps its 4-code rule)."""
+    _k2_check(*_k2_case(dev, _KINDS[kind],
+                        (3, 2, 2, dh, dh, 16, [40, 0, 17]), 3, offset))
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_k2_split_combine_bitwise_repeatable(dev, kind):
+    q, clean, table, lens, sc = _k2_case(dev, _KINDS[kind],
+                                         K2_SHAPES["long"], 5)
+    splits, _ = PA.gqa_decode_splits(4, 4, 1, table.shape[1],
+                                     torch.cuda.get_device_properties(
+                                         dev).multi_processor_count)
+    assert splits > 1
+    a = ops.gqa_paged_attention(q, clean[0], clean[1], table, lens,
+                                *clean[2:], sm_scale=sc)
+    b = ops.gqa_paged_attention(q, clean[0], clean[1], table, lens,
+                                *clean[2:], sm_scale=sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# (b, t, hkv, grp, dh, dv, ps, prefix, chunk)
+K3_SHAPES = {
+    "path1": (2, 256, 32, 1, 128, 128, 16, [0, 0], [256, 200]),
+    "path2": (1, 128, 32, 1, 128, 128, 16, [128], [128]),
+    "path3": (2, 128, 8, 2, 64, 64, 16, [0, 0], [128, 77]),
+    "ps8": (3, 70, 4, 2, 64, 64, 8, [100, 13, 0], [70, 41, 65]),
+    "ps32": (3, 33, 4, 3, 128, 128, 32, [45, 0, 64], [33, 20, 1]),
+    "ps48_dv192": (2, 40, 2, 1, 128, 192, 48, [100, 3], [40, 11]),
+    "grp12": (2, 17, 2, 12, 64, 64, 16, [20, 0], [17, 5]),
+    "narrow": (2, 21, 2, 2, 36, 20, 16, [30, 0], [21, 9]),
+    "wide": (1, 24, 2, 1, 512, 512, 16, [40], [24]),
+}
+K3_KINDS = {"f32": ("f32", "f32"), "bf16": ("bf16", "bf16"),
+            "int8_f32": ("int8", "f32"), "int8_bf16": ("int8", "bf16")}
+
+
+def _k3_case(dev, kind, sdt, shape, seed=0, offset=0):
+    b, t, hkv, grp, dh, dv, ps, prefix, chunk = shape
+    rows = [p + c for p, c in zip(prefix, chunk)]
+    width = max(-(-max(rows) // ps), 1)
+    table, n_pages = _table_for(dev, rows, ps, width, seed)
+    clean = _pools_general(dev, kind, n_pages, ps, hkv, dh, dv, seed, offset)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    q = torch.randn(b, t, hkv, grp, dh, generator=gen, device=dev)
+    k_suf = torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(sdt)
+    v_suf = torch.randn(b, t, hkv, dv, generator=gen, device=dev).to(sdt)
+    pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
+    cl = torch.tensor(chunk, dtype=torch.int32, device=dev)
+    return q, k_suf, v_suf, clean, table, pl, cl, dh ** -0.5
+
+
+def _k3_check(q, k_suf, v_suf, clean, table, pl, cl, sc):
+    ref = PA.gqa_paged_prefill_plain(q, k_suf, v_suf, clean[0], clean[1],
+                                     table, pl, cl, *clean[2:], sm_scale=sc)
+    bad = _poisoned(clean)
+    out = ops.gqa_paged_prefill(q, k_suf, v_suf, bad[0], bad[1], table, pl,
+                                cl, *bad[2:], sm_scale=sc)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert _rel_err(out, ref) <= 1e-5
+    return out
+
+
+@pytest.mark.parametrize("kind", list(K3_KINDS))
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+def test_k3_shapes_match_plain(dev, shape, kind):
+    pool, suf = K3_KINDS[kind]
+    _k3_check(*_k3_case(dev, _KINDS[pool], _KINDS[suf], K3_SHAPES[shape]))
+
+
+@pytest.mark.parametrize("kind,dh,offset", [("f32", 128, 1), ("bf16", 64, 1),
+                                            ("f32", 33, 0), ("bf16", 33, 0),
+                                            ("int8", 64, 4)])
+def test_k3_unaligned_and_odd_widths(dev, kind, dh, offset):
+    """Pools off 16-byte alignment take 4-byte (bf16 at an odd element:
+    2-byte) copies; odd widths are padded."""
+    suf = torch.float32 if kind == "int8" else _KINDS[kind]
+    _k3_check(*_k3_case(dev, _KINDS[kind], suf,
+                        (2, 37, 2, 2, dh, dh, 16, [50, 0], [37, 20]), 4,
+                        offset))
+
+
+def _captured(fn):
+    """``fn()`` captured in a CUDA graph (after a warm-up on a side
+    stream): (graph, its output tensor)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_k2_k3_replay_after_in_place_updates(dev, kind):
+    """K2 and K3 in a CUDA graph (as a captured decode step would hold
+    them): lengths, table and prefix_len updated in place, the replay
+    equals the eager call on the updated tensors, bit for bit."""
+    dt = _KINDS[kind]
+    q, clean, table, lens, sc = _k2_case(dev, dt, K2_SHAPES["path1"], 11)
+    table2 = table.flip(0).contiguous()            # other slots' pages
+    lens2 = lens.flip(0).contiguous() - 5
+    graph, out = _captured(lambda: ops.gqa_paged_attention(
+        q, clean[0], clean[1], table, lens, *clean[2:], sm_scale=sc))
+    table.copy_(table2)
+    lens.copy_(lens2)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = _k2_check(q, clean, table, lens, sc)
+    assert torch.equal(out, eager)
+
+    suf = torch.float32 if kind == "int8" else dt
+    q, k_suf, v_suf, clean, table, pl, cl, sc = _k3_case(
+        dev, dt, suf, (2, 70, 4, 2, 64, 64, 16, [100, 13], [70, 41]), 12)
+    graph, out = _captured(lambda: ops.gqa_paged_prefill(
+        q, k_suf, v_suf, clean[0], clean[1], table, pl, cl, *clean[2:],
+        sm_scale=sc))
+    table.copy_(table.flip(0))
+    pl.copy_(torch.tensor([3, 90], dtype=torch.int32, device=dev))
+    cl.copy_(torch.tensor([41, 70], dtype=torch.int32, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = _k3_check(q, k_suf, v_suf, clean, table, pl, cl, sc)
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.parametrize("a8", [False, True])
