@@ -786,10 +786,16 @@ def check_mla():
     prefix (the chunk budget of path 4) and on a ragged batch of 32-token
     chunks.  Library: ``scaled_dot_product_attention`` over the gathered
     dense rows, key ``[ckv || kpe]`` (576), value ``ckv`` (512), 128 query
-    heads on one KV head, in the case's fp type (int8 dequantized to f32)."""
+    heads on one KV head, in the case's fp type (int8 dequantized to f32).
+    Kernel and library times are CUDA graphs over copies of their operands
+    that exceed L2, the eager wrapper beside them; the bound counts the
+    function's multiply-adds at the bf16 tensor-core rate (the f32
+    CUDA-core rate's beside it as bound_f32_ms), as K3's."""
     print("B8/B9 mla_paged_decode / mla_paged_prefill (replace repro/kernels/"
           "paged_attention.py:_mla_kernel / _mla_prefill_kernel; fp pools and "
-          "the int8 branch)")
+          "the int8 branch): the tensor-core tile of csrc/mla_tile.cuh, B8 "
+          "split-KV; kernel time = CUDA graph of the wrapper's calls, eager "
+          "wrapper beside it")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     h, r, dr = 128, 512, 64
     sc = (128 + 64) ** -0.5
@@ -814,9 +820,6 @@ def check_mla():
         torch.cuda.synchronize()
         require(bool(torch.isfinite(out).all()), f"{name} read the trash page")
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
-        plain = time_ms([lambda: PA.mla_paged_attention_plain(
-            *pargs, sm_scale=sc)])
         s = max(lengths)
         kd, vd = _mla_dense(clean, table, s)
         ldt = torch.float32 if quant else kind
@@ -824,18 +827,30 @@ def check_mla():
         qd = torch.cat([q_lat, q_pe], dim=-1)[:, :, None].to(ldt)
         mask = (torch.arange(s, device=DEV)[None, :]
                 < lens[:, None].long())[:, None, None, :]
-        lib = time_ms([lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sc,
-                                    enable_gqa=True)])
+        ms, wrapper, plain, lib = _attn_times(
+            lambda c: kern(q_lat, q_pe, c[0], c[1], table, lens,
+                           *(c[2:] if quant else ()), sm_scale=sc),
+            lambda: PA.mla_paged_attention_plain(*pargs, sm_scale=sc),
+            lambda k, v: sdpa(qd, k, v, attn_mask=mask, scale=sc,
+                              enable_gqa=True), bad, (kd, vd))
         live = sum(lengths)
         nbytes = ((q_lat.numel() + q_pe.numel()) * 4
                   + live * _row_bytes(clean) + table.numel() * 4 + b * 4
                   + out.numel() * 4)
-        flops = 2.0 * live * h * (2 * r + dr)
-        # int8 codes meet f32 queries: f32 arithmetic, f32 rate
-        bnd, by = bound(nbytes, flops, torch.float32 if quant else kind)
+        macs = float(live) * h * (2 * r + dr)
+        bnd, by = tc_bound(nbytes, macs)
+        bnd_f32, _ = bound(nbytes, 2.0 * macs, torch.float32)
+        route = PA.mla_decode_route(kind, r, dr)
+        splits = PA.mla_decode_splits(b, h, table.shape[1], 16,
+                                      _build.sm_count(DEV))
+        print(f"  {name}: path 4's shape takes the {route} route, "
+              f"(splits, pages per split) = {splits}")
+        require(route == "tile", f"{name}: path 4's shape left the tile")
         case = f"B=4 H=128 r=512 dr=64 lens={lengths} {_pool_label(kind)}"
-        rows[("decode", kind)] = record(name, case, max_err(out, ref), tol,
-                                        ms, plain, lib, bnd, by)
+        rows[("decode", kind)] = record(
+            name, case, max_err(out, ref), tol, ms, plain, lib, bnd, by,
+            wrapper, extra=dict(bound_f32_ms=bnd_f32, route=route,
+                                splits=splits))
     kinds = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
              (torch.int8, torch.float32))
     for t, prefix, chunk in ((128, [128], [128]),
@@ -865,9 +880,6 @@ def check_mla():
             require(bool(torch.isfinite(out).all()),
                     f"{name} read the trash page")
             tol = 1e-5 * max(1.0, float(ref.abs().max()))
-            ms = time_ms([lambda: kern(*kargs, sm_scale=sc)])
-            plain = time_ms([lambda: PA.mla_paged_prefill_plain(
-                *pargs, sm_scale=sc)])
             s = max(prefix)
             ldt = torch.float32 if quant else kind
             kd, vd = _mla_dense(clean, table, s)
@@ -882,20 +894,32 @@ def check_mla():
             suf = (j[None, None, :] <= j[None, :, None]) \
                 & (j[None, None, :] < cl.long()[:, None, None])
             mask = torch.cat([pre, suf], dim=-1)[:, None]
-            lib = time_ms([lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sc,
-                                        enable_gqa=True)])
+            ms, wrapper, plain, lib = _attn_times(
+                lambda c: kern(q_lat, q_pe, c_suf, k_suf, c[0], c[1], table,
+                               pl, cl, *(c[2:] if quant else ()),
+                               sm_scale=sc),
+                lambda: PA.mla_paged_prefill_plain(*pargs, sm_scale=sc),
+                lambda k, v: sdpa(qd, k, v, attn_mask=mask, scale=sc,
+                                  enable_gqa=True), bad, (kd, vd))
             keys = sum(p * t + sum(min(i + 1, c) for i in range(t))
                        for p, c in zip(prefix, chunk))
             nbytes = ((q_lat.numel() + q_pe.numel()) * 4
                       + (c_suf.numel() + k_suf.numel()) * c_suf.element_size()
                       + sum(prefix) * _row_bytes(clean)
                       + table.numel() * 4 + 2 * b * 4 + out.numel() * 4)
-            flops = 2.0 * keys * h * (2 * r + dr)
-            bnd, by = bound(nbytes, flops, torch.float32 if quant else kind)
+            macs = float(keys) * h * (2 * r + dr)
+            bnd, by = tc_bound(nbytes, macs)
+            bnd_f32, _ = bound(nbytes, 2.0 * macs, torch.float32)
+            route = PA.mla_prefill_route(sdt, kind, r, dr)
+            if t == 128:
+                print(f"  {name} ({str(sdt)[6:]} suffix): path 4's shape "
+                      f"takes the {route} route")
+            require(route == "tile", f"{name}: path 4's shape left the tile")
             case = (f"B={b} T={t} H=128 r=512 prefix={prefix} chunk={chunk} "
                     f"{_pool_label(kind)}, {str(sdt)[6:]} suffix")
             rows[("prefill", t, kind)] = record(
-                name, case, max_err(out, ref), tol, ms, plain, lib, bnd, by)
+                name, case, max_err(out, ref), tol, ms, plain, lib, bnd, by,
+                wrapper, extra=dict(bound_f32_ms=bnd_f32, route=route))
     return rows
 
 
@@ -1629,8 +1653,9 @@ def path4():
     profile_decode(eng, reqs4, "path4_profile")
     del eng
     gc.collect()
-    eng, _, counts4b, res4b = _path4_engine(
+    eng, reqs4b, counts4b, res4b = _path4_engine(
         params, cfg.with_(kv_quant=True), reqs, "path 4b")
+    profile_decode(eng, reqs4b, "path4b_profile")
     del eng
     same = sum(a == b for a, b in zip(res4["outputs"], res4b["outputs"]))
     print(f"  path 4b greedy outputs equal to path 4's for {same}/"

@@ -9,9 +9,10 @@ their absorbed Multi-head Latent Attention forms over the latent pools
 int8 pools with f32 row scales (``kv_quant``: ``[NP, PS, Hkv]`` for GQA,
 ``[NP, PS]`` for MLA).  Sources: ``csrc/gqa_paged_decode.cu``,
 ``csrc/gqa_paged_prefill.cu``, ``csrc/mla_paged_decode.cu`` and
-``csrc/mla_paged_prefill.cu``; their headers say what bounds each on the
-card.  The int8 launches have wrappers (and launch counters) of their own,
-so a run shows which branch ran.
+``csrc/mla_paged_prefill.cu`` (B8/B9 on the shared tensor-core tile of
+``csrc/mla_tile.cuh``); their headers say what bounds each on the card.
+The int8 launches have wrappers (and launch counters) of their own, so a
+run shows which branch ran.
 
 Contract (shared with ``serving/kv_cache.py``): ``table[B, P]`` maps each
 slot's logical pages to pool pages, dead entries pointing at the trash page
@@ -362,10 +363,62 @@ gqa_paged_prefill_int8_cuda.launches = 0
 
 
 # ---------------------------------------------------------- MLA wrappers ---
-_MLA_DECODE_ARGS = [_C] * 6 + [_I] + [_C] * 3 + [_I] * 6 + [ctypes.c_float,
+_MLA_DECODE_ARGS = [_C] * 6 + [_I] + [_C] * 4 + [_I] * 8 + [ctypes.c_float,
                                                            _C]
 _MLA_PREFILL_ARGS = [_C] * 4 + [_I] + [_C] * 4 + [_I] + [_C] * 4 + [_I] * 7 \
     + [ctypes.c_float, _C]
+#: query heads one B8 tile block holds and latent rows of one key tile
+#: (csrc/mla_tile.cuh kRows, kKeys); a block holds up to 227 KB of shared
+#: memory, so one fits an SM
+_MLA_ROWS, _MLA_KEYS = 64, 32
+_DTYPE_CODES = {torch.float32: B.DTYPE_F32, torch.bfloat16: B.DTYPE_BF16,
+                torch.int8: B.DTYPE_I8}
+
+
+@functools.lru_cache(maxsize=None)      # asked at every decode launch
+def mla_decode_splits(b: int, h: int, pages: int, ps: int,
+                      sms: int) -> tuple:
+    """B8's split-KV rule: ``(splits, pages per split)`` for a batch of
+    ``b`` slots of ``h`` query heads and ``pages`` table pages of ``ps``
+    rows a slot, on a card of ``sms`` SMs.  Static shapes only — never the
+    slots' lengths — so the launch needs no host sync and can be captured
+    in a CUDA graph.  One wave of one block per SM, ``sms // blocks``
+    splits, each of at least one 32-key tile (both warps of a row group
+    score keys), at most ``_DECODE_MAX_SPLITS``; split s takes pages ``[s
+    * pps, (s + 1) * pps)`` and the last split is never empty of pages."""
+    blocks = max(1, b * -(-h // _MLA_ROWS))
+    min_pps = -(-_MLA_KEYS // max(ps, 1))
+    splits = max(1, min(sms // blocks, -(-pages // min_pps),
+                        _DECODE_MAX_SPLITS))
+    pps = max(1, -(-pages // splits))
+    return max(1, -(-pages // pps)), pps
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_route(lib: str, *codes) -> str:
+    fn = getattr(B.load(lib), f"repro_{lib}_route")
+    fn.argtypes = [_I] * len(codes)
+    fn.restype = _I
+    code = fn(*codes)
+    if code < 0:
+        raise ValueError(f"{lib}: no kernel for element types {codes[:-2]}")
+    return "tile" if code else "general"
+
+
+def mla_decode_route(pool_dtype: torch.dtype, r: int, dr: int) -> str:
+    """``"tile"`` where B8 runs the tensor-core tile for these latent pools
+    and widths, ``"general"`` where one tile stage does not fit in shared
+    memory and the CUDA-core kernel runs.  The rule is
+    ``csrc/mla_tile.cuh``'s ``make_geo``, asked of the built library."""
+    return _mla_route("mla_paged_decode", _DTYPE_CODES[pool_dtype], r, dr)
+
+
+def mla_prefill_route(suf_dtype: torch.dtype, pool_dtype: torch.dtype,
+                      r: int, dr: int) -> str:
+    """B9's route (as :func:`mla_decode_route`) for chunk latents of
+    ``suf_dtype`` and latent pools of ``pool_dtype``."""
+    return _mla_route("mla_paged_prefill", _DTYPE_CODES[suf_dtype],
+                      _DTYPE_CODES[pool_dtype], r, dr)
 
 
 def _mla_decode(name, q_lat, q_pe, ckv_pool, kpe_pool, table, lengths,
@@ -388,16 +441,23 @@ def _mla_decode(name, q_lat, q_pe, ckv_pool, kpe_pool, table, lengths,
                          f"ckv_pool={tuple(ckv_pool.shape)} kpe_pool="
                          f"{tuple(kpe_pool.shape)} table={tuple(table.shape)} "
                          f"lengths={tuple(lengths.shape)}")
-    out = torch.empty(b, h, r, dtype=torch.float32, device=q_lat.device)
+    dev = q_lat.device
+    out = torch.empty(b, h, r, dtype=torch.float32, device=dev)
     if b == 0:
         return out
+    splits, pps = (mla_decode_splits(b, h, p_, ps, B.sm_count(dev))
+                   if mla_decode_route(ckv_pool.dtype, r, dr) == "tile"
+                   else (1, max(p_, 1)))
+    # the splits' partial states (m, l, acc[r]) per query head
+    part = (torch.empty(b * h * splits * (2 + r), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
     null = ctypes.c_void_p(None)
     err = B.cfunc("mla_paged_decode", _MLA_DECODE_ARGS)(
         B.vp(q_lat), B.vp(q_pe), B.vp(ckv_pool), B.vp(kpe_pool),
         B.vp(ckv_scale) if quant else null,
         B.vp(kpe_scale) if quant else null, code, B.vp(table), B.vp(lengths),
-        B.vp(out), b, h, r, dr, ps, p_, float(sm_scale),
-        B.stream_ptr(q_lat.device))
+        B.vp(part), B.vp(out), b, h, r, dr, ps, p_, splits, pps,
+        float(sm_scale), B.stream_ptr(dev))
     B.check(err, name)
     return out
 

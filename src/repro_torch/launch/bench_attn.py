@@ -1,4 +1,4 @@
-"""Device times of the port's paged GQA attention kernels on the card.
+"""Device times of the port's paged attention kernels on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_attn [--reps N]
         [--only REGEX] [--json PATH]
@@ -9,11 +9,20 @@ K2 (``gqa_paged_attention_cuda`` and its int8 branch) and K3
 1024/700/333/17, grp 1 and 8, f32/bf16/int8 pools; K3: batch 4, T = 64 and
 256, without and with prefixes 256/130/64/0, its four pool/suffix
 instances) and the paths' own shapes (codellama-7b decode and chunks, f32
-and int8 pools; granite's Hkv=8, grp=2, Dh=64).  A case's time is a CUDA
-graph of 24 wrapper calls cycling through pool copies that together exceed
-L2, replayed, CUDA-event time per call (device time).  Each case is timed
-``--reps`` times, the passes interleaved over the cases; ``--only`` keeps
-the cases whose "KERNEL CASE" label (as printed) matches a regex.
+and int8 pools; granite's Hkv=8, grp=2, Dh=64).  B8
+(``mla_paged_attention_cuda`` and its int8 branch) and B9
+(``mla_paged_prefill_cuda`` and its int8 branch) at deepseek-v2-236b's
+width (128 heads, r = 512, dr = 64, PS = 16), f32/bf16/int8 latent pools:
+B8 at path 4's decode lengths, B9 on path 4's 128-token chunk after a
+128-token prefix and on the ragged 32-token chunks of ``chip_smoke.py``
+(int8 pools with an f32 suffix); beside B8/B9's path 4 cases, the library
+yardstick ``scaled_dot_product_attention`` on the same dense rows (key
+``[ckv ‖ kpe]``, value ``ckv``, one KV head, int8 dequantized to f32).  A
+case's time is a CUDA graph of 24 calls cycling through pool copies that
+together exceed L2, replayed, CUDA-event time per call (device time).  Each
+case is timed ``--reps`` times, the passes interleaved over the cases;
+``--only`` keeps the cases whose "KERNEL CASE" label (as printed) matches a
+regex.
 
 The script calls only the kernels' public wrappers with arguments every
 version of the port takes, so a copy of it (with ``bench_w4.py`` beside it)
@@ -101,6 +110,136 @@ def k3_cases():
     return out
 
 
+MLA = dict(h=128, r=512, dr=64, ps=16, scale=(128 + 64) ** -0.5)
+
+
+def _mla_pools(dev, gen, lengths, kind):
+    """((ckv, kpe, ckv_scale, kpe_scale), table) of deepseek's latent
+    pools: shuffled live pages, trash page 0 (scales None for fp pools)."""
+    ps, r, dr = MLA["ps"], MLA["r"], MLA["dr"]
+    pages = [-(-n // ps) for n in lengths]
+    n_pages = 1 + sum(pages)
+    if kind == torch.int8:
+        ckv, kpe = (torch.randint(-127, 128, (n_pages, ps, d), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                    for d in (r, dr))
+        cs, pe = (torch.rand(n_pages, ps, generator=gen, device=dev) * 0.03
+                  + 1e-3 for _ in range(2))
+    else:
+        ckv, kpe = (torch.randn(n_pages, ps, d, generator=gen,
+                                device=dev).to(kind) for d in (r, dr))
+        cs = pe = None
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(0)) + 1
+    table = torch.zeros(len(lengths), max(max(pages), 1), dtype=torch.int32)
+    i0 = 0
+    for i, n in enumerate(pages):
+        table[i, :n] = perm[i0:i0 + n].to(torch.int32)
+        i0 += n
+    return (ckv, kpe, cs, pe), table.to(dev)
+
+
+def _dense(pools, table, rows, ldt):
+    """The library's [B, 1, rows, r + dr] keys and [B, 1, rows, r] values:
+    the pools' first ``rows`` rows of each slot, dequantized."""
+    g = [None if t is None else t[table.long()].flatten(1, 2)[:, :rows]
+         .float() for t in pools]
+    ckv, kpe = g[0], g[1]
+    if g[2] is not None:
+        ckv, kpe = ckv * g[2][..., None], kpe * g[3][..., None]
+    return (torch.cat([ckv, kpe], -1)[:, None].to(ldt).contiguous(),
+            ckv[:, None].to(ldt).contiguous())
+
+
+def b8_cases():
+    """(label, lengths, pool kind)"""
+    return [(f"path4 {k}", PATH_LENS, k) for k in KINDS]
+
+
+def b9_cases():
+    """(label, t, prefix, chunk, pool kind, suffix kind)"""
+    inst = (("f32", "f32"), ("bf16", "bf16"), ("int8", "f32"))
+    out = [(f"path4 {k}/{s}", 128, [128], [128], k, s) for k, s in inst]
+    out += [(f"ragged {k}/{s}", 32, [96, 50, 0, 0], [32, 29, 16, 1], k, s)
+            for k, s in inst]
+    return out
+
+
+def mla_cases(dev, gen, keep):
+    """B8 and B9 cases (and SDPA beside their path 4 cases)."""
+    from repro_torch.kernels import paged_attention as PA
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, r, dr, sc = MLA["h"], MLA["r"], MLA["dr"], MLA["scale"]
+    out = []
+    for label, lengths, kind in b8_cases():
+        dt = KINDS[kind]
+        pools, table = _mla_pools(dev, gen, lengths, dt)
+        b = len(lengths)
+        q_lat = torch.randn(b, h, r, generator=gen, device=dev)
+        q_pe = torch.randn(b, h, dr, generator=gen, device=dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        fn = (PA.mla_paged_attention_int8_cuda if dt == torch.int8
+              else PA.mla_paged_attention_cuda)
+        x = 2 if dt == torch.int8 else 0
+        if keep(f"B8 {label}"):
+            out.append(("B8", label, [
+                lambda c=c, fn=fn, x=x, q_lat=q_lat, q_pe=q_pe, tb=table,
+                ln=lens: fn(q_lat, q_pe, c[0], c[1], tb, ln, *c[2:2 + x],
+                            sm_scale=sc)
+                for c in _copies(pools)]))
+        if keep(f"SDPA B8 {label}"):
+            ldt = torch.float32 if dt == torch.int8 else dt
+            s = max(lengths)
+            kd, vd = _dense(pools, table, s, ldt)
+            qd = torch.cat([q_lat, q_pe], -1)[:, :, None].to(ldt)
+            mask = (torch.arange(s, device=dev)[None, :]
+                    < lens[:, None].long())[:, None, None, :]
+            out.append(("SDPA", f"B8 {label}", [
+                lambda qd=qd, kd=kd, vd=vd, mask=mask: sdpa(
+                    qd, kd, vd, attn_mask=mask, scale=sc, enable_gqa=True)]))
+    for label, t, prefix, chunk, kind, sdt in b9_cases():
+        dt = KINDS[kind]
+        b = len(prefix)
+        pools, table = _mla_pools(dev, gen, [p + c for p, c in
+                                             zip(prefix, chunk)], dt)
+        q_lat = torch.randn(b, t, h, r, generator=gen, device=dev)
+        q_pe = torch.randn(b, t, h, dr, generator=gen, device=dev)
+        c_suf, k_suf = (torch.randn(b, t, d, generator=gen, device=dev)
+                        .to(KINDS[sdt]) for d in (r, dr))
+        pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
+        cl = torch.tensor(chunk, dtype=torch.int32, device=dev)
+        fn = (PA.mla_paged_prefill_int8_cuda if dt == torch.int8
+              else PA.mla_paged_prefill_cuda)
+        x = 2 if dt == torch.int8 else 0
+        if keep(f"B9 {label}"):
+            out.append(("B9", label, [
+                lambda c=c, fn=fn, x=x, q_lat=q_lat, q_pe=q_pe, c_suf=c_suf,
+                k_suf=k_suf, tb=table, pl=pl, cl=cl:
+                fn(q_lat, q_pe, c_suf, k_suf, c[0], c[1], tb, pl, cl,
+                   *c[2:2 + x], sm_scale=sc)
+                for c in _copies(pools)]))
+        if label.startswith("path4") and keep(f"SDPA B9 {label}"):
+            ldt = torch.float32 if dt == torch.int8 else dt
+            s = max(prefix)
+            kd, vd = _dense(pools, table, s, ldt)
+            kd = torch.cat([kd, torch.cat([c_suf, k_suf], -1).float()[
+                :, None].to(ldt)], dim=2)
+            vd = torch.cat([vd, c_suf.float()[:, None].to(ldt)], dim=2)
+            qd = torch.cat([q_lat, q_pe], -1).permute(0, 2, 1, 3).to(ldt)
+            kv = torch.arange(s, device=dev)
+            j = torch.arange(t, device=dev)
+            pre = (kv[None, None, :] < pl.long()[:, None, None]).expand(
+                b, t, s)
+            suf = (j[None, None, :] <= j[None, :, None]) \
+                & (j[None, None, :] < cl.long()[:, None, None])
+            mask = torch.cat([pre, suf], dim=-1)[:, None]
+            out.append(("SDPA", f"B9 {label}", [
+                lambda qd=qd, kd=kd, vd=vd, mask=mask: sdpa(
+                    qd, kd, vd, attn_mask=mask, scale=sc, enable_gqa=True)]))
+    return out
+
+
 def cases(dev, keep):
     """(name, case, [calls]) for every case whose label ``keep`` accepts."""
     from repro_torch.kernels import paged_attention as PA
@@ -140,7 +279,7 @@ def cases(dev, keep):
             x=extra, s=dh ** -0.5:
             fn(q, ks, vs, c[0], c[1], tb, pl, cl, *c[2:2 + x], sm_scale=s)
             for c in _copies(pools)]))
-    return out
+    return out + mla_cases(dev, gen, keep)
 
 
 def main(argv=None):

@@ -17,8 +17,10 @@ experts' scales poisoned with NaN: never read) are tested on their own.  Dead ta
 entries point at a trash page filled with NaN (int8 pools: codes -128 and
 NaN scales): the kernels must never read it (the plain versions are given
 a clean copy).  K2 (split-KV with a split-order combine) and K3 (tensor-core
-tiles) are also tested at the paths' shapes and at every shape class that
-takes another of their code paths, for bitwise repeatability, and in a CUDA
+tiles), and B8 (split-KV) and B9 on the tensor-core tile of
+``csrc/mla_tile.cuh``, are also tested at the paths' shapes and at every
+shape class that takes another of their code paths (B8/B9: r > 512 takes
+the CUDA-core kernel, by shape), for bitwise repeatability, and in a CUDA
 graph replayed after the lengths, table and prefix lengths change in place.
 """
 import dataclasses
@@ -799,6 +801,191 @@ def test_mla_prefill_kernel_matches_plain(dev, kind, sdt, h, r, dr, ps, t):
                                      clean[3], sm_scale=sc)
     assert _rel_err(out, ref) <= 1e-5
     assert not out[4].any()                       # no prefix, no chunk
+
+
+# B8/B9 on the tensor-core tile (csrc/mla_tile.cuh) at every shape class:
+# path 4's decode lengths and chunks, slots that need several splits, empty
+# slots, lengths off page multiples, PS 8, heads not a multiple of 64, odd
+# fp widths (zero-padded, copied in 4- or 2-byte pieces), and r > 512,
+# where one tile stage does not fit and the CUDA-core path runs.
+_MLA_KINDS = {"f32": (torch.float32, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16),
+              "int8_f32": (torch.int8, torch.float32),
+              "int8_bf16": (torch.int8, torch.bfloat16)}
+# (heads, r, dr, page size, lengths)
+MLA_DECODE_SHAPES = {
+    "path4": (128, 512, 64, 16, [216, 150, 90, 33]),
+    "long": (128, 512, 64, 16, [1000, 0, 517, 31]),
+    "ps8": (4, 16, 8, 8, [77, 1, 0]),
+    "h200": (200, 64, 32, 16, [50, 7]),
+    "odd": (3, 33, 6, 16, [40, 17]),
+    "wide": (4, 640, 64, 16, [40, 0, 17]),
+}
+# (heads, r, dr, page size, T, prefix, chunk)
+MLA_PREFILL_SHAPES = {
+    "path4": (128, 512, 64, 16, 128, [128], [128]),
+    "ragged": (128, 512, 64, 16, 32, [96, 50, 0, 0], [32, 29, 16, 1]),
+    "ps8": (4, 16, 8, 8, 40, [45, 0, 13], [40, 33, 1]),
+    "h200": (200, 64, 32, 16, 9, [20, 0], [9, 5]),
+    "odd": (3, 33, 6, 16, 21, [30, 0], [21, 9]),
+    "wide": (4, 640, 64, 16, 24, [40], [24]),
+}
+
+
+def _mla_decode_case(dev, kind, shape, seed=0):
+    h, r, dr, ps, lengths = shape
+    b = len(lengths)
+    clean, bad, table = _mla_paged(dev, kind, b, lengths, r, dr, ps=ps,
+                                   pages=max(-(-max(lengths) // ps), 1),
+                                   seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    q_lat = torch.randn(b, h, r, generator=gen, device=dev)
+    q_pe = torch.randn(b, h, dr, generator=gen, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q_lat, q_pe, clean, bad, table, lens, (128 + 64) ** -0.5
+
+
+def _mla_decode_check(q_lat, q_pe, clean, bad, table, lens, sc):
+    out = ops.mla_paged_attention(q_lat, q_pe, bad[0], bad[1], table, lens,
+                                  bad[2], bad[3], sm_scale=sc)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())        # the trash page never read
+    ref = PA.mla_paged_attention_plain(q_lat, q_pe, clean[0], clean[1],
+                                       table, lens, clean[2], clean[3],
+                                       sm_scale=sc)
+    assert _rel_err(out, ref) <= 1e-5
+    for i, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert not out[i].any()
+    return out
+
+
+def _mla_cases(shapes, kinds):
+    """(shape, kind) pairs; int8 rows are read 4 codes at a time, so the
+    odd widths run fp pools only."""
+    return [(s, k) for s in shapes for k in kinds
+            if not (s == "odd" and k.startswith("int8"))]
+
+
+@pytest.mark.parametrize("shape,kind", _mla_cases(
+    MLA_DECODE_SHAPES, ["f32", "bf16", "int8_f32"]))
+def test_mla_decode_shapes_match_plain(dev, shape, kind):
+    case = _mla_decode_case(dev, _MLA_KINDS[kind][0],
+                            MLA_DECODE_SHAPES[shape])
+    h, _, _, _, lengths = MLA_DECODE_SHAPES[shape]
+    if shape in ("long", "path4"):            # several splits per slot
+        splits, pps = PA.mla_decode_splits(
+            len(lengths), h, case[4].shape[1], MLA_DECODE_SHAPES[shape][3],
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        assert splits > 1 and (shape == "path4" or pps > 1)
+    _mla_decode_check(*case)
+
+
+@pytest.mark.parametrize("shape,kind", _mla_cases(MLA_PREFILL_SHAPES,
+                                                 _MLA_KINDS))
+def test_mla_prefill_shapes_match_plain(dev, shape, kind):
+    _mla_prefill_check(*_mla_prefill_case(dev, *_MLA_KINDS[kind],
+                                          MLA_PREFILL_SHAPES[shape]))
+
+
+def _mla_prefill_case(dev, kind, sdt, shape, seed=0):
+    h, r, dr, ps, t, prefix, chunk = shape
+    b = len(prefix)
+    rows = [p + c for p, c in zip(prefix, chunk)]
+    clean, bad, table = _mla_paged(dev, kind, b, rows, r, dr, ps=ps,
+                                   pages=max(-(-max(rows) // ps), 1),
+                                   seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    q_lat = torch.randn(b, t, h, r, generator=gen, device=dev)
+    q_pe = torch.randn(b, t, h, dr, generator=gen, device=dev)
+    c_suf = torch.randn(b, t, r, generator=gen, device=dev).to(sdt)
+    k_suf = torch.randn(b, t, dr, generator=gen, device=dev).to(sdt)
+    pl = torch.tensor(prefix, dtype=torch.int32, device=dev)
+    cl = torch.tensor(chunk, dtype=torch.int32, device=dev)
+    return (q_lat, q_pe, c_suf, k_suf, clean, bad, table, pl, cl,
+            (128 + 64) ** -0.5)
+
+
+def _mla_prefill_check(q_lat, q_pe, c_suf, k_suf, clean, bad, table, pl, cl,
+                       sc):
+    out = ops.mla_paged_prefill(q_lat, q_pe, c_suf, k_suf, bad[0], bad[1],
+                                table, pl, cl, bad[2], bad[3], sm_scale=sc)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    ref = PA.mla_paged_prefill_plain(q_lat, q_pe, c_suf, k_suf, clean[0],
+                                     clean[1], table, pl, cl, clean[2],
+                                     clean[3], sm_scale=sc)
+    assert _rel_err(out, ref) <= 1e-5
+    return out
+
+
+def test_mla_routes_by_shape(dev):
+    """Path 4's widths (and the smoke widths) take the tensor-core tile in
+    every instance; r > 512 takes the CUDA-core path."""
+    for pool, suf in _MLA_KINDS.values():
+        for r, dr in ((512, 64), (16, 8), (33, 6)):
+            if pool == torch.int8 and r % 4:
+                continue
+            assert PA.mla_decode_route(pool, r, dr) == "tile"
+            assert PA.mla_prefill_route(suf, pool, r, dr) == "tile"
+        assert PA.mla_decode_route(pool, 640, 64) == "general"
+        assert PA.mla_prefill_route(suf, pool, 640, 64) == "general"
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8_f32"])
+def test_mla_bitwise_repeatable(dev, kind):
+    """Two calls give the same bits: B8's split-order combine and B9's
+    tiles take no atomics."""
+    pool, suf = _MLA_KINDS[kind]
+    q_lat, q_pe, clean, bad, table, lens, sc = _mla_decode_case(
+        dev, pool, MLA_DECODE_SHAPES["long"], 5)
+    a, b = (ops.mla_paged_attention(q_lat, q_pe, clean[0], clean[1], table,
+                                    lens, clean[2], clean[3], sm_scale=sc)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    args = _mla_prefill_case(dev, pool, suf, MLA_PREFILL_SHAPES["ragged"], 6)
+    q_lat, q_pe, c_suf, k_suf, clean, _, table, pl, cl, sc = args
+    a, b = (ops.mla_paged_prefill(q_lat, q_pe, c_suf, k_suf, clean[0],
+                                  clean[1], table, pl, cl, clean[2],
+                                  clean[3], sm_scale=sc) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8_f32"])
+def test_mla_replay_after_in_place_updates(dev, kind):
+    """B8 and B9 in a CUDA graph (as a captured decode step would hold
+    them): lengths, table, prefix and chunk lengths updated in place, the
+    replay equals the eager call on the updated tensors, bit for bit."""
+    pool, suf = _MLA_KINDS[kind]
+    q_lat, q_pe, clean, bad, table, lens, sc = _mla_decode_case(
+        dev, pool, MLA_DECODE_SHAPES["path4"], 11)
+    table2 = table.flip(0).contiguous()            # other slots' pages
+    lens2 = lens.flip(0).contiguous() - 5
+    graph, out = _captured(lambda: ops.mla_paged_attention(
+        q_lat, q_pe, bad[0], bad[1], table, lens, bad[2], bad[3],
+        sm_scale=sc))
+    table.copy_(table2)
+    lens.copy_(lens2)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = _mla_decode_check(q_lat, q_pe, clean, bad, table, lens, sc)
+    assert torch.equal(out, eager)
+
+    args = _mla_prefill_case(dev, pool, suf,
+                             (16, 512, 64, 16, 40, [100, 13], [40, 21]), 12)
+    q_lat, q_pe, c_suf, k_suf, clean, bad, table, pl, cl, sc = args
+    graph, out = _captured(lambda: ops.mla_paged_prefill(
+        q_lat, q_pe, c_suf, k_suf, bad[0], bad[1], table, pl, cl, bad[2],
+        bad[3], sm_scale=sc))
+    table.copy_(table.flip(0))
+    pl.copy_(torch.tensor([3, 90], dtype=torch.int32, device=dev))
+    cl.copy_(torch.tensor([21, 40], dtype=torch.int32, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = _mla_prefill_check(*args)
+    assert torch.equal(out, eager)
 
 
 def test_launch_counters_reset(dev):
