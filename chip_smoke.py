@@ -12,22 +12,22 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    B5 (W4A8 GEMM), the int8-pool branches of K2/K3, B6/B7 (grouped W4A16 /
    W4A8 expert GEMMs, ragged zero capacity rows; B6 also on deepseek's
    routed decode with per-expert ``rows`` and the idle experts' scales
-   NaN), B4 (flash attention), B8/B9 (absorbed MLA paged decode / chunked
-   prefill, fp and int8 latent pools), K1/B6 with an offset-only group and
-   K1/B5/B6/B7 with G=256, against their plain PyTorch versions at the
-   paths' shapes, with CUDA-event times beside the plain version's, one
-   PyTorch library call's (never used by the port) and the card's bound.
-   K1, B5, B6, B7, K2 and K3 (and their library call) are timed as CUDA
-   graphs of the calls, their kernels' device time (B5/B7: with the
-   activation quantization, whose graph time alone is printed beside; K2:
-   the split kernel and its combine), with the eager wrapper's time beside
-   it, over copies of the weights or pools that together exceed L2; K1/B6's
-   bound counts the function's 2*rows*Ci*Co operations at the bf16
-   tensor-core rate (989 TFLOP/s) for f32 and bf16 X alike, K3's its
-   2*pairs*(Dh+Dv) likewise (the f32 CUDA-core rate's bound beside it),
-   B5/B7's at the int8 rate (1,979 TOP/s) and, with ``rows``, only the live
-   experts' bytes; K2/K3 also at the paths' own shapes; then the phase's
-   peak memory;
+   NaN), B4 (flash attention, on K3's tile; path 3's calibration shape
+   too), B8/B9 (absorbed MLA paged decode / chunked prefill, fp and int8
+   latent pools), K1/B6 with an offset-only group and K1/B5/B6/B7 with
+   G=256, against their plain PyTorch versions at the paths' shapes, with
+   CUDA-event times beside the plain version's, one PyTorch library call's
+   (never used by the port) and the card's bound.  Every kernel and its
+   library call are timed as CUDA graphs of the calls, their kernels'
+   device time (B5/B7: with the activation quantization, whose graph time
+   alone is printed beside; K2/B8: the split kernel and its combine), with
+   the eager wrapper's time beside it, over copies of the weights, pools or
+   operands that together exceed L2; K1/B6's bound counts the function's
+   2*rows*Ci*Co operations at the bf16 tensor-core rate (989 TFLOP/s) for
+   f32 and bf16 X alike, K3's, B4's and B8/B9's their multiply-adds
+   likewise (the f32 CUDA-core rate's bound beside it), B5/B7's at the int8
+   rate (1,979 TOP/s) and, with ``rows``, only the live experts' bytes;
+   K2/K3 also at the paths' own shapes; then the phase's peak memory;
 3. paths — full width with random seeded weights, 8 requests (prompts of
    32-200 tokens, 16 new tokens, batch 4, greedy), every launch counter set
    to 0 just before and read just after each path; during each path the
@@ -50,7 +50,8 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    stacks (capacity >= 16 rows) and decode runs B6; launch counts must equal
    the prediction from the A8 flags, the chunk log and the calibration set;
    step checks (a)-(c) as path 2's, and (d) ``api.forward_fn`` on a
-   2048-token sequence under flash against chunked (both A16); then the
+   2048-token sequence under flash against chunked (both A16), with the
+   flash forward's device time (torch.profiler) and B4's share; then the
    same model served with ``--group-size 256`` (4 requests): K1/B6 and
    B7 launch, each held against its plain version on the path's operands;
    path 4 — deepseek-v2-236b at full width, depth cut to 2 layers (MLA with
@@ -727,43 +728,62 @@ def check_grouped():
     return rows
 
 
+# B4 cases (B, T, H, Hkv, D, causal, type): path 3's own calibration shape
+# (granite, T=24), granite at T=64 and 2048 (f32 and bf16), codellama's
+# heads (H=Hkv=32, D=128) at T=2048, and one non-causal case with S a
+# multiple of the reference's 512-key block
+B4_CASES = ((1, 24, 16, 8, 64, True, torch.float32),
+            (1, 64, 16, 8, 64, True, torch.float32),
+            (1, 2048, 16, 8, 64, True, torch.float32),
+            (1, 2048, 16, 8, 64, True, torch.bfloat16),
+            (1, 2048, 32, 32, 128, True, torch.float32),
+            (1, 1024, 16, 8, 64, False, torch.float32))
+
+
 def check_flash():
-    """B4 at granite's shapes (B=1, H=16, Hkv=8, D=64) at T=64 and 2048 and
-    codellama's (H=Hkv=32, D=128) at T=2048, causal, f32 (granite's T=2048
-    also bf16); one non-causal case with S a multiple of the 512 block."""
+    """B4 at the cases of ``B4_CASES`` against its plain version (error and
+    its share of the tolerance printed), then timed: kernel and library
+    (``scaled_dot_product_attention`` with ``enable_gqa``, in the case's
+    type) as CUDA graphs over copies of q, k, v that exceed L2, the eager
+    wrapper beside them; the bound counts the function's multiply-adds at
+    the bf16 tensor-core rate (the f32 CUDA-core rate's beside it as
+    bound_f32_ms), as K3's."""
     print("B4 flash_attention (replaces repro/kernels/flash_attention.py:"
-          "_kernel)")
+          "_kernel): K3's tensor-core tile (csrc/attn_tile.cuh); kernel time "
+          "= CUDA graph of the wrapper's calls, eager wrapper beside it")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    cases = ((64, 16, 8, 64, True, torch.float32),
-             (2048, 16, 8, 64, True, torch.float32),
-             (2048, 16, 8, 64, True, torch.bfloat16),
-             (2048, 32, 32, 128, True, torch.float32),
-             (1024, 16, 8, 64, False, torch.float32))
-    for t, h, hkv, d, causal, dt in cases:
+    for b, t, h, hkv, d, causal, dt in B4_CASES:
         gen = torch.Generator(device=DEV).manual_seed(t + h + d)
-        q = torch.randn(1, t, h, d, generator=gen, device=DEV).to(dt)
-        k = torch.randn(1, t, hkv, d, generator=gen, device=DEV).to(dt)
-        v = torch.randn(1, t, hkv, d, generator=gen, device=DEV).to(dt)
+        q = torch.randn(b, t, h, d, generator=gen, device=DEV).to(dt)
+        k = torch.randn(b, t, hkv, d, generator=gen, device=DEV).to(dt)
+        v = torch.randn(b, t, hkv, d, generator=gen, device=DEV).to(dt)
         ref = FA.flash_attention_plain(q, k, v, causal=causal)
         out = FA.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
         tol = (1e-5 if dt == torch.float32 else 1e-2) \
             * max(1.0, float(ref.float().abs().max()))
-        ms = time_ms([lambda: FA.flash_attention_cuda(q, k, v,
-                                                      causal=causal)])
-        plain_ms = time_ms([lambda: FA.flash_attention_plain(
-            q, k, v, causal=causal)])
+        err = max_err(out, ref)
+        route = FA.flash_route(dt, d)
+        require(route == "tile", f"B4 D={d} left the tile")
         qd, kd, vd = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        lib = time_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
-            qd, kd, vd, is_causal=causal, enable_gqa=True)])
+        ms, wrapper, plain_ms, lib = _attn_times(
+            lambda c: FA.flash_attention_cuda(*c, causal=causal),
+            lambda: FA.flash_attention_plain(q, k, v, causal=causal),
+            lambda qa, ka, va: sdpa(qa, ka, va, is_causal=causal,
+                                    enable_gqa=True),
+            (q, k, v), (qd, kd, vd))
         pairs = t * (t + 1) // 2 if causal else t * t
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bnd, by = bound(nbytes, 4.0 * d * pairs * h, dt)
-        case = (f"B=1 T={t} H={h} Hkv={hkv} D={d} "
+        macs = 2.0 * b * pairs * h * d
+        bnd, by = tc_bound(nbytes, macs)
+        bnd_f32, _ = bound(nbytes, 2.0 * macs, torch.float32)
+        case = (f"B={b} T={t} H={h} Hkv={hkv} D={d} "
                 f"{'causal' if causal else 'non-causal'} {str(dt)[6:]}")
-        rows[(t, h, d, causal, dt)] = record("flash_attention", case,
-                                             max_err(out, ref), tol, ms,
-                                             plain_ms, lib, bnd, by)
+        rows[(t, h, d, causal, dt)] = record(
+            "flash_attention", case, err, tol, ms, plain_ms, lib, bnd, by,
+            wrapper, extra=dict(bound_f32_ms=bnd_f32, route=route,
+                                err_share=err / tol))
     return rows
 
 
@@ -1418,9 +1438,25 @@ def forward_flash_check(params, cfg, t=2048, seed=0):
     require(not over and same == 1.0, "(d) flash forward differs from "
             "chunked")
     del lf, lc
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=act) as prof:
+        api.forward_fn(params, {"tokens": toks},
+                       cfg.with_(attn_impl="flash", act_quant="a16"))
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0) > 0]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    b4 = [e for e in kern if "flash_" in e.key]
+    b4_ms = sum(e.self_device_time_total for e in b4) / 1e3
+    print(f"  (d) device time of the T={t} flash forward_fn (torch.profiler): "
+          f"{dev_ms:.3f} ms of kernels, of which B4 {b4_ms:.3f} ms in "
+          f"{sum(e.count for e in b4)} launches")
     return dict(forward_t=t, forward_median_rel=med,
                 forward_max_rel=float(per_pos.max()),
-                forward_positions_over=len(over), forward_argmax_agree=same)
+                forward_positions_over=len(over), forward_argmax_agree=same,
+                forward_device_ms=dev_ms, forward_b4_device_ms=b4_ms)
 
 
 def path3():

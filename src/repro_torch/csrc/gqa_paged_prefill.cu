@@ -35,46 +35,23 @@
 // hundred, Dh = 128) the score and value products, 2 * grp * (Dh + Dv)
 // operations per (query, key) pair — on the tensor cores here.
 //
-// Design (the tensor-core path).  One block per (64 query rows of the
-// flattened T*grp axis, kv head and slice of <= kDV value columns, slot):
-// 4 warps of 16 rows, as in FlashAttention-2; the grp heads of one KV head
-// share every K/V tile.  Key tiles of 64 rows stream through a
-// shared-memory ring filled by cp.async (16-byte pieces where the rows
-// allow, else 4-byte; 2-byte synchronous copies for odd bf16 widths), with
-// two stages the next tile in flight while the current one is computed.
-// The prefix phase gathers each tile's 64 rows through the table one row
-// at a time, so a tile may span any number of pages (PS need not divide
-// 64) and rows at or past prefix_len are zero-filled, never read; the
-// suffix phase takes a contiguous slice of k_suf/v_suf.  Tiles wholly past chunk_len or above a
-// warp's causal diagonal are skipped, the diagonal tile is masked.  Widths
-// are zero-padded to a multiple of 16 in shared memory, so any Dh and Dv
-// run here; a Dv wider than kDV takes several blocks, each recomputing the
-// scores for its slice of the values.  The ring has two stages where two
-// such blocks fit on an SM, else one (f32 tiles at Dh = 128: two blocks of
-// 4 warps, each waiting on its own copies, beat one block that overlaps
-// them); where one stage does not fit (f32 rows of several hundred), the
-// block takes the CUDA-core path below.
+// Design (the tensor-core path): the tile of attn_tile.cuh (shared with
+// B4).  One block per (64 query rows of the flattened T*grp axis, kv head
+// and slice of <= kDV value columns, slot), 4 warps of 16 rows; the grp
+// heads of one KV head share every K/V tile.  The prefix phase gathers each
+// 64-key tile's rows through the table one row at a time, so a tile may
+// span any number of pages (PS need not divide 64) and rows at or past
+// prefix_len are zero-filled, never read; the suffix phase takes a
+// contiguous slice of k_suf/v_suf.  Tiles wholly past chunk_len or above a
+// warp's causal diagonal are skipped, the diagonal tile is masked.  Where
+// one ring stage does not fit (f32 rows of several hundred), the block
+// takes the CUDA-core path below.
 //
-// Arithmetic.  S = Q K^T and O += P V run on mma.sync; the online softmax
-// runs on the accumulator fragments in registers (quad shuffles for the row
-// max; each thread keeps a partial row sum, summed across the quad at the
-// end).  The tolerance against the reference (1e-5 of max |out|) rules out
-// plain TF32 (10-bit mantissa), so every product is exact or nearly so:
-//  - an f32 x f32 product (f32 Q against f32 K, f32 P against f32 V) is
-//    3xTF32 on m16n8k8: each operand x = big + small, big = x cut to tf32,
-//    small = x - big (cut to tf32 by the MMA), and the MMA sums small*big
-//    + big*small + big*big (about 2^-20 relative per product);
-//  - where one operand is exact in bf16 (bf16 K/V, and int8 codes, |c| <=
-//    128), the f32 one (Q, or P) is split into three bf16 terms hi + mid +
-//    lo that hold its 24-bit significand exactly, and three bf16 m16n8k16
-//    MMAs sum exact products — half the MMA issue of 3xTF32 for the same
-//    work, as K1's tile does for f32 X (w4a16_tile.cuh).
-// So (f32 suffix, f32 pools) is 3xTF32 in both phases, (bf16, bf16) bf16x3
+// Arithmetic (attn_tile.cuh): (f32 suffix, f32 pools) is 3xTF32 in both
+// phases, (bf16, bf16) three exact bf16 terms of the f32 operand (Q, or P)
 // in both, and with int8 pools the prefix phase is bf16x3 on the codes (the
 // scales applied to the f32 scores and to P in f32) while the suffix phase
-// follows the suffix's type.  For 3xTF32 P V the MMA's k order over a key
-// tile is permuted (MMA k t <-> key 2t, t + 4 <-> key 2t + 1) so the score
-// accumulators serve as the A operand without a shuffle.
+// follows the suffix's type.
 //
 // The CUDA-core path (widths whose tile does not fit in shared memory): one
 // block per (16 query rows, kv head, slot) streams PS-row tiles through
@@ -84,312 +61,12 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;   // query rows per block (tensor cores)
-constexpr int kKeys = 64;            // keys per tile
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory per block
-constexpr size_t kSmemPerSM = 233472;  // shared memory of one SM
-constexpr size_t kBlockReserve = 1024;  // the runtime's share per block
-
-// ---------------------------------------------------------------- copies
-// One `piece`-byte copy from s (ok) or of zeros.
-__device__ __forceinline__ void copy_piece(unsigned char* d,
-                                           const unsigned char* s, bool ok,
-                                           int piece, const void* any) {
-  if (piece == 16) {
-    cp_async16(d, ok ? s : any, ok ? 16 : 0);
-  } else if (piece == 4) {
-    cp_async4(d, ok ? s : any, ok ? 4 : 0);
-  } else if (piece == 2) {
-    *reinterpret_cast<uint16_t*>(d) =
-        ok ? *reinterpret_cast<const uint16_t*>(s) : 0;
-  } else {
-    *d = ok ? *s : 0;
-  }
-}
-
-// Stage `rows` rows into shared memory (rows `ld` bytes apart): row r takes
-// the first `vbytes` bytes at src(r) (nullptr: none), the rest of its
-// `tbytes` is zero-filled.  `piece` is the copy's size: 16 or 4 bytes by
-// cp.async (vbytes, tbytes and the rows' addresses multiples of it), or 2 /
-// 1 by synchronous copies.
-template <typename Src>
-__device__ __forceinline__ void stage_rows(unsigned char* dst, int ld,
-                                           int rows, int vbytes, int tbytes,
-                                           int piece, const void* any,
-                                           Src src) {
-  const int per = tbytes / piece;
-  if (kThreads % per == 0) {   // a fixed piece per thread: no division
-    const int off = (threadIdx.x % per) * piece;
-    for (int r = threadIdx.x / per; r < rows; r += kThreads / per) {
-      const unsigned char* s = src(r);
-      copy_piece(dst + (size_t)r * ld + off, s + off,
-                 s != nullptr && off < vbytes, piece, any);
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < rows * per; i += kThreads) {
-    const int r = i / per, off = (i - r * per) * piece;
-    const unsigned char* s = src(r);
-    copy_piece(dst + (size_t)r * ld + off, s + off,
-               s != nullptr && off < vbytes, piece, any);
-  }
-}
-
-// The piece size for rows of `bytes` bytes at `base` (every row's address
-// is base + a multiple of bytes, or of a row stride that bytes divides).
-int piece_for(const void* base, size_t bytes, int elem) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
-  if (bytes % 16 == 0 && a % 16 == 0) return 16;
-  if (bytes % 4 == 0 && a % 4 == 0) return 4;
-  return elem;
-}
-
-// ------------------------------------------------------------ tensor cores
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// x = big + small: big is x cut to tf32 (its low 13 mantissa bits
-// cleared), small = x - big exactly (|small| < 2^-10 |x|); the MMA reads a
-// tf32 operand's top 19 bits, so small loses under 2^-21 |x|.  Two ALU
-// operations, where cvt.rna.tf32 would take the conversion pipe.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-// (x, y) = hi + mid + lo exactly, three bf16x2 terms
-__device__ __forceinline__ void split_bf16(float x, float y,
-                                           uint32_t& hi, uint32_t& mid,
-                                           uint32_t& lo) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x, y);
-  float2 f = __bfloat1622float2(a);
-  x -= f.x;
-  y -= f.y;
-  __nv_bfloat162 b = __floats2bfloat162_rn(x, y);
-  f = __bfloat1622float2(b);
-  hi = as_u32(a);
-  mid = as_u32(b);
-  lo = as_u32(__floats2bfloat162_rn(x - f.x, y - f.y));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two consecutive staged elements as a bf16x2 (exact: bf16 values or int8
-// codes); two elements of different rows likewise.
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pair(const int8_t* p) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  return as_u32(__floats2bfloat162_rn((float)c.x, (float)c.y));
-}
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* a,
-                                         const __nv_bfloat16* b) {
-  return (uint32_t)*reinterpret_cast<const uint16_t*>(a) |
-         ((uint32_t)*reinterpret_cast<const uint16_t*>(b) << 16);
-}
-__device__ __forceinline__ uint32_t pair(const int8_t* a, const int8_t* b) {
-  return as_u32(__floats2bfloat162_rn((float)*a, (float)*b));
-}
-
-// s[nt] (the C fragments of 8 n-tiles of 8 keys) = this warp's 16 query
-// rows (f32, row stride ldq) . the staged key tile (rows of type KT, stride
-// ldk elements), over Dhp (a multiple of 16) dimensions.  Lane (g, tq) =
-// (lane / 4, lane % 4).
-template <typename KT>
-__device__ __forceinline__ void scores(float (&s)[8][4],
-                                       const float* __restrict__ qw, int ldq,
-                                       const KT* __restrict__ kt, int ldk,
-                                       int Dhp, int g, int tq) {
-  if constexpr (std::is_same<KT, float>::value) {
-    for (int k0 = 0; k0 < Dhp; k0 += 8) {
-      uint32_t ab[4], as[4];
-      split_tf32(qw[g * ldq + k0 + tq], ab[0], as[0]);
-      split_tf32(qw[(g + 8) * ldq + k0 + tq], ab[1], as[1]);
-      split_tf32(qw[g * ldq + k0 + tq + 4], ab[2], as[2]);
-      split_tf32(qw[(g + 8) * ldq + k0 + tq + 4], ab[3], as[3]);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float* kr = kt + (nt * 8 + g) * ldk + k0;
-        uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(kr[tq], bb0, bs0);
-        split_tf32(kr[tq + 4], bb1, bs1);
-        mma_tf32(s[nt], as, bb0, bb1);
-        mma_tf32(s[nt], ab, bs0, bs1);
-        mma_tf32(s[nt], ab, bb0, bb1);
-      }
-    }
-  } else {
-    for (int k0 = 0; k0 < Dhp; k0 += 16) {
-      uint32_t a[3][4];
-      const float* q0 = qw + g * ldq + k0 + 2 * tq;
-      const float* q8 = q0 + 8 * ldq;
-      const float2 x0 = *reinterpret_cast<const float2*>(q0);
-      const float2 x1 = *reinterpret_cast<const float2*>(q8);
-      const float2 x2 = *reinterpret_cast<const float2*>(q0 + 8);
-      const float2 x3 = *reinterpret_cast<const float2*>(q8 + 8);
-      split_bf16(x0.x, x0.y, a[0][0], a[1][0], a[2][0]);
-      split_bf16(x1.x, x1.y, a[0][1], a[1][1], a[2][1]);
-      split_bf16(x2.x, x2.y, a[0][2], a[1][2], a[2][2]);
-      split_bf16(x3.x, x3.y, a[0][3], a[1][3], a[2][3]);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const KT* kr = kt + (nt * 8 + g) * ldk + k0 + 2 * tq;
-        const uint32_t b0 = pair(kr), b1 = pair(kr + 8);
-        mma_bf16(s[nt], a[2], b0, b1);
-        mma_bf16(s[nt], a[1], b0, b1);
-        mma_bf16(s[nt], a[0], b0, b1);
-      }
-    }
-  }
-}
-
-// o[n] (C fragments of kNT n-tiles of 8 value columns) += p . the staged
-// value tile (rows of type VT, stride ldv elements); p holds the tile's
-// value weights in the score fragments' layout.
-template <int kNT, typename VT>
-__device__ __forceinline__ void values(float (&o)[kNT][4],
-                                       const float (&p)[8][4],
-                                       const VT* __restrict__ vt, int ldv,
-                                       int g, int tq) {
-  if constexpr (std::is_same<VT, float>::value) {
-    // MMA k tq <-> key 8j + 2tq, k tq + 4 <-> key 8j + 2tq + 1
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t ab[4], as[4];
-      split_tf32(p[j][0], ab[0], as[0]);
-      split_tf32(p[j][2], ab[1], as[1]);
-      split_tf32(p[j][1], ab[2], as[2]);
-      split_tf32(p[j][3], ab[3], as[3]);
-      const float* v0 = vt + (8 * j + 2 * tq) * ldv + g;
-      const float* v1 = v0 + ldv;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(v0[8 * n], bb0, bs0);
-        split_tf32(v1[8 * n], bb1, bs1);
-        mma_tf32(o[n], as, bb0, bb1);
-        mma_tf32(o[n], ab, bs0, bs1);
-        mma_tf32(o[n], ab, bb0, bb1);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[3][4];
-      split_bf16(p[2 * kk][0], p[2 * kk][1], a[0][0], a[1][0], a[2][0]);
-      split_bf16(p[2 * kk][2], p[2 * kk][3], a[0][1], a[1][1], a[2][1]);
-      split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], a[0][2], a[1][2],
-                 a[2][2]);
-      split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], a[0][3], a[1][3],
-                 a[2][3]);
-      const VT* r0 = vt + (16 * kk + 2 * tq) * ldv + g;
-      const VT* r1 = r0 + ldv;
-      const VT* r8 = r0 + 8 * ldv;
-      const VT* r9 = r8 + ldv;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const uint32_t b0 = pair(r0 + 8 * n, r1 + 8 * n);
-        const uint32_t b1 = pair(r8 + 8 * n, r9 + 8 * n);
-        mma_bf16(o[n], a[2], b0, b1);
-        mma_bf16(o[n], a[1], b0, b1);
-        mma_bf16(o[n], a[0], b0, b1);
-      }
-    }
-  }
-}
-
-// Launch geometry, computed on the host.
-struct Geo {
-  int T, Hkv, grp, Dh, Dv, PS, P;
-  int Dhp;            // Dh rounded up to 16
-  int n_vs;           // value slices of kDV columns
-  int stages;         // ring stages (1 or 2)
-  int ldk, ldv;       // staged key / value row strides, bytes
-  int stage_bytes;
-  int pq, pkp, pvp, pks, pvs;   // copy pieces: q, pool K/V, suffix K/V
-  float scale;
-};
-
-// One key tile for this warp: scores, masks, the online-softmax step and
-// the value product.  kPre: a prefix tile (valid keys j0 + c < lim =
-// prefix_len), else a suffix tile (valid when j0 + c <= the row's t and
-// < lim = chunk_len).  ksc / vsc: the tile rows' int8 scales.
-template <typename KT, bool kPre, bool kQuant, int kNT>
-__device__ __forceinline__ void tile_step(
-    float (&o)[kNT][4], float (&m)[2], float (&lp)[2], const float* qw,
-    int ldq, const unsigned char* kd, const unsigned char* vd,
-    const float* ksc, const float* vsc, const Geo& G, int j0, int lim,
-    int ta, int tb, int g, int tq) {
-  float s[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-  scores<KT>(s, qw, ldq, reinterpret_cast<const KT*>(kd),
-             G.ldk / (int)sizeof(KT), G.Dhp, g, tq);
-  uint32_t valid = 0;
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 8 * nt + 2 * tq + (e & 1);
-      const int key = j0 + c;
-      const bool ok = kPre ? key < lim : key <= (e < 2 ? ta : tb) && key < lim;
-      float v = s[nt][e] * G.scale;
-      if (kPre && kQuant) v *= ksc[c];
-      s[nt][e] = ok ? v : REPRO_NEG_INF;
-      valid |= (ok ? 1u : 0u) << (4 * nt + e);
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-    }
-  float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    corr[r] = expf(m[r] - mx[r]);
-    m[r] = mx[r];
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float p = (valid >> (4 * nt + e)) & 1u ? expf(s[nt][e] - mx[e >> 1])
-                                             : 0.f;
-      sum[e >> 1] += p;
-      // l takes the unscaled exp; the value weights carry v_scale
-      if (kPre && kQuant) p *= vsc[8 * nt + 2 * tq + (e & 1)];
-      s[nt][e] = p;
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) lp[r] = lp[r] * corr[r] + sum[r];
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-  values<kNT>(o, s, reinterpret_cast<const KT*>(vd), G.ldv / (int)sizeof(KT),
-              g, tq);
-}
+using namespace attn_tc;
 
 template <typename ST, typename PT, int kDV>
 __global__ void __launch_bounds__(kThreads)
@@ -798,15 +475,9 @@ cudaError_t launch(const float* q, const void* k_suf_v, const void* v_suf_v,
   G.pks = piece_for(k_suf, (size_t)Dh * sizeof(ST), sizeof(ST));
   G.pvs = piece_for(v_suf, (size_t)Dv * sizeof(ST), sizeof(ST));
   G.scale = scale;
-  // two ring stages only where two such blocks still share an SM (f32
-  // tiles of Dh = 128 take one: two blocks of one stage each were 1.5x
-  // faster on an H100 than one block of two, PERF.md)
   const size_t q_bytes = (size_t)kRows * (G.Dhp + 4) * 4;
-  G.stages = 2 * (q_bytes + 2 * (size_t)G.stage_bytes + kBlockReserve) <=
-                     kSmemPerSM
-                 ? 2
-                 : 1;
-  if (q_bytes + (size_t)G.stages * G.stage_bytes <= kMaxSmem) {
+  G.stages = ring_stages(q_bytes, G.stage_bytes);
+  if (G.stages > 0) {
     if (kdv == 64)
       return launch_tc<ST, PT, 64>(q, k_suf, v_suf, k_pool, v_pool, k_scale,
                                    v_scale, table, prefix_len, chunk_len, out,

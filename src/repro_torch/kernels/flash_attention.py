@@ -2,9 +2,13 @@
 its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py:_kernel``
-(source ``csrc/flash_attention.cu``, whose header says what bounds it on the
-card).  ``cfg.attn_impl="flash"`` routes full-sequence attention here (the
+(source ``csrc/flash_attention.cu`` on the tensor-core tile of
+``csrc/attn_tile.cuh``, whose headers say what bounds it on the card).
+``cfg.attn_impl="flash"`` routes full-sequence attention here (the
 calibration passes of quantize-on-load and the teacher-forced forward).
+Any head width runs: the tile pads D to a multiple of 16, and widths whose
+tile does not fit in shared memory take a CUDA-core kernel, chosen by shape
+(:func:`flash_route`).
 
 Contract, the reference's: ``q[B, T, H, D]``, ``k/v[B, S, Hkv, D]``, query
 head ``h`` reads KV head ``h // (H / Hkv)``, scale ``D**-0.5``; when
@@ -16,6 +20,7 @@ to be a multiple of the KV block ``min(512, S)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,7 +29,8 @@ from repro_torch.kernels import _build as B
 NEG_INF = -1e30
 DEFAULT_BLOCK_KV = 512   # the reference's KV block (non-causal contract)
 _DTYPES = {torch.float32: B.DTYPE_F32, torch.bfloat16: B.DTYPE_BF16}
-_HEAD_DIMS = (16, 32, 64, 128)     # csrc instances
+_ROWS = 64            # query rows of the flattened T*grp axis per tile block
+_GRID_YZ = 65535      # the grid's y (batch) and z (row tiles) limit
 
 
 def _check_contract(q, k, v, causal: bool) -> None:
@@ -72,6 +78,30 @@ _C, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C]
 
 
+@functools.lru_cache(maxsize=None)
+def _route(code: int, d: int) -> int:
+    fn = B.load("flash_attention").repro_flash_attention_route
+    fn.argtypes = [_I, _I]
+    fn.restype = _I
+    return fn(code, d)
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """``"tile"`` where B4 runs the tensor-core tile for q/k/v of ``dtype``
+    and head width ``d``, ``"general"`` where one tile stage does not fit
+    in shared memory and the CUDA-core kernel runs.  The rule is
+    ``csrc/flash_attention.cu``'s, asked of the built library; raises for a
+    width neither kernel takes (a row wider than the CUDA-core kernel's
+    shared memory, D > 29056)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash attention: no kernel for {dtype}")
+    code = _route(_DTYPES[dtype], int(d))
+    if code < 0:
+        raise ValueError(f"flash attention: head dim {d} too wide for the "
+                         "kernels' shared memory")
+    return "tile" if code else "general"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """Launch B4 on ``q``'s device (current stream).  Raises on anything the
@@ -88,16 +118,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: q, k, v must be contiguous")
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
-    if hkv > 65535 or b > 65535:
-        raise ValueError(f"{name}: B={b} / Hkv={hkv} exceed the grid")
+    grp = h // hkv
+    if max(b, hkv, -(-t * grp // _ROWS)) > _GRID_YZ:
+        raise ValueError(f"{name}: B={b} / Hkv={hkv} / T*grp={t * grp} "
+                         "exceed the grid")
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
+    flash_route(q.dtype, d)          # raises for a width no kernel takes
     err = B.cfunc("flash_attention", _ARGS)(
         B.vp(q), B.vp(k), B.vp(v), B.vp(out), _DTYPES[q.dtype], b, t, s, hkv,
-        h // hkv, d, float(d ** -0.5), int(causal), B.stream_ptr(q.device))
+        grp, d, float(d ** -0.5), int(causal), B.stream_ptr(q.device))
     B.check(err, "flash_attention")
     flash_attention_cuda.launches += 1
     return out

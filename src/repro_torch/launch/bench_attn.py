@@ -1,4 +1,4 @@
-"""Device times of the port's paged attention kernels on the card.
+"""Device times of the port's attention kernels on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_attn [--reps N]
         [--only REGEX] [--json PATH]
@@ -17,7 +17,12 @@ B8 at path 4's decode lengths, B9 on path 4's 128-token chunk after a
 128-token prefix and on the ragged 32-token chunks of ``chip_smoke.py``
 (int8 pools with an f32 suffix); beside B8/B9's path 4 cases, the library
 yardstick ``scaled_dot_product_attention`` on the same dense rows (key
-``[ckv ‖ kpe]``, value ``ckv``, one KV head, int8 dequantized to f32).  A
+``[ckv ‖ kpe]``, value ``ckv``, one KV head, int8 dequantized to f32).  B4
+(``flash_attention_cuda``) at the cases of ``chip_smoke.py``: path 3's
+calibration shape (granite-moe-1b-a400m: H=16, Hkv=8, D=64, T=24), granite
+at T=64 and 2048 (f32 and bf16), codellama-7b's heads (H=Hkv=32, D=128) at
+T=2048, causal, and granite's heads non-causal at T=1024, each with SDPA
+(``enable_gqa``, same type) beside it (``--only B4`` for those alone).  A
 case's time is a CUDA graph of 24 calls cycling through pool copies that
 together exceed L2, replayed, CUDA-event time per call (device time).  Each
 case is timed ``--reps`` times, the passes interleaved over the cases;
@@ -240,6 +245,40 @@ def mla_cases(dev, gen, keep):
     return out
 
 
+def b4_cases():
+    """(label, b, t, h, hkv, d, causal, type)"""
+    return [("path3 T=24 f32", 1, 24, 16, 8, 64, True, "f32"),
+            ("granite T=64 f32", 1, 64, 16, 8, 64, True, "f32"),
+            ("granite T=2048 f32", 1, 2048, 16, 8, 64, True, "f32"),
+            ("granite T=2048 bf16", 1, 2048, 16, 8, 64, True, "bf16"),
+            ("codellama T=2048 f32", 1, 2048, 32, 32, 128, True, "f32"),
+            ("non-causal T=1024 f32", 1, 1024, 16, 8, 64, False, "f32")]
+
+
+def flash_cases(dev, gen, keep):
+    """B4 cases, SDPA beside each (on [B, heads, T, D] copies)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for label, b, t, h, hkv, d, causal, kind in b4_cases():
+        dt = KINDS[kind]
+        q = torch.randn(b, t, h, d, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        if keep(f"B4 {label}"):
+            out.append(("B4", label, [
+                lambda c=c, cz=causal: FA.flash_attention_cuda(*c, causal=cz)
+                for c in _copies((q, k, v))]))
+        if keep(f"SDPA B4 {label}"):
+            dense = tuple(a.transpose(1, 2).contiguous() for a in (q, k, v))
+            out.append(("SDPA", f"B4 {label}", [
+                lambda c=c, cz=causal: sdpa(*c, is_causal=cz,
+                                            enable_gqa=True)
+                for c in _copies(dense)]))
+    return out
+
+
 def cases(dev, keep):
     """(name, case, [calls]) for every case whose label ``keep`` accepts."""
     from repro_torch.kernels import paged_attention as PA
@@ -279,7 +318,7 @@ def cases(dev, keep):
             x=extra, s=dh ** -0.5:
             fn(q, ks, vs, c[0], c[1], tb, pl, cl, *c[2:2 + x], sm_scale=s)
             for c in _copies(pools)]))
-    return out + mla_cases(dev, gen, keep)
+    return out + mla_cases(dev, gen, keep) + flash_cases(dev, gen, keep)
 
 
 def main(argv=None):

@@ -22,6 +22,9 @@ tiles), and B8 (split-KV) and B9 on the tensor-core tile of
 shape class that takes another of their code paths (B8/B9: r > 512 takes
 the CUDA-core kernel, by shape), for bitwise repeatability, and in a CUDA
 graph replayed after the lengths, table and prefix lengths change in place.
+B4, on K3's tile (``csrc/attn_tile.cuh``), likewise: head widths 8 to 256
+and the widths past one ring stage that take its CUDA-core kernel (the
+route at each), causal S > T, non-causal S > T, ragged T*grp, grp 1 to 8.
 """
 import dataclasses
 
@@ -700,6 +703,95 @@ def test_flash_kernel_matches_plain(dev, dt, b, t, h, hkv, d, causal):
     tol = 1e-5 if dt == torch.float32 else 1e-2
     assert _rel_err(out, FA.flash_attention_plain(q, k, v, causal=causal)) \
         <= tol
+
+
+def _flash_case(dev, dt, shape, seed):
+    b, t, s, h, hkv, d, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, n, hh, d, generator=gen, device=dev).to(dt)
+            for n, hh in ((t, h), (s, hkv), (s, hkv))]
+
+
+def _flash_check(q, k, v, causal):
+    before = FA.flash_attention_cuda.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+    assert _rel_err(out, FA.flash_attention_plain(q, k, v, causal=causal)) \
+        <= tol
+    return out
+
+
+# (B, T, S, H, Hkv, D, causal): head widths 8 / 80 / 256 (padded to 16;
+# 256 in two value slices), causal S > T, non-causal T = 128 against S =
+# 1024, T*grp not a multiple of 64 (grp 3, 111 rows), grp 1 / 2 / 4 / 8
+FLASH_TC_SHAPES = {
+    "D=8": (2, 70, 70, 8, 2, 8, True),
+    "D=80": (1, 100, 100, 8, 4, 80, True),
+    "D=256": (1, 150, 150, 4, 2, 256, True),
+    "S>T": (2, 45, 100, 6, 2, 64, True),
+    "non-causal": (1, 128, 1024, 16, 8, 64, False),
+    "ragged": (1, 37, 37, 24, 8, 48, True),
+    "grp=1": (1, 200, 200, 8, 8, 64, True),
+    "grp=2": (1, 200, 200, 16, 8, 64, True),
+    "grp=4": (2, 99, 99, 16, 4, 32, True),
+    "grp=8": (1, 77, 77, 64, 8, 128, True),
+}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(FLASH_TC_SHAPES))
+def test_flash_tc_shapes_match_plain(dev, shape, dt):
+    sh = FLASH_TC_SHAPES[shape]
+    assert FA.flash_route(dt, sh[5]) == "tile"
+    _flash_check(*_flash_case(dev, dt, sh, sum(sh[:6])), causal=sh[6])
+
+
+def test_flash_routes_by_shape(dev):
+    """Every width up to one ring stage's fit takes the tensor-core tile
+    (f32 D <= 384, bf16 D <= 832, exactly a block's shared memory at the
+    edge); wider rows the CUDA-core kernel; rows past its shared memory
+    are refused."""
+    for dt, edge in ((torch.float32, 384), (torch.bfloat16, 832)):
+        for d in (8, 16, 48, 64, 80, 128, 256, edge):
+            assert FA.flash_route(dt, d) == "tile"
+        assert FA.flash_route(dt, edge + 16) == "general"
+        with pytest.raises(ValueError, match="too wide"):
+            FA.flash_route(dt, 30000)
+
+
+@pytest.mark.parametrize("dt,d,causal,s", [
+    (torch.float32, 512, True, 20), (torch.float32, 400, True, 50),
+    (torch.bfloat16, 1024, False, 20), (torch.bfloat16, 850, True, 20)])
+def test_flash_general_route_matches_plain(dev, dt, d, causal, s):
+    sh = (2, 20, s, 4, 2, d, causal)
+    assert FA.flash_route(dt, d) == "general"
+    _flash_check(*_flash_case(dev, dt, sh, d), causal=causal)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_bitwise_repeatable(dev, dt):
+    """Two calls give the same bits (no atomics, a fixed order)."""
+    q, k, v = _flash_case(dev, dt, FLASH_TC_SHAPES["grp=2"], 3)
+    a, b = (ops.flash_attention(q, k, v) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_replay_after_in_place_updates(dev, dt):
+    """B4 in a CUDA graph: q, k, v overwritten in place, the replay equals
+    the eager call on the new values, bit for bit."""
+    q, k, v = _flash_case(dev, dt, FLASH_TC_SHAPES["S>T"], 4)
+    graph, out = _captured(lambda: ops.flash_attention(q, k, v))
+    for a, new in zip((q, k, v),
+                      _flash_case(dev, dt, FLASH_TC_SHAPES["S>T"], 5)):
+        a.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _flash_check(q, k, v, causal=True))
 
 
 # (heads, r, dr, page size): full width, smoke width
