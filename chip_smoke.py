@@ -27,16 +27,26 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    f32 and bf16 X alike, K3's, B4's and B8/B9's their multiply-adds
    likewise (the f32 CUDA-core rate's bound beside it), B5/B7's at the int8
    rate (1,979 TOP/s) and, with ``rows``, only the live experts' bytes;
-   K2/K3 also at the paths' own shapes; then the phase's peak memory;
+   K2/K3 also at the paths' own shapes, K3 also behind a 1920-token prefix
+   with peaked scores (fp and int8 pools: P V sums past 2048 keys); then
+   the phase's peak memory;
 3. paths — full width with random seeded weights, 8 requests (prompts of
    32-200 tokens, 16 new tokens, batch 4, greedy), every launch counter set
    to 0 just before and read just after each path; during each path the
-   operands of every kernel's first launch at each distinct shape are kept,
-   and after it each kernel is held against its plain version on them:
+   operands of every kernel's first launch at each distinct shape are kept
+   (the decode step's from an eager rerun of the path's first decode step,
+   its launches not counted), and after it each kernel is held against its
+   plain version on them.  Every engine decodes through one CUDA graph:
+   after each counted run the replays must equal the decode steps, and in
+   the decode profile one replay's logits and pool writes are held bitwise
+   against an eager step on a copy of the pools:
    path 1 — codellama-7b, SmoothQuant+ quantize-on-load in f32 (G=128)
    through the serve entry, fp pools, A16; one prefill and one decode step
    checked against the same step on the dequantized weights with the
-   dense-gather oracle;
+   dense-gather oracle; path 1b — path 1's params, the same requests, page
+   size 4 and 72 pages: at least two preemptions, every one resumed by
+   swap-in, the bytes swapped out equal to those swapped in, the outputs
+   token-identical to path 1's, launch counts as path 1's prediction;
    path 2 — codellama-7b, seeded hot channels injected into the embedding,
    quantize-on-load with the W4A8 eligibility pass, then the engine with
    int8 KV pools and ``act_quant="a8_prefill"`` (``max_prefill_tokens=128``);
@@ -107,6 +117,7 @@ from repro_torch.kernels import w4a16_grouped as W4G  # noqa: E402
 from repro_torch.kernels import w4a16_matmul as W4  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models import mlp as MLP  # noqa: E402
+from repro_torch.serving.decode_graph import DecodeGraph  # noqa: E402
 
 HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,   # CUDA-core f32 (the kernels' route)
@@ -532,7 +543,11 @@ K3_CASES = [("table", 4, t, 32, 1, 128, prefix, [t, t - 7, t // 2, 1], kind,
      torch.float32),
     ("path 2", 1, 128, 32, 1, 128, [128], [128], torch.int8, torch.float32),
     ("path 3", 2, 256, 8, 2, 64, [0, 0], [256, 200], torch.float32,
-     torch.float32)]
+     torch.float32)] + [
+    # a long prefix with peaked scores (q scaled by 4): P V sums past 2048
+    # keys, where one accumulator drifted past the tolerance
+    ("peaked", 1, 128, 32, 1, 128, [1920], [128], kind, torch.float32)
+    for kind in (torch.float32, torch.int8)]
 
 
 def check_k3():
@@ -553,6 +568,8 @@ def check_k3():
         pl = torch.tensor(prefix, dtype=torch.int32, device=DEV)
         cl = torch.tensor(chunk, dtype=torch.int32, device=DEV)
         q = torch.randn(b, t, hkv, grp, dh, generator=gen, device=DEV)
+        if tag == "peaked":
+            q *= 4
         ks = torch.randn(b, t, hkv, dh, generator=gen, device=DEV).to(sdt)
         vs = torch.randn(b, t, hkv, dh, generator=gen, device=DEV).to(sdt)
         sc = dh ** -0.5
@@ -977,8 +994,9 @@ class _Capture:
     A wrapper bumps its counter through its module-level name, so
     ``launches`` reads and writes the wrapper's own."""
 
-    def __init__(self, fn, seen):
-        self.fn, self.seen, self.__name__ = fn, seen, fn.__name__
+    def __init__(self, fn, seen, keep):
+        self.fn, self.seen, self.keep = fn, seen, keep
+        self.__name__ = fn.__name__
 
     @property
     def launches(self):
@@ -991,10 +1009,22 @@ class _Capture:
     def __call__(self, *args, **kw):
         key = (tuple(map(_sig, args)),
                tuple(sorted((k, _sig(v)) for k, v in kw.items())))
-        if key not in self.seen:
+        if self.keep[0] and key not in self.seen:
             self.seen[key] = (tuple(a.clone() if isinstance(a, torch.Tensor)
                                     else a for a in args), kw)
         return self.fn(*args, **kw)
+
+
+def _eager_step(graph):
+    """The decode graph's step once more, eagerly, on the inputs of the
+    replay just issued (still in the graph's static tensors): it writes the
+    pools the rows the replay wrote, bit for bit (:func:`graph_vs_eager`),
+    and its launches are taken back from the counters."""
+    before = K.launch_counts()
+    with torch.no_grad():
+        graph.step(graph.token, graph.position, graph.table)
+    after = K.launch_counts()
+    K.add_launch_counts({n: before[n] - after[n] for n in after})
 
 
 @contextlib.contextmanager
@@ -1004,16 +1034,36 @@ def path_operands():
     activation buffers change afterwards), int4 weights as they are (fixed
     once quantized).  The wrappers are replaced at their module attribute,
     which ``kernels.ops`` reads at every call; the launch counts stay the
-    wrappers' own."""
+    wrappers' own.  A decode graph's warm-up and capture run on trash-page
+    rows (position 0, token 0) and its replays run no Python, so their
+    launches are passed over; after the graph's first replay its step runs
+    once more eagerly (:func:`_eager_step`), and the decode kernels keep
+    the operands of the path's first decode step."""
     seen = {name: {} for name in K.WRAPPERS}
+    keep = [True]
     orig = []
     for name, fn in K.WRAPPERS.items():
         mod = sys.modules[fn.__module__]
-        setattr(mod, fn.__name__, _Capture(fn, seen[name]))
+        setattr(mod, fn.__name__, _Capture(fn, seen[name], keep))
         orig.append((mod, fn))
+    replay = DecodeGraph.__call__
+
+    def first_replay(graph, *inputs):
+        if graph.graph is not None:
+            return replay(graph, *inputs)
+        keep[0] = False
+        try:
+            logits = replay(graph, *inputs)
+        finally:
+            keep[0] = True
+        _eager_step(graph)
+        return logits
+
+    DecodeGraph.__call__ = first_replay
     try:
         yield seen
     finally:
+        DecodeGraph.__call__ = replay
         for mod, fn in orig:
             setattr(mod, fn.__name__, fn)
 
@@ -1158,25 +1208,82 @@ def check_step_against_plain(params, cfg, ps, prompt):
     return errs
 
 
+def check_decode_graph(eng, label):
+    """After a counted run: the engine's decode steps replayed one CUDA
+    graph, once a step."""
+    g = eng.decode_graph
+    require(g is not None and g.graph is not None,
+            f"{label}: the decode step did not run as a CUDA graph")
+    require(g.replays == eng.stats.steps,
+            f"{label}: {g.replays} graph replays for {eng.stats.steps} "
+            "decode steps")
+    per = {k: v for k, v in g.per_replay.items() if v}
+    print(f"  {label}: {eng.stats.steps} decode steps replayed one CUDA "
+          f"graph; launches per replay {per}")
+    return dict(graph_replays=g.replays, graph_launches_per_replay=per)
+
+
+def graph_vs_eager(eng, label):
+    """At one decode step: the graph's logits against an eager
+    ``api.decode_paged_fn`` of the same inputs on a copy of the pools taken
+    before the replay, bit for bit, and the pools the replay wrote against
+    the copy's."""
+    from repro_torch.models import api
+
+    dec = [i for i in eng._active_slots()
+           if eng.pos[i] >= eng.pref_target[i]]
+    require(dec, f"{label}: no decoding slot for the graph check")
+    tok, pos, tbl = eng._decode_inputs(dec)
+    pools = {"layers": [{k: t.clone() for k, t in lp.items()}
+                        for lp in eng.pools["layers"]]}
+    with torch.no_grad():
+        eager = api.decode_paged_fn(
+            eng.params, {"token": eng._tensor(tok),
+                         "position": eng._tensor(pos)},
+            pools, eng._tensor(tbl), eng.cfg)[0]
+    graph = eng.decode_graph(tok, pos, tbl)
+    torch.cuda.synchronize()
+    same = torch.equal(graph, eager)
+    pools_same = all(torch.equal(lp[k], lc[k]) for lp, lc in
+                     zip(eng.pools["layers"], pools["layers"]) for k in lp)
+    print(f"  {label}: graph replay vs an eager step on a copy of the pools "
+          f"({len(dec)} decoding rows): logits bitwise equal {same} (max "
+          f"|diff| {max_err(graph, eager):.3g}), pools bitwise equal "
+          f"{pools_same}")
+    require(same and pools_same, f"{label}: the decode graph differs from "
+            "the eager step")
+    del pools
+    return dict(graph_logits_bitwise_equal=same,
+                graph_pools_bitwise_equal=pools_same)
+
+
 def profile_decode(eng, reqs, key, steps=8):
     """Where a decode step's time goes, after the counted run: the path's
     first four prompts again; engine steps run until all four have finished
-    prefill, then ``steps`` pure decode steps (batch 4) run under
-    torch.profiler."""
+    prefill, the decode graph is held against an eager step
+    (:func:`graph_vs_eager`), then ``steps`` pure decode steps (batch 4,
+    graph replays) run on the host clock alone, and ``steps`` more under
+    torch.profiler (device time, and the host's busiest ops)."""
     from repro_torch.serving.engine import Request
 
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     for r in reqs[:4]:
         eng.submit(Request(uid=100 + r.uid, prompt=r.prompt,
-                           max_tokens=steps + 8))
+                           max_tokens=2 * steps + 8))
     eng.step()
     while any(r is not None and eng.pos[i] < eng.pref_target[i]
               for i, r in enumerate(eng.slots)):
         eng.step()
     require(not eng.queue and all(r is not None for r in eng.slots),
             "profile window did not start decoding all four slots")
+    checked = graph_vs_eager(eng, key)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
     with torch.profiler.profile(activities=act) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1191,13 +1298,26 @@ def profile_decode(eng, reqs, key, steps=8):
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     rows = [dict(name=e.key[:90], calls=e.count,
                  device_s=e.self_device_time_total / 1e6) for e in top]
-    print(f"  profile of {steps} decode steps: {wall * 1e3 / steps:.2f} ms "
-          f"wall per step, {busy * 1e3 / steps:.2f} ms of device kernel time "
-          f"per step (busy share {busy / wall:.3f})")
+    host = sorted((e for e in prof.key_averages()
+                   if getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    host_rows = [dict(name=e.key[:60], calls=e.count,
+                      self_host_s=e.self_cpu_time_total / 1e6) for e in host]
+    print(f"  {steps} decode steps: {wall_plain * 1e3 / steps:.2f} ms wall "
+          f"per step unprofiled; profile of {steps} more: "
+          f"{wall * 1e3 / steps:.2f} ms wall per step, "
+          f"{busy * 1e3 / steps:.2f} ms of device kernel time per step (busy "
+          f"share {busy / wall:.3f}, {busy / wall_plain:.3f} of the "
+          "unprofiled wall)")
     for r in rows:
         print(f"    {r['device_s']:.4f}s {r['calls']:6d}x  {r['name']}")
-    RESULTS[key] = dict(decode_steps=steps, wall_s=wall, device_busy_s=busy,
-                        top=rows)
+    print("    host, self time: " + "; ".join(
+        f"{r['name']} {r['self_host_s'] * 1e3:.2f}ms/{r['calls']}x"
+        for r in host_rows))
+    RESULTS[key] = dict(decode_steps=steps, wall_s=wall,
+                        wall_unprofiled_s=wall_plain, device_busy_s=busy,
+                        top=rows, host_top=host_rows, **checked)
 
 
 def main_path():
@@ -1252,9 +1372,74 @@ def main_path():
         prefilled_tokens=st.prefilled_tokens, serve_s=res["serve_s"],
         decode_tok_s=tok_s, ttft_s=ttft, ptq_s=res["ptq_s"],
         boot_s=res["boot_s"], alpha=res["report"].alpha,
-        peak_mem_bytes=peak, path_operands=operands, **errs)
+        peak_mem_bytes=peak, path_operands=operands, **errs,
+        **check_decode_graph(eng, "path 1"))
+    outputs = [list(r.output) for r in reqs]
     profile_decode(eng, reqs, "profile")
+    path1b(eng.params, cfg, reqs, outputs)
     return counts
+
+
+def path1b(params, cfg, reqs, outputs):
+    """Path 1's quantized params (no second PTQ) served again with the same
+    8 requests from a pool that forces preemption: page size 4 and 72 pages
+    (path 1 holds 65 of 16 tokens).  With 16-token pages a slot grows at
+    most once in 16 new tokens and the admission watermark keeps a page for
+    it, so nothing would preempt; with 4-token pages growth outruns the
+    watermark.  Preempted slots swap out through pinned host buffers and
+    resume by swap-in into the pools the decode graph holds.  The outputs
+    equal path 1's token for token, every preemption resumes, the bytes
+    swapped out come back in, and the launch counts hold path 1's
+    prediction."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    print("path 1b: path 1's params, the same 8 requests, page size 4, 72 "
+          "pages: preemption and swap", flush=True)
+    reqs = [Request(uid=r.uid, prompt=r.prompt, max_tokens=r.max_tokens)
+            for r in reqs]
+    eng = ServingEngine(params, cfg, batch_size=4, max_seq=256, page_size=4,
+                        num_pages=72, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    st = eng.stats
+    nl = cfg.num_layers
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": 7 * nl * (st.steps + st.prefill_batches),
+                 "gqa_paged_decode": nl * st.steps,
+                 "gqa_paged_prefill": nl * st.prefill_batches})
+    same = sum(r.output == o for r, o in zip(reqs, outputs))
+    print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
+          f"prefill batches {st.prefill_batches}; {st.preemptions} "
+          f"preemptions, {st.resumes} resumes, "
+          f"{st.swapped_out_bytes / 1e6:.1f} MB swapped out, "
+          f"{st.swapped_in_bytes / 1e6:.1f} MB back in, {st.grown_pages} "
+          f"pages grown; served in {serve_s:.2f}s; outputs equal to path 1's "
+          f"for {same}/{len(reqs)} requests", flush=True)
+    require(counts == pred, "path 1b: launch counts differ from the "
+            "prediction")
+    require(st.preemptions >= 2, "path 1b: fewer than two preemptions")
+    require(st.resumes == st.preemptions, "path 1b: a preemption did not "
+            "resume")
+    require(st.swapped_out_bytes == st.swapped_in_bytes > 0,
+            "path 1b: swapped bytes out and in differ")
+    require(same == len(reqs), "path 1b: outputs differ from path 1's")
+    eng.pager.check_invariants()
+    require(eng.pager.free_pages == eng.pager.num_pages - 1,
+            "path 1b: pages left allocated")
+    RESULTS["path1b"] = dict(
+        launches=counts, predicted=pred, decode_steps=st.steps,
+        prefill_batches=st.prefill_batches, preemptions=st.preemptions,
+        resumes=st.resumes, swapped_out_bytes=st.swapped_out_bytes,
+        swapped_in_bytes=st.swapped_in_bytes, grown_pages=st.grown_pages,
+        serve_s=serve_s, same_outputs_as_path1=same,
+        **check_decode_graph(eng, "path 1b"))
 
 
 def inject_hot_channels(params, cfg, seed=0, hot_scale=100.0):
@@ -1392,7 +1577,8 @@ def path2():
         decoded_tokens=st.decoded_tokens,
         prefilled_tokens=st.prefilled_tokens, serve_s=serve_s,
         decode_tok_s=tok_s, ttft_s=ttft, ptq_s=ptq_s, alpha=rep.alpha,
-        a8_eligibility=flags, a8_errors=rep.a8_errors, peak_mem_bytes=peak)
+        a8_eligibility=flags, a8_errors=rep.a8_errors, peak_mem_bytes=peak,
+        **check_decode_graph(eng, "path 2"))
     RESULTS["path2"].update(path2_step_checks(eng.params, cfg2, eng.PS,
                                               reqs[0].prompt))
     RESULTS["path2"]["path_operands"] = check_path_operands(seen, "path 2")
@@ -1531,7 +1717,8 @@ def path3():
         prefilled_tokens=st.prefilled_tokens, serve_s=res["serve_s"],
         decode_tok_s=tok_s, ttft_s=ttft, ptq_s=res["ptq_s"],
         boot_s=res["boot_s"], alpha=rep.alpha, a8_eligibility=flags,
-        a8_errors=rep.a8_errors, peak_mem_bytes=peak)
+        a8_errors=rep.a8_errors, peak_mem_bytes=peak,
+        **check_decode_graph(eng, "path 3"))
     RESULTS["path3"].update(path2_step_checks(eng.params, cfg, eng.PS,
                                               reqs[0].prompt))
     RESULTS["path3"]["path_operands"] = check_path_operands(seen, "path 3")
@@ -1575,7 +1762,8 @@ def path3_group256():
     RESULTS["path3_g256"] = dict(
         launches=counts, ptq_s=res["ptq_s"], serve_s=res["serve_s"],
         ttft_s=sorted(res["ttft_s"]),
-        path_operands=check_path_operands(seen, "path 3 at G=256"))
+        path_operands=check_path_operands(seen, "path 3 at G=256"),
+        **check_decode_graph(res["engine"], "path 3 at G=256"))
     del seen, res
     return counts
 
@@ -1639,7 +1827,8 @@ def _path4_engine(params, cfg, reqs, label):
                decoded_tokens=st.decoded_tokens,
                prefilled_tokens=st.prefilled_tokens, serve_s=serve_s,
                decode_tok_s=tok_s, ttft_s=ttft,
-               outputs=[r.output for r in reqs])
+               outputs=[r.output for r in reqs],
+               **check_decode_graph(eng, label))
     res["path_operands"] = check_path_operands(seen, label)
     del seen
     print(f"  {label} (a) {'int8' if quant else 'fp'} latent pools: one "

@@ -54,7 +54,12 @@ constexpr size_t kMaxSmem = 232448;  // dynamic shared memory per block
 constexpr size_t kSmemPerSM = 233472;  // shared memory of one SM
 constexpr size_t kBlockReserve = 1024;  // the runtime's share per block
 constexpr int kBf16QPTerms = 2;      // P's bf16 terms against bf16 Q
-constexpr int kValueGroup = 32;      // kFast: keys per fresh P.V accumulator
+constexpr int kValueGroup = 32;      // exact P.V: keys per fresh accumulator
+// exact P.V: n-tiles summed side by side (3xTF32 / the bf16 terms), so that
+// back-to-back MMAs feed independent accumulators; the bf16 terms' tile
+// keeps fewer, since its int8-pool instances hold more registers
+constexpr int kFreshNB = 4;
+constexpr int kFreshNBBf16 = 2;
 
 // ---------------------------------------------------------------- copies
 // One `piece`-byte copy from s (ok) or of zeros.
@@ -296,15 +301,24 @@ __device__ __forceinline__ void scores(float (&s)[8][4],
 // value tile (rows of type VT, stride ldv elements); p holds the tile's
 // value weights in the score fragments' layout.  Against bf16 values or
 // int8 codes P takes kPTerms bf16 terms: 3 exact ones (split_bf16), or
-// fewer cut by bit mask.
-template <int kNT, typename VT, int kPTerms = 3, bool kFresh = false>
+// fewer cut by bit mask.  The exact products (3xTF32, the 3 bf16 terms)
+// sum each kValueGroup keys in a fresh accumulator, added to o in f32: the
+// tensor cores truncate each MMA's sum into its accumulator, always towards
+// 0, so one accumulator carried over a 2048-key row (768 3xTF32 MMAs)
+// shrinks |o| by about 3e-5 of itself; a group's 12 MMAs leave about 5e-7.
+// With bf16 terms one accumulator crosses the 1e-5 tolerance between 4096
+// and 8192 keys (launch/k3_shares.py).  P's masked terms (bf16 Q, B4) keep
+// one accumulator: their tolerance is bf16's.
+template <int kNT, typename VT, int kPTerms = 3>
 __device__ __forceinline__ void values(float (&o)[kNT][4],
                                        const float (&p)[8][4],
                                        const VT* __restrict__ vt, int ldv,
                                        int g, int tq) {
-  if constexpr (std::is_same<VT, float>::value && kFresh) {
-    // each kValueGroup keys in a fresh accumulator, added to o in f32
+  if constexpr (std::is_same<VT, float>::value) {
+    // each kValueGroup keys in a fresh accumulator, added to o in f32,
+    // kFreshNB n-tiles at a time
     constexpr int kH = kValueGroup / 8;
+    static_assert(kNT % kFreshNB == 0, "n-tiles come in blocks");
 #pragma unroll
     for (int jp = 0; jp < 8 / kH; ++jp) {
       uint32_t ab[kH][4], as[kH][4];
@@ -317,65 +331,77 @@ __device__ __forceinline__ void values(float (&o)[kNT][4],
         split_tf32(pj[3], ab[h][3], as[h][3]);
       }
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        float t[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int nb = 0; nb < kNT; nb += kFreshNB) {
+        float t[kFreshNB][4] = {};
 #pragma unroll
         for (int h = 0; h < kH; ++h) {
           const float* v0 =
-              vt + (8 * (kH * jp + h) + 2 * tq) * ldv + g + 8 * n;
-          uint32_t bb0, bs0, bb1, bs1;
-          split_tf32(v0[0], bb0, bs0);
-          split_tf32(v0[ldv], bb1, bs1);
-          mma_tf32(t, as[h], bb0, bb1);
-          mma_tf32(t, ab[h], bs0, bs1);
-          mma_tf32(t, ab[h], bb0, bb1);
+              vt + (8 * (kH * jp + h) + 2 * tq) * ldv + g + 8 * nb;
+          uint32_t bb0[kFreshNB], bs0[kFreshNB], bb1[kFreshNB],
+              bs1[kFreshNB];
+#pragma unroll
+          for (int i = 0; i < kFreshNB; ++i) {
+            split_tf32(v0[8 * i], bb0[i], bs0[i]);
+            split_tf32(v0[ldv + 8 * i], bb1[i], bs1[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < kFreshNB; ++i)
+            mma_tf32(t[i], as[h], bb0[i], bb1[i]);
+#pragma unroll
+          for (int i = 0; i < kFreshNB; ++i)
+            mma_tf32(t[i], ab[h], bs0[i], bs1[i]);
+#pragma unroll
+          for (int i = 0; i < kFreshNB; ++i)
+            mma_tf32(t[i], ab[h], bb0[i], bb1[i]);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] += t[e];
-      }
-    }
-  } else if constexpr (std::is_same<VT, float>::value) {
-    // MMA k tq <-> key 8j + 2tq, k tq + 4 <-> key 8j + 2tq + 1
+        for (int i = 0; i < kFreshNB; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t ab[4], as[4];
-      split_tf32(p[j][0], ab[0], as[0]);
-      split_tf32(p[j][2], ab[1], as[1]);
-      split_tf32(p[j][1], ab[2], as[2]);
-      split_tf32(p[j][3], ab[3], as[3]);
-      const float* v0 = vt + (8 * j + 2 * tq) * ldv + g;
-      const float* v1 = v0 + ldv;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        uint32_t bb0, bs0, bb1, bs1;
-        split_tf32(v0[8 * n], bb0, bs0);
-        split_tf32(v1[8 * n], bb1, bs1);
-        mma_tf32(o[n], as, bb0, bb1);
-        mma_tf32(o[n], ab, bs0, bs1);
-        mma_tf32(o[n], ab, bb0, bb1);
+          for (int e = 0; e < 4; ++e) o[nb + i][e] += t[i][e];
       }
     }
   } else if constexpr (kPTerms == 3) {
+    constexpr int kH = kValueGroup / 16;
+    static_assert(kNT % kFreshNBBf16 == 0, "n-tiles come in blocks");
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[3][4];
-      split_bf16(p[2 * kk][0], p[2 * kk][1], a[0][0], a[1][0], a[2][0]);
-      split_bf16(p[2 * kk][2], p[2 * kk][3], a[0][1], a[1][1], a[2][1]);
-      split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], a[0][2], a[1][2],
-                 a[2][2]);
-      split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], a[0][3], a[1][3],
-                 a[2][3]);
-      const VT* r0 = vt + (16 * kk + 2 * tq) * ldv + g;
-      const VT* r1 = r0 + ldv;
-      const VT* r8 = r0 + 8 * ldv;
-      const VT* r9 = r8 + ldv;
+    for (int kp = 0; kp < 4 / kH; ++kp) {
+      uint32_t a[kH][3][4];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const uint32_t b0 = pair(r0 + 8 * n, r1 + 8 * n);
-        const uint32_t b1 = pair(r8 + 8 * n, r9 + 8 * n);
-        mma_bf16(o[n], a[2], b0, b1);
-        mma_bf16(o[n], a[1], b0, b1);
-        mma_bf16(o[n], a[0], b0, b1);
+      for (int h = 0; h < kH; ++h) {
+        const int kk = kH * kp + h;
+        split_bf16(p[2 * kk][0], p[2 * kk][1], a[h][0][0], a[h][1][0],
+                   a[h][2][0]);
+        split_bf16(p[2 * kk][2], p[2 * kk][3], a[h][0][1], a[h][1][1],
+                   a[h][2][1]);
+        split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], a[h][0][2],
+                   a[h][1][2], a[h][2][2]);
+        split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], a[h][0][3],
+                   a[h][1][3], a[h][2][3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < kNT; nb += kFreshNBBf16) {
+        float t[kFreshNBBf16][4] = {};
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+          const VT* r0 =
+              vt + (16 * (kH * kp + h) + 2 * tq) * ldv + g + 8 * nb;
+          const VT* r8 = r0 + 8 * ldv;
+          uint32_t b0[kFreshNBBf16], b1[kFreshNBBf16];
+#pragma unroll
+          for (int i = 0; i < kFreshNBBf16; ++i) {
+            b0[i] = pair(r0 + 8 * i, r0 + ldv + 8 * i);
+            b1[i] = pair(r8 + 8 * i, r8 + ldv + 8 * i);
+          }
+#pragma unroll
+          for (int x = 2; x >= 0; --x)
+#pragma unroll
+            for (int i = 0; i < kFreshNBBf16; ++i)
+              mma_bf16(t[i], a[h][x], b0[i], b1[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kFreshNBBf16; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nb + i][e] += t[i][e];
       }
     }
   } else {
@@ -431,12 +457,8 @@ struct Geo {
 // scales (kQuant).  qw: the warp's 16 query rows, f32 or bf16 (QT).
 // kFast (B4): a tile whose every key is valid for this thread's rows skips
 // the masks; the softmax runs in base 2 (scores scaled by scale * log2(e),
-// exponentials by ex2: m holds the base-2 maximum); and the 3xTF32 P.V sums
-// each kValueGroup keys in a fresh accumulator, added to o in f32.  The
-// tensor cores truncate each MMA's sum into its accumulator, always towards
-// 0, so one accumulator carried over a 2048-key row (768 MMAs) shrinks |o|
-// by about 3e-5 of itself; a group's 12 MMAs leave about 5e-7.  K3 keeps
-// expf and one accumulator.
+// exponentials by ex2: m holds the base-2 maximum).  K3 keeps the masks and
+// expf.
 template <typename KT, bool kPre, bool kQuant, int kNT, typename QT,
           bool kFast = false>
 __device__ __forceinline__ void tile_step(
@@ -516,8 +538,8 @@ __device__ __forceinline__ void tile_step(
   for (int n = 0; n < kNT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-  values<kNT, KT, kPTerms, kFast>(o, s, reinterpret_cast<const KT*>(vd),
-                                  G.ldv / (int)sizeof(KT), g, tq);
+  values<kNT, KT, kPTerms>(o, s, reinterpret_cast<const KT*>(vd),
+                           G.ldv / (int)sizeof(KT), g, tq);
 }
 
 }  // namespace attn_tc

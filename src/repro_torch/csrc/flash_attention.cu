@@ -39,9 +39,9 @@
 // bf16: Q stays bf16 in shared memory, so S = Q K^T is one bf16 m16n8k16
 // MMA per k-step (fragments by ldmatrix), and P (f32) meets V in
 // kBf16QPTerms bf16 terms.  The tile's kFast options: tiles wholly below a
-// row's diagonal skip the masks, the softmax runs in base 2 (ex2), and f32
-// P.V sums 32-key groups in fresh accumulators (one accumulator over 2048
-// keys drifts past the 1e-5 tolerance: the MMAs truncate).
+// row's diagonal skip the masks and the softmax runs in base 2 (ex2).  f32
+// P.V sums 32-key groups in fresh accumulators, as in K3 (one accumulator
+// over 2048 keys drifts past the 1e-5 tolerance: the MMAs truncate).
 //
 // The CUDA-core path, for head widths whose tile does not fit one ring
 // stage in shared memory (f32 D > 384, bf16 D > 832, repro_flash_attention

@@ -51,7 +51,10 @@
 // phases, (bf16, bf16) three exact bf16 terms of the f32 operand (Q, or P)
 // in both, and with int8 pools the prefix phase is bf16x3 on the codes (the
 // scales applied to the f32 scores and to P in f32) while the suffix phase
-// follows the suffix's type.
+// follows the suffix's type.  P V sums each 32 keys in a fresh accumulator,
+// added to the output's in f32: the MMAs truncate their sums towards 0, and
+// one accumulator carried over a 2048-token prefix (864 3xTF32 MMAs) drifts
+// past the 1e-5 tolerance, with bf16 terms past 4096 tokens.
 //
 // The CUDA-core path (widths whose tile does not fit in shared memory): one
 // block per (16 query rows, kv head, slot) streams PS-row tiles through

@@ -2,7 +2,9 @@
 PyTorch versions beside them; ``ops.py`` dispatches by device.
 
 Each CUDA wrapper keeps a plain ``launches`` counter that it bumps only where
-it launches its kernel, so a run can show that a path went through them.
+it launches its kernel, so a run can show that a path went through them.  A
+CUDA graph replay runs no Python: its owner adds the launches it captured
+(:func:`add_launch_counts`) at every replay.
 """
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -34,3 +36,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (kernel name → launches, possibly negative) to the
+    wrappers' counters."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n

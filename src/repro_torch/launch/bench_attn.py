@@ -9,7 +9,8 @@ K2 (``gqa_paged_attention_cuda`` and its int8 branch) and K3
 1024/700/333/17, grp 1 and 8, f32/bf16/int8 pools; K3: batch 4, T = 64 and
 256, without and with prefixes 256/130/64/0, its four pool/suffix
 instances) and the paths' own shapes (codellama-7b decode and chunks, f32
-and int8 pools; granite's Hkv=8, grp=2, Dh=64).  B8
+and int8 pools; granite's Hkv=8, grp=2, Dh=64), and a 128-token chunk
+behind a 1920-token prefix (f32 and int8 pools).  B8
 (``mla_paged_attention_cuda`` and its int8 branch) and B9
 (``mla_paged_prefill_cuda`` and its int8 branch) at deepseek-v2-236b's
 width (128 heads, r = 512, dr = 64, PS = 16), f32/bf16/int8 latent pools:
@@ -112,6 +113,9 @@ def k3_cases():
              "f32"),
             ("path3 f32", 2, 256, 8, 2, 64, [0, 0], [256, 200], "f32",
              "f32")]
+    # chip_smoke.py's long prefix: P V summed over 2048 keys
+    out += [(f"prefix1920 {kind}/f32", 1, 128, 32, 1, 128, [1920], [128],
+             kind, "f32") for kind in ("f32", "int8")]
     return out
 
 

@@ -16,7 +16,10 @@ caller may pass ``attn_impl="flash"``, which, as in the JAX CLI, has no
 flag.  Serve
 the Granite MoE on the CPU with ``--arch granite-moe-1b-a400m --smoke
 --device cpu``, DeepSeek-V2 (MLA, shared experts) with ``--arch
-deepseek-v2-236b --smoke --device cpu``.
+deepseek-v2-236b --smoke --device cpu``.  ``--num-pages`` below the default
+``batch·pages + 1`` serves under pool pressure: the engine preempts and
+swaps (the pager line counts both).  On a card the decode step runs as one
+CUDA graph.
 """
 from __future__ import annotations
 
@@ -145,6 +148,9 @@ def main(argv=None, *, attn_impl=None) -> dict:
           f"ttft p50={np.median(ttft) * 1e3:.1f}ms max={max(ttft) * 1e3:.1f}ms")
     print(f"pager: peak concurrency {st.max_active}/{args.batch_size}, "
           f"{st.grown_pages} pages grown lazily, "
+          f"{st.preemptions} preemptions "
+          f"({st.swapped_out_bytes / 1e6:.1f}MB swapped out, "
+          f"{st.swapped_in_bytes / 1e6:.1f}MB back in); "
           f"free={eng.pager.free_pages}/{eng.pager.num_pages - 1}")
     return {"engine": eng, "requests": reqs, "report": rep, "cfg": cfg,
             "boot_s": boot_s, "ptq_s": ptq_s, "serve_s": dt, "ttft_s": ttft,

@@ -15,12 +15,25 @@ fixed-slot continuous batcher over a paged KV cache:
   ``cfg.act_quant="a8_prefill"`` runs prefill-chunk GEMMs of A8-eligible
   layers on per-token int8 activations (decode stays A16);
 - pages grow lazily as a slot's write position crosses a page boundary;
-  finished slots free their pages at once.
+  finished slots free their pages at once.  On pool exhaustion the engine
+  **preempts** the youngest active slot(s): their private pool rows are
+  gathered and copied to pinned host buffers asynchronously (raw codes and
+  scales, bit for bit; the copy is awaited after the step's decode, where
+  the image's CRC-32 is recorded), and the request requeues at the queue
+  head.  It resumes by swap-in (fresh pages, the rows scattered back in
+  place), never by re-prefilling, unless its host image fails its CRC: then
+  it re-prefills prompt + generated tokens once, and a second mismatch
+  fails it.  An admission watermark (one free page per decoding slot) keeps
+  preemption a pressure-relief valve;
+- on a card the decode step runs as one CUDA graph per engine
+  (``serving/decode_graph.py``), captured at the first decode step and
+  replayed after in-place updates of its token, position and table inputs;
+  the CPU runs it eagerly, as do prefill chunks everywhere.
 
-Under the default pool (``batch·pages + 1``) no request can run out of
-pages.  Preemption and swap are not ported yet: a step that would have to
-preempt raises instead of stalling.  The prefix cache, faults, deadlines,
-metrics and trace wait for later slices (ROADMAP.md).
+Still to port (ROADMAP.md): the prefix cache (and with it copy-on-write and
+the pager's evictor), faults and their injection sites, deadlines, cancel
+and backpressure, metrics and the trace, the hybrid SSM and encoder-decoder
+state leaves, and per-bucket prefill graphs.
 
 The engine runs on the GPU by default and raises when there is no card;
 ``device="cpu"`` runs the kernels' plain versions.
@@ -28,9 +41,10 @@ The engine runs on the GPU by default and raises when there is no card;
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +53,7 @@ from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serving import kv_cache as KV
+from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.sampling import sample_per_slot
 from repro_torch.serving.scheduler import Scheduler
 
@@ -62,7 +77,31 @@ class Request:
     done_t: Optional[float] = None
     finish_reason: Optional[str] = None
     error: Optional[str] = None
-    submit_seq: int = -1
+    reprefills: int = 0           # swap-corruption re-prefills (budget: 1)
+    submit_seq: int = -1          # FCFS age; youngest (max) is preempted first
+    # swap-corruption replay: the token that must feed the next decode step
+    # after the re-prefill lands (instead of sampling a duplicate), and how
+    # many output tokens were folded into the prompt by the re-prefill
+    _replay_tok: Optional[int] = None
+    _gen_in_prompt: int = 0
+
+
+@dataclasses.dataclass
+class _SwapState:
+    """Host image of a preempted slot: everything needed to resume it bit
+    for bit without re-prefilling.  Shared pages are not part of the image:
+    they stay resident under a swap hold and resume re-acquires them
+    (``kept``); only private pages round-trip as rows."""
+    rows: Any                     # {"layers": [{leaf: [n, PS, ...]}]} (host)
+    kept: List[Tuple[int, int]]   # (logical_idx, page) left resident
+    private_lis: List[int]        # logical idxs of the swapped rows
+    pos: int                      # next write position
+    last_tok: int                 # token feeding the next decode step
+    nbytes: int                   # swap-buffer bytes (stats)
+    dev_rows: Any = None          # device gather buffer until drained
+    copied: Optional[Any] = None  # CUDA event: the device→host copy is done
+    on_host: bool = False         # drained: device buffer freed, CRC taken
+    checksum: Optional[int] = None  # CRC-32 of the host image (drain time)
 
 
 @dataclasses.dataclass
@@ -71,10 +110,17 @@ class EngineStats:
     prefilled_tokens: int = 0
     steps: int = 0
     completed: int = 0
-    prefill_batches: int = 0
-    grown_pages: int = 0
-    max_active: int = 0
-    rejected: int = 0
+    prefill_batches: int = 0      # joint prefill launches (≤ admitted reqs)
+    preemptions: int = 0          # slots swapped out under pool pressure
+    resumes: int = 0              # swapped slots re-admitted (swap-in)
+    grown_pages: int = 0          # pages added by lazy decode growth
+    swapped_out_bytes: int = 0    # pool bytes copied device -> host
+    swapped_in_bytes: int = 0     # pool bytes copied host -> device
+    idle_steps: int = 0           # drain iterations with nothing decodable
+    max_active: int = 0           # peak concurrent decoding slots
+    active_slot_steps: int = 0    # sum of active slots over steps (/steps)
+    rejected: int = 0             # refused at submit (validation)
+    failed: int = 0               # terminal after a second corrupt swap image
     # per prefill batch: (padded rows of its GEMMs, largest prefix_len)
     chunk_rows: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
@@ -121,8 +167,20 @@ class ServingEngine:
         self.pref_target = np.zeros(batch_size, np.int32)
         self.queue: deque[Request] = deque()
         self.stats = EngineStats()
+        self._swapped: Dict[int, _SwapState] = {}   # submit_seq -> image
         self._next_seq = 0
         self._clock = time.perf_counter
+        self._retry_pending = False     # a corrupt swap image ate the step
+        # the compiled decode step (the reference jits it with the pools
+        # donated): one CUDA graph on a card, eager on the CPU.  The graph
+        # holds the pool tensors, so nothing may rebind self.pools; the step
+        # holds no reference to the engine, so dropping the engine frees
+        # the graph and its memory at once.
+        self._decode_step = functools.partial(decode_step, params,
+                                              self.pools, self.cfg)
+        self.decode_graph = (
+            DecodeGraph(self._decode_step, batch_size, self.P, self.device)
+            if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------- admin ---
     def submit(self, req: Request) -> bool:
@@ -167,10 +225,150 @@ class ServingEngine:
             out = sample_per_slot(logits, self.gen, temps)
         return out.cpu().numpy()
 
+    # ---------------------------------------------------- swap-out / -in ---
+    def _preempt(self, slot: int) -> None:
+        """Swap ``slot`` out and requeue its request at the queue head (it
+        was admitted before anything still queued, so FCFS order holds).
+        Only the slot's private pages round-trip through the host: their
+        rows are gathered and the device→host copy into pinned buffers is
+        started without waiting; :meth:`_drain_swap_buffers` awaits it after
+        the step's decode and frees the device gather buffer.  Shared pages
+        stay in the pool under a swap hold."""
+        req = self.slots[slot]
+        kept, private = self.pager.split_for_swap(slot)
+        rows = dev_rows = copied = None
+        nbytes = 0
+        if private:
+            dev_rows = api.gather_pool_rows(
+                self.pools, self._tensor([p for _, p in private],
+                                         torch.long))
+            rows, copied = self._to_host(dev_rows)
+            nbytes = api.rows_nbytes(rows)
+        self.pager.swap_out(slot, (kept, private))
+        self._swapped[req.submit_seq] = _SwapState(
+            rows=rows, kept=kept, private_lis=[li for li, _ in private],
+            pos=int(self.pos[slot]), last_tok=int(self.last_tok[slot]),
+            nbytes=nbytes, dev_rows=dev_rows, copied=copied)
+        self.queue.appendleft(req)
+        self.slots[slot] = None
+        self.pos[slot] = self.last_tok[slot] = self.pref_target[slot] = 0
+        self.stats.preemptions += 1
+        self.stats.swapped_out_bytes += nbytes
+
+    def _to_host(self, rows):
+        """``rows`` copied to pinned host buffers without blocking, and the
+        event that marks the copy done (on the CPU: ``rows`` themselves, a
+        fresh gather already)."""
+        if self.device.type != "cuda":
+            return rows, None
+        host = {"layers": [
+            {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True) for k, t in lr.items()}
+            for lr in rows["layers"]]}
+        copied = torch.cuda.Event()
+        copied.record()
+        return host, copied
+
+    def _resume(self, slot: int, req: Request) -> None:
+        """Swap a preempted request back in: re-acquire its held pages,
+        allocate fresh private ones and scatter the host rows into them in
+        place, restore the decode cursor."""
+        st = self._swapped.pop(req.submit_seq)
+        fresh = self.pager.swap_in(slot, st.kept, st.private_lis)
+        if st.rows is not None:
+            api.scatter_pool_rows(self.pools, st.rows,
+                                  self._tensor(fresh, torch.long))
+        self.slots[slot] = req
+        self.pos[slot] = st.pos
+        self.last_tok[slot] = st.last_tok
+        # a slot preempted mid-prefill resumes mid-prefill: its chunk cursor
+        # (pos) restores below pref_target and chunking picks it back up
+        self.pref_target[slot] = len(req.prompt)
+        self.stats.resumes += 1
+        self.stats.swapped_in_bytes += st.nbytes
+
+    def _ensure_pages(self) -> None:
+        """Lazy growth: every active slot must own the pages covering its
+        next write position before the step runs.  Oldest slots grow first;
+        on pool exhaustion the youngest active slot is preempted (repeatedly,
+        until the growth fits), possibly the growing slot itself, which then
+        leaves the batch until pages free up."""
+        if self.reservation != "lazy":
+            return                  # worst-case reservation never grows
+        for i in sorted(self._active_slots(),
+                        key=lambda j: self.slots[j].submit_seq):
+            while self.slots[i] is not None:
+                need = int(self.pos[i]) // self.PS + 1
+                if len(self.pager.slot_pages(i)) >= need:
+                    break
+                if self.pager.can_alloc(1):
+                    self.pager.grow(i, 1)
+                    self.stats.grown_pages += 1
+                else:
+                    self._preempt(max(self._active_slots(),
+                                      key=lambda j: self.slots[j].submit_seq))
+
+    def _verify_swap_image(self, req: Request) -> bool:
+        """Check a drained swap image's CRC before its rows reach the pool.
+        On a mismatch the image is dropped (holds released) and the request
+        turns into a re-prefill of its written tokens (prompt + generated),
+        after which decoding resumes from the restored last token; a second
+        mismatch fails it.  Returns False when the request must not resume
+        by swap-in."""
+        st = self._swapped[req.submit_seq]
+        if (st.rows is None or not st.on_host
+                or api.swap_image_checksum(st.rows) == st.checksum):
+            return True
+        self._swapped.pop(req.submit_seq)
+        for _, p in st.kept:
+            self.pager.drop_hold(p)
+        req.reprefills += 1
+        self._retry_pending = True
+        if req.reprefills > 1:      # re-prefill at most once
+            self.queue.remove(req)
+            req.finish_reason = "failed"
+            req.error = "swap image corrupted twice"
+            req.done_t = self._clock()
+            self.stats.failed += 1
+            return False
+        n_gen = st.pos - len(req.prompt)
+        if n_gen > 0:
+            # replay prompt + generated tokens through prefill; the next
+            # decode must feed the already-sampled last token, not sample a
+            # duplicate from the final chunk's logits
+            req._replay_tok = st.last_tok
+            off = req._gen_in_prompt
+            req.prompt = np.concatenate(
+                [req.prompt, np.asarray(req.output[off:off + n_gen],
+                                        np.int32)])
+            req._gen_in_prompt = off + n_gen
+        # req stays at the queue head, now unswapped: plan() admits it as a
+        # fresh prefill (FCFS holds: it was admitted first)
+        return False
+
     def _admit(self) -> None:
         free = [i for i, s in enumerate(self.slots) if s is None]
+        # preempted requests sit at the queue head (FCFS); resume them by
+        # swap-in before planning fresh prefills, and if the head cannot
+        # resume yet, nothing behind it may jump the line
+        while self.queue and self.queue[0].submit_seq in self._swapped:
+            if not free:
+                return
+            if not self._verify_swap_image(self.queue[0]):
+                break           # corrupt: the head re-prefills (or failed)
+            st = self._swapped[self.queue[0].submit_seq]
+            reserve = self.B - len(free)          # watermark: active slots
+            if not self.pager.can_alloc(len(st.private_lis) + reserve):
+                return
+            self._resume(free.pop(0), self.queue.popleft())
         if not free or not self.queue:
             return
+        # the planner must never see a swap-resumable request: a re-prefill
+        # head can leave still-swapped requests behind it, so they sit out
+        # the plan and rejoin in FCFS order after it
+        parked = [r for r in self.queue if r.submit_seq in self._swapped]
+        for r in parked:
+            self.queue.remove(r)
         reserve = (self.B - len(free)) if self.reservation == "lazy" else 0
         for bkt in self.sched.plan(self.queue, free, self.pager, reserve):
             for slot, req in zip(bkt.slots, bkt.reqs):
@@ -178,27 +376,25 @@ class ServingEngine:
                 self.pos[slot] = 0
                 self.pref_target[slot] = len(req.prompt)
                 self.last_tok[slot] = 0
+        if parked:
+            merged = sorted(list(self.queue) + parked,
+                            key=lambda r: r.submit_seq)
+            self.queue.clear()
+            self.queue.extend(merged)
 
-    def _ensure_pages(self) -> None:
-        """Lazy growth: every active slot owns the pages covering its next
-        write position before the step runs, oldest slots first."""
-        if self.reservation != "lazy":
-            return
-        for i in sorted(self._active_slots(),
-                        key=lambda j: self.slots[j].submit_seq):
-            need = int(self.pos[i]) // self.PS + 1
-            short = need - len(self.pager.slot_pages(i))
-            if short <= 0:
+    def _drain_swap_buffers(self) -> None:
+        """Finish the swap-out copies started this step: wait for each, free
+        its device gather buffer (a long-preempted request must not keep its
+        image alive in device memory, which is what swap-out exists to
+        release) and record the host image's CRC-32."""
+        for st in self._swapped.values():
+            if st.rows is None or st.on_host:
                 continue
-            if not self.pager.can_alloc(short):
-                raise RuntimeError(
-                    f"page pool exhausted: slot {i} (uid "
-                    f"{self.slots[i].uid}) needs {short} more page(s) at "
-                    f"position {int(self.pos[i])}, {self.pager.free_pages} "
-                    "free — this needs preemption, which is not ported yet; "
-                    "use the default num_pages (batch·pages + 1)")
-            self.pager.grow(i, short)
-            self.stats.grown_pages += short
+            if st.copied is not None:
+                st.copied.synchronize()
+            st.dev_rows = st.copied = None
+            st.on_host = True
+            st.checksum = api.swap_image_checksum(st.rows)
 
     @torch.no_grad()
     def _prefill_chunks(self) -> int:
@@ -218,11 +414,11 @@ class ServingEngine:
             for r, slot in enumerate(bkt.slots):
                 prompt = self.slots[slot].prompt
                 toks[r, :lens[r]] = prompt[starts[r]:starts[r] + lens[r]]
-            logits, self.pools = api.prefill_chunk_fn(
+            logits = api.prefill_chunk_fn(
                 self.params, {"tokens": self._tensor(toks)}, self.pools,
                 self._tensor(self.pager.table()[bkt.slots]),
                 self._tensor(starts), self._tensor(lens), self.cfg,
-                last_idx=self._tensor(lens - 1))
+                last_idx=self._tensor(lens - 1))[0]
             finals = [self.slots[s] if f else None
                       for s, f in zip(bkt.slots, bkt.final)]
             if any(bkt.final):
@@ -234,20 +430,47 @@ class ServingEngine:
                 worked += 1
                 if bkt.final[r]:
                     req = self.slots[slot]
-                    first = int(firsts[r])
-                    req.output.append(first)
-                    req.first_token_t = now
-                    self.last_tok[slot] = first
+                    if req._replay_tok is not None:
+                        # a re-prefill replayed tokens sampled long ago:
+                        # restore the decode feed, append no duplicate
+                        self.last_tok[slot] = req._replay_tok
+                        req._replay_tok = None
+                    else:
+                        first = int(firsts[r])
+                        req.output.append(first)
+                        req.first_token_t = now
+                        self.last_tok[slot] = first
             self.stats.prefill_batches += 1
             self.stats.chunk_rows.append((n * blen, int(starts.max())))
         return worked
 
     # -------------------------------------------------------------- step ---
+    def _decode_inputs(self, dec: List[int]):
+        """The decode step's host inputs (token [B, 1], position [B], table
+        [B, P]) for decoding slots ``dec``: mid-prefill and empty rows ride
+        the launch like idle slots, their table rows pointing at the trash
+        page, which absorbs the dummy write."""
+        tbl = self.pager.table().copy()
+        pos = self.pos.copy()
+        tok = self.last_tok.copy()
+        idle = np.ones(self.B, bool)
+        idle[dec] = False
+        tbl[idle], pos[idle], tok[idle] = KV.TRASH_PAGE, 0, 0
+        return tok[:, None], pos, tbl
+
     @torch.no_grad()
     def step(self) -> int:
-        """One mixed step: admit, grow tables, advance prefilling slots by
-        one budgeted chunk round, decode one token for every decoding slot.
-        Returns the rows worked (decode slots + chunk rows)."""
+        """One mixed step: admit (swap-ins first), grow tables (preempting
+        under pressure), advance prefilling slots by one budgeted chunk
+        round, decode one token for every decoding slot, then finish the
+        step's swap-out copies.  Returns the rows worked (decode slots +
+        chunk rows)."""
+        self._retry_pending = False
+        worked = self._step_inner()
+        self._drain_swap_buffers()
+        return worked
+
+    def _step_inner(self) -> int:
         self._admit()
         self._ensure_pages()
         chunked = self._prefill_chunks()
@@ -257,24 +480,19 @@ class ServingEngine:
             return chunked
         KV.assert_live_tables(self.pager.table(), self.pos, self.PS,
                               [s is not None for s in self.slots],
-                              refs=self.pager.refs())
-        # mid-prefill and empty rows ride the launch like idle slots: their
-        # table rows point at the trash page, which absorbs the dummy write
+                              refs=self.pager.refs(), held=self.pager.held())
+        tok, pos, tbl = self._decode_inputs(dec)
+        if self.decode_graph is not None:
+            logits = self.decode_graph(tok, pos, tbl)
+        else:
+            logits = self._decode_step(self._tensor(tok), self._tensor(pos),
+                                       self._tensor(tbl))
         dset = set(dec)
-        tbl = self.pager.table().copy()
-        pos = self.pos.copy()
-        tok = self.last_tok.copy()
-        for i in range(self.B):
-            if i not in dset:
-                tbl[i], pos[i], tok[i] = KV.TRASH_PAGE, 0, 0
-        logits, self.pools = api.decode_paged_fn(
-            self.params, {"token": self._tensor(tok[:, None]),
-                          "position": self._tensor(pos)},
-            self.pools, self._tensor(tbl), self.cfg)
         rows = [self.slots[i] if i in dset else None for i in range(self.B)]
         nxt = self._sample(logits, rows)
         self.stats.steps += 1
         self.stats.max_active = max(self.stats.max_active, len(dec))
+        self.stats.active_slot_steps += len(dec)
         now = self._clock()
         for i in dec:
             req = self.slots[i]
@@ -295,8 +513,11 @@ class ServingEngine:
         return len(dec) + chunked
 
     def run_until_drained(self, max_steps: int = 10_000) -> EngineStats:
-        """Step until queue and slots are empty; a step that works nothing
-        while requests wait is a stall and raises."""
+        """Step until queue and slots are empty.  ``max_steps`` bounds every
+        iteration, idle ones included.  An iteration that works nothing
+        while requests wait counts as an idle step; unless a corrupt swap
+        image ate its work (the request then re-prefills), admission is
+        stalled, and it raises."""
         iters = 0
         while self.queue or any(s is not None for s in self.slots):
             if iters >= max_steps:
@@ -306,14 +527,28 @@ class ServingEngine:
                     f"{len(self._active_slots())} active request(s)")
             iters += 1
             if self.step() == 0 and self.queue:
+                self.stats.idle_steps += 1
+                if self._retry_pending:
+                    continue
                 head = self.queue[0]
+                swapped = self._swapped.get(head.submit_seq)
+                need = (len(swapped.private_lis) if swapped is not None
+                        else self.sched.pages_needed(head, self.pager))
                 raise RuntimeError(
                     f"admission stalled: queue head uid={head.uid} (prompt "
-                    f"{len(head.prompt)} tokens, needs "
-                    f"{self.sched.pages_needed(head, self.pager)} pages) with "
-                    f"free_pages={self.pager.free_pages}/"
+                    f"{len(head.prompt)} tokens, "
+                    f"{'swapped out, ' if swapped is not None else ''}needs "
+                    f"{need} pages) with free_pages={self.pager.free_pages}/"
                     f"{self.pager.num_pages - 1} and no active slot")
         return self.stats
+
+
+def decode_step(params, pools, cfg: ModelConfig, tok: torch.Tensor,
+                pos: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One decode step over all B rows: logits [B, V]; the pools are written
+    in place (the step the engine's CUDA graph captures)."""
+    return api.decode_paged_fn(params, {"token": tok, "position": pos}, pools,
+                               table, cfg)[0]
 
 
 def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,
@@ -321,7 +556,8 @@ def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,
     """Quantize-on-load (paper §2.3): fp params in, W4A16 params out, via the
     full SmoothQuant+ recipe (in place); the report carries the per-path
     W4A8 flags (``a8_eligibility``) and the errors that decided them.  The
-    PTQ artifact branch of the reference waits for a later slice."""
+    reference's PTQ artifact branch (a saved quantization reloaded instead
+    of recomputed) is not ported yet (ROADMAP A3)."""
     from repro_torch.core import apply as AP
 
     return AP.smoothquant_plus(params_fp, cfg, calibration_batches, qcfg)

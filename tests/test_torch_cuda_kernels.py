@@ -416,6 +416,20 @@ def test_k3_shapes_match_plain(dev, shape, kind):
     _k3_check(*_k3_case(dev, _KINDS[pool], _KINDS[suf], K3_SHAPES[shape]))
 
 
+@pytest.mark.parametrize("kind", list(K3_KINDS))
+def test_k3_long_prefix_peaked_scores(dev, kind):
+    """A 2048-token prefix and a 128-token chunk with peaked scores (q
+    scaled by 4): K3 sums P V in fresh 32-key accumulators, and holds the
+    1e-5 tolerance where one 3xTF32 accumulator carried over the whole key
+    range drifts past it (``tests/test_torch_paged_tc.py`` models both; one
+    accumulator of bf16 terms drifts past it behind longer prefixes,
+    ``launch/k3_shares.py``)."""
+    pool, suf = K3_KINDS[kind]
+    q, *rest = _k3_case(dev, _KINDS[pool], _KINDS[suf],
+                        (1, 128, 4, 2, 128, 128, 16, [2048], [128]), 5)
+    _k3_check(4 * q, *rest)
+
+
 @pytest.mark.parametrize("kind,dh,offset", [("f32", 128, 1), ("bf16", 64, 1),
                                             ("f32", 33, 0), ("bf16", 33, 0),
                                             ("int8", 64, 4)])

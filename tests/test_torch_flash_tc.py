@@ -319,7 +319,7 @@ def test_fresh_accumulators_bound_the_truncation_drift():
     """A 2048-key causal row with peaked attention (q scaled by 4): P V in
     one truncating accumulator (768 MMAs) shrinks the output by more than
     the 1e-5 tolerance; 32-key groups in fresh accumulators keep it under
-    a tenth of it.  Hence B4's f32 grouping (K3 keeps one accumulator)."""
+    a tenth of it.  Hence the tile's f32 grouping, in B4 and K3."""
     t, d = 2048, 16
     rng = np.random.default_rng(0)
     q = (4 * rng.standard_normal((t, d))).astype(F32)
