@@ -10,21 +10,33 @@ same flag on the path in every layer.  MoE experts quantize as stacked
 ``[E, Ci, Co]`` tensors (one flag per stack); the router is a row
 compensation of smoothing and stays fp.  An MLA layer also gets the int4
 absorbed pair ``mixer/wkv_b_absorbed`` (:func:`_mla_absorbed_quantize`),
-the only form of ``wkv_b`` the serving path reads.  The PTQ artifact waits
-for a later slice.
+the only form of ``wkv_b`` the serving path reads.
+
+Quantize once, serve many: :func:`save_ptq` writes the quantized params and
+the report as an artifact that the reference's ``load_ptq`` reads too (the
+reference's stacked layout, ``checkpoint/manager.py``), and :func:`load_ptq`
+boots from one saved by either package, with no calibration and no α
+search.  :func:`ptq_fingerprint` renders the reference's config ``repr``, so
+both packages stamp and check the same hash.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.checkpoint import manager as CK
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import calibration as C
 from repro_torch.core import search as S
 from repro_torch.core import smoothing as SM
 from repro_torch.core.quantize import QuantizedTensor, quantize
+from repro_torch.device import resolve_device
+from repro_torch.models.convert import from_reference, to_reference
 
 # where quantize_params puts an MLA layer's absorbed int4 pair
 ABSORBED = ("mixer", "wkv_b_absorbed")
@@ -197,3 +209,133 @@ def smoothquant_plus(params, cfg: ModelConfig,
 def rtn_baseline(params, cfg: ModelConfig, qcfg: QuantConfig = QuantConfig()):
     """Paper baseline: plain group-wise RTN, no smoothing (in place)."""
     return quantize_params(params, cfg, qcfg)[0]
+
+
+# ------------------------------------------------------- PTQ artifact I/O ---
+class StalePTQArtifactError(ValueError):
+    """The artifact was produced under a different (model, quant) config."""
+
+
+# The reference's config fields the port does not carry, at their defaults
+# (``ModelConfig.check`` refuses every config where they would differ),
+# each after the field it follows in the reference's field order.
+_REF_MODEL_EXTRA = {
+    "mla": (("hybrid", None), ("ssm_state", 0), ("ssm_head_dim", 64),
+            ("ssm_expand", 2), ("conv_kernel", 4), ("encdec", False),
+            ("enc_layers", 0)),
+    "dtype": (("subquadratic", False),),
+}
+_REF_QUANT_EXTRA = {"alpha": (("backend", "auto"),)}
+
+
+def _ref_repr(obj, extra) -> str:
+    """``repr(obj)`` as the reference's dataclass of the same name prints
+    it: its fields in order, the ``extra`` ones inserted."""
+    parts = []
+    for f in dataclasses.fields(obj):
+        parts.append(f"{f.name}={getattr(obj, f.name)!r}")
+        parts += [f"{k}={v!r}" for k, v in extra.get(f.name, ())]
+    return f"{type(obj).__qualname__}({', '.join(parts)})"
+
+
+def ptq_fingerprint(cfg: ModelConfig, qcfg: QuantConfig) -> str:
+    """The config hash stored in and checked against the artifact: the
+    reference's ``sha256(repr((cfg.with_(act_quant="a16"), qcfg)))``, byte
+    for byte.  ``act_quant`` is normalized out (the artifact serves A16 and
+    A8-prefill engines alike); ``a8_threshold`` changes the stamped flags,
+    so it counts."""
+    text = (f"({_ref_repr(cfg.with_(act_quant='a16'), _REF_MODEL_EXTRA)}, "
+            f"{_ref_repr(qcfg, _REF_QUANT_EXTRA)})")
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def has_ptq(directory) -> bool:
+    return CK.has_ptq_artifact(directory)
+
+
+def ptq_matches(directory, cfg: ModelConfig, qcfg: QuantConfig) -> bool:
+    """True iff an artifact exists and was built for exactly this config,
+    i.e. a boot from it skips calibration and the α search."""
+    if not has_ptq(directory):
+        return False
+    try:
+        meta = json.loads((Path(directory) / "meta.json").read_text())
+    except (ValueError, OSError):
+        return False          # corrupt or unreadable metadata
+    return meta.get("config_hash") == ptq_fingerprint(cfg, qcfg)
+
+
+def _reference_paths(paths) -> List[Tuple[str, ...]]:
+    """The port's per-layer paths ``("layers", i, ...)`` → the reference's
+    stacked ones ``("layers", ...)``, in first-layer order."""
+    out: List[Tuple[str, ...]] = []
+    for p in paths:
+        rp = (p[0],) + tuple(map(str, p[2:]))
+        if rp not in out:
+            out.append(rp)
+    return out
+
+
+def save_ptq(directory, qparams, report: PTQReport, cfg: ModelConfig,
+             qcfg: QuantConfig) -> Path:
+    """Write the quantized params and the report as an artifact in the
+    reference's layout (its stacked quantized paths in the report)."""
+    paths = _reference_paths(report.quantized_paths)
+    meta = {
+        "config_hash": ptq_fingerprint(cfg, qcfg),
+        "model": cfg.name,
+        "report": {
+            "alpha": float(report.alpha),
+            "search_loss": float(report.search_loss),
+            "loss_curve": {str(k): float(v)
+                           for k, v in report.loss_curve.items()},
+            "quantized_paths": [list(p) for p in paths],
+            "fp_bytes": int(report.fp_bytes),
+            "quant_bytes": int(report.quant_bytes),
+            "a8_eligibility": _tree_a8_flags(qparams, cfg) if paths else {},
+            "a8_errors": {k: float(v) for k, v in report.a8_errors.items()},
+        },
+    }
+    return CK.save_ptq_artifact(directory, to_reference(qparams), meta)
+
+
+def load_ptq(directory, cfg: ModelConfig, qcfg: QuantConfig,
+             device="cuda") -> Tuple[Any, PTQReport]:
+    """Boot from an artifact saved by either package onto ``device``: no
+    calibration, no α search.  Raises :class:`StalePTQArtifactError` when
+    its config hash is not ``(cfg, qcfg)``'s."""
+    dev = resolve_device(device)
+    tree, meta = CK.load_ptq_artifact(directory)
+    want = ptq_fingerprint(cfg, qcfg)
+    if meta.get("config_hash") != want:
+        raise StalePTQArtifactError(
+            f"PTQ artifact at {directory} was built for config hash "
+            f"{meta.get('config_hash')!r}, engine wants {want!r} "
+            f"(model/quant config changed: re-quantize)")
+    r = meta["report"]
+    flags = {k: bool(v) for k, v in r.get("a8_eligibility", {}).items()}
+    paths = [tuple(p) for p in r["quantized_paths"]]
+    # re-stamp the a8 flags (the npz holds arrays only; the manager builds
+    # quantized weights with the permissive default a8=True)
+    for p in paths:
+        flag = flags.get("/".join(p))
+        if flag is None:
+            continue
+        node = SM.tget(tree, p[:-1])
+        if isinstance(node[p[-1]], dict):
+            node[p[-1]] = {k: dataclasses.replace(v, a8=flag)
+                           for k, v in node[p[-1]].items()}
+        else:
+            node[p[-1]] = dataclasses.replace(node[p[-1]], a8=flag)
+    params = from_reference(tree, dev)
+    report = PTQReport(
+        alpha=r["alpha"], search_loss=r["search_loss"],
+        loss_curve={float(k): v for k, v in r["loss_curve"].items()},
+        quantized_paths=[(p[0], i) + p[1:]
+                         for i in range(len(params["layers"]))
+                         for p in paths],
+        fp_bytes=r["fp_bytes"], quant_bytes=r["quant_bytes"],
+        a8_eligibility=flags,
+        a8_errors={k: float(v) for k, v in r.get("a8_errors", {}).items()},
+    )
+    return params, report

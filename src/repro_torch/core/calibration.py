@@ -6,15 +6,20 @@ weight tensors are registered (by ``id``) with a context collector, and
 :func:`repro_torch.models.layers.apply_linear` reports its input when it sees
 a registered weight.  Stats keys are the reference's:
 ``(("layers",), (layer_idx,), weight_subpath)``.  Beside the channel max
-|X| the collector keeps, per key, the worst per-token int8 round-trip error
-of the input (:func:`repro_torch.core.quantize.a8_roundtrip_error`), the
-W4A8 eligibility statistic.  The MLA linears (``wq_a``, ``wq_b``,
+|X| the collector keeps, per key, the channel sums of |X| and their row
+count (:meth:`StatsCollector.mean_stats`, AWQ's importance) and the worst
+per-token int8 round-trip error of the input
+(:func:`repro_torch.core.quantize.a8_roundtrip_error`), the W4A8
+eligibility statistic.  The MLA linears (``wq_a``, ``wq_b``,
 ``wkv_a``, ``wkv_b`` in the expanded form, ``wo``) and the shared expert
 are linears like any other and are tapped by ``apply_linear``.  MoE expert
 inputs never pass through
 ``apply_linear`` (they are grouped products over stacked weights), so
 ``models/mlp.py:apply_moe`` taps the collector explicitly
-(:meth:`StatsCollector.record_explicit`) under the block's ``moe_key``.
+(:meth:`StatsCollector.record_explicit`) under the block's ``moe_key``;
+as in the reference those taps record the max only, no sums.
+``collect_stats.batches`` counts the batches every call has read, so a
+caller can tell a boot that calibrated from one that did not.
 """
 from __future__ import annotations
 
@@ -39,6 +44,9 @@ _COLLECTOR: contextvars.ContextVar = contextvars.ContextVar(
 class StatsCollector:
     ids: Dict[int, StatKey] = dataclasses.field(default_factory=dict)
     stats: Dict[StatKey, np.ndarray] = dataclasses.field(default_factory=dict)
+    # channel sums of |x| and their row count (AWQ's mean importance)
+    sums: Dict[StatKey, np.ndarray] = dataclasses.field(default_factory=dict)
+    counts: Dict[StatKey, int] = dataclasses.field(default_factory=dict)
     # worst per-token int8 round-trip error, max over batches; meaningful on
     # the post-smoothing pass of ``apply.smoothquant_plus``
     a8_err: Dict[StatKey, float] = dataclasses.field(default_factory=dict)
@@ -59,11 +67,19 @@ class StatsCollector:
         if key is None:
             return
         dims = tuple(range(x.ndim - 1))
-        amax = x.to(torch.float32).abs().amax(dim=dims).cpu().numpy()
+        absx = x.to(torch.float32).abs()
+        amax = absx.amax(dim=dims).cpu().numpy()
         prev = self.stats.get(key)
         self.stats[key] = amax if prev is None else np.maximum(prev, amax)
+        self.sums[key] = self.sums.get(key, 0.0) + absx.sum(dim=dims).cpu(
+        ).numpy()
+        self.counts[key] = self.counts.get(key, 0) + x.numel() // x.shape[-1]
         err = float(a8_roundtrip_error(x))
         self.a8_err[key] = max(self.a8_err.get(key, 0.0), err)
+
+    def mean_stats(self, key: StatKey) -> np.ndarray:
+        """Mean |x| per input channel over every recorded row."""
+        return self.sums[key] / max(self.counts.get(key, 1), 1)
 
     def record_explicit(self, subpath: Tuple[str, ...], amax: torch.Tensor,
                         a8_err: Optional[torch.Tensor] = None) -> None:
@@ -101,7 +117,11 @@ def collect_stats(params, cfg: ModelConfig,
     with collecting(col):
         for batch in batches:
             _lm_pass(col, params, cfg, batch)
+            collect_stats.batches += 1
     return col
+
+
+collect_stats.batches = 0
 
 
 def _lm_pass(col: StatsCollector, params, cfg: ModelConfig, batch) -> None:

@@ -197,3 +197,13 @@ def a8_roundtrip_error(x: torch.Tensor) -> torch.Tensor:
     num = torch.sqrt((err * err).mean(dim=-1))
     den = torch.sqrt((xf * xf).mean(dim=-1))
     return (num / torch.clamp_min(den, 1e-8)).max()
+
+
+def quantization_loss(w: torch.Tensor, x_stat: torch.Tensor,
+                      group_size: int = DEFAULT_GROUP_SIZE) -> torch.Tensor:
+    """Activation-weighted quantization loss ``||diag(x)·(W − Ŵ)||²`` (paper
+    eq. 4), a scalar: ``x_stat[..., Ci]`` is a per-input-channel activation
+    magnitude (channel max, or AWQ's mean), so the loss costs O(params),
+    not O(calibration tokens × params)."""
+    err = (w - fake_quantize(w, group_size)).to(torch.float32)
+    return ((err * x_stat.to(torch.float32)[..., :, None]) ** 2).sum()

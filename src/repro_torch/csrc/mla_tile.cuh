@@ -56,8 +56,11 @@
 // accumulators) and the P columns (p * cs), never the softmax sum.  For
 // 3xTF32 P V the MMA's k order over 8 keys is permuted (k tq <-> key 2 tq,
 // tq + 4 <-> 2 tq + 1) so the score accumulators are the A operand as they
-// stand.  Key n-tiles past a tile's live keys (a split's or prefix's last
-// tile, the causal diagonal) skip their MMAs: their P is exactly 0.
+// stand.  P V, like the score, is summed in fresh accumulators: each
+// tile's 32 keys in their own, added to o in f32, so no accumulator
+// carries a long key range.  Key n-tiles past a tile's live keys (a
+// split's or prefix's last tile, the causal diagonal) skip their MMAs:
+// their P is exactly 0.
 #pragma once
 
 #include <algorithm>
@@ -80,6 +83,11 @@ constexpr size_t kMaxSmem = 232448;   // dynamic shared memory per block
 // kChunk-dimension slice is summed in a fresh accumulator and added to the
 // score in f32 (rounded).  Depths are padded to whole slices.
 constexpr int kChunk = 32;
+// value n-tiles whose P V a fresh accumulator takes at a time (values()):
+// one 64-column chunk, so back-to-back MMAs feed 8 independent accumulators
+// and P is read from the exchange once a chunk (4 n-tiles a block cost B9
+// 5-8 % more; 255 registers, no spill)
+constexpr int kFreshNB = 8;
 // exchange P row stride, floats: 2 of padding halve the bank conflicts
 // of its 8-byte stores and keep two bf16 stages within 227 KB
 constexpr int kPld = kKeys + 2;
@@ -423,74 +431,81 @@ __device__ __forceinline__ void scores(float (&s)[kN][4],
 // the staged value rows (type VT, stride ldv elements, starting at the
 // warp's first column).  P's rows g and g + 8 are read from the exchange
 // (xp: row g, rows kPld apart), its first ntl n-tiles of keys live.  The
-// key steps run as a loop, not unrolled: the unrolled body, every value
-// n-tile of the warp, is long enough.
+// tensor cores truncate each MMA's sum into its accumulator, always
+// towards 0, so o carried over a long key range in one accumulator drifts
+// with its length (B9 behind 4096 / 8192 f32 prefix tokens read 1.06 /
+// 1.63 of the 1e-5 tolerance against float64, launch/mla_shares.py): each
+// tile's 32 keys are summed in a fresh accumulator, kFreshNB value n-tiles
+// at a time, and added to o in f32.  The key steps run as a loop, not
+// unrolled (unrolled at 4 n-tiles a block, B9 ran 4-6 % slower).
 template <typename VT>
 __device__ __forceinline__ void values(float (&o)[kNT][4],
                                        const float* __restrict__ xp,
                                        const VT* __restrict__ vt, int ldv,
                                        int nch, int ntl, int g, int tq) {
-  if constexpr (std::is_same<VT, float>::value) {
-    // MMA k tq <-> key 8j + 2tq, k tq + 4 <-> key 8j + 2tq + 1
+#pragma unroll
+  for (int nb = 0; nb < kNT; nb += kFreshNB) {
+    if (nb >= 8 * nch) continue;
+    float t[kFreshNB][4] = {};
+    if constexpr (std::is_same<VT, float>::value) {
+      // MMA k tq <-> key 8j + 2tq, k tq + 4 <-> key 8j + 2tq + 1
 #pragma unroll 1
-    for (int j = 0; j < ntl; ++j) {
-      const float2 a0 = *reinterpret_cast<const float2*>(xp + 8 * j + 2 * tq);
-      const float2 a1 =
-          *reinterpret_cast<const float2*>(xp + 8 * kPld + 8 * j + 2 * tq);
-      uint32_t ab[4], as[4];
-      split_tf32(a0.x, ab[0], as[0]);
-      split_tf32(a1.x, ab[1], as[1]);
-      split_tf32(a0.y, ab[2], as[2]);
-      split_tf32(a1.y, ab[3], as[3]);
-      const float* v0 = vt + (8 * j + 2 * tq) * ldv + g;
-      const float* v1 = v0 + ldv;
+      for (int j = 0; j < ntl; ++j) {
+        const float2 a0 =
+            *reinterpret_cast<const float2*>(xp + 8 * j + 2 * tq);
+        const float2 a1 =
+            *reinterpret_cast<const float2*>(xp + 8 * kPld + 8 * j + 2 * tq);
+        uint32_t ab[4], as[4];
+        split_tf32(a0.x, ab[0], as[0]);
+        split_tf32(a1.x, ab[1], as[1]);
+        split_tf32(a0.y, ab[2], as[2]);
+        split_tf32(a1.y, ab[3], as[3]);
+        const float* v0 = vt + (8 * j + 2 * tq) * ldv + g + 8 * nb;
+        uint32_t bb0[kFreshNB], bs0[kFreshNB], bb1[kFreshNB], bs1[kFreshNB];
 #pragma unroll
-      for (int c = 0; c < kNT / 8; ++c) {
-        if (c >= nch) continue;
-#pragma unroll
-        for (int jn = 0; jn < 8; ++jn) {
-          const int n = 8 * c + jn;
-          uint32_t bb0, bs0, bb1, bs1;
-          split_tf32(v0[8 * n], bb0, bs0);
-          split_tf32(v1[8 * n], bb1, bs1);
-          mma_tf32(o[n], as, bb0, bb1);
-          mma_tf32(o[n], ab, bs0, bs1);
-          mma_tf32(o[n], ab, bb0, bb1);
+        for (int i = 0; i < kFreshNB; ++i) {
+          split_tf32(v0[8 * i], bb0[i], bs0[i]);
+          split_tf32(v0[ldv + 8 * i], bb1[i], bs1[i]);
         }
+#pragma unroll
+        for (int i = 0; i < kFreshNB; ++i) mma_tf32(t[i], as, bb0[i], bb1[i]);
+#pragma unroll
+        for (int i = 0; i < kFreshNB; ++i) mma_tf32(t[i], ab, bs0[i], bs1[i]);
+#pragma unroll
+        for (int i = 0; i < kFreshNB; ++i) mma_tf32(t[i], ab, bb0[i], bb1[i]);
+      }
+    } else {
+#pragma unroll 1
+      for (int k0 = 0; k0 < 8 * ntl; k0 += 16) {
+        const float* x0 = xp + k0 + 2 * tq;
+        const float* x8 = x0 + 8 * kPld;
+        const float2 a0 = *reinterpret_cast<const float2*>(x0);
+        const float2 a1 = *reinterpret_cast<const float2*>(x8);
+        const float2 a2 = *reinterpret_cast<const float2*>(x0 + 8);
+        const float2 a3 = *reinterpret_cast<const float2*>(x8 + 8);
+        uint32_t a[3][4];
+        split_bf16(a0.x, a0.y, a[0][0], a[1][0], a[2][0]);
+        split_bf16(a1.x, a1.y, a[0][1], a[1][1], a[2][1]);
+        split_bf16(a2.x, a2.y, a[0][2], a[1][2], a[2][2]);
+        split_bf16(a3.x, a3.y, a[0][3], a[1][3], a[2][3]);
+        const VT* r0 = vt + (k0 + 2 * tq) * ldv + g + 8 * nb;
+        const VT* r8 = r0 + 8 * ldv;
+        uint32_t b0[kFreshNB], b1[kFreshNB];
+#pragma unroll
+        for (int i = 0; i < kFreshNB; ++i) {
+          b0[i] = pair(r0 + 8 * i, r0 + ldv + 8 * i);
+          b1[i] = pair(r8 + 8 * i, r8 + ldv + 8 * i);
+        }
+#pragma unroll
+        for (int x = 2; x >= 0; --x)
+#pragma unroll
+          for (int i = 0; i < kFreshNB; ++i) mma_bf16(t[i], a[x], b0[i], b1[i]);
       }
     }
-  } else {
-#pragma unroll 1
-    for (int k0 = 0; k0 < 8 * ntl; k0 += 16) {
-      const float* x0 = xp + k0 + 2 * tq;
-      const float* x8 = x0 + 8 * kPld;
-      const float2 a0 = *reinterpret_cast<const float2*>(x0);
-      const float2 a1 = *reinterpret_cast<const float2*>(x8);
-      const float2 a2 = *reinterpret_cast<const float2*>(x0 + 8);
-      const float2 a3 = *reinterpret_cast<const float2*>(x8 + 8);
-      uint32_t a[3][4];
-      split_bf16(a0.x, a0.y, a[0][0], a[1][0], a[2][0]);
-      split_bf16(a1.x, a1.y, a[0][1], a[1][1], a[2][1]);
-      split_bf16(a2.x, a2.y, a[0][2], a[1][2], a[2][2]);
-      split_bf16(a3.x, a3.y, a[0][3], a[1][3], a[2][3]);
-      const VT* r0 = vt + (k0 + 2 * tq) * ldv + g;
-      const VT* r1 = r0 + ldv;
-      const VT* r8 = r0 + 8 * ldv;
-      const VT* r9 = r8 + ldv;
 #pragma unroll
-      for (int c = 0; c < kNT / 8; ++c) {
-        if (c >= nch) continue;
+    for (int i = 0; i < kFreshNB; ++i)
 #pragma unroll
-        for (int jn = 0; jn < 8; ++jn) {
-          const int n = 8 * c + jn;
-          const uint32_t b0 = pair(r0 + 8 * n, r1 + 8 * n);
-          const uint32_t b1 = pair(r8 + 8 * n, r9 + 8 * n);
-          mma_bf16(o[n], a[2], b0, b1);
-          mma_bf16(o[n], a[1], b0, b1);
-          mma_bf16(o[n], a[0], b0, b1);
-        }
-      }
-    }
+      for (int e = 0; e < 4; ++e) o[nb + i][e] += t[i][e];
   }
 }
 

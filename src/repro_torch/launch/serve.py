@@ -19,19 +19,27 @@ the Granite MoE on the CPU with ``--arch granite-moe-1b-a400m --smoke
 deepseek-v2-236b --smoke --device cpu``.  ``--num-pages`` below the default
 ``batch·pages + 1`` serves under pool pressure: the engine preempts and
 swaps (the pager line counts both).  On a card the decode step runs as one
-CUDA graph.
+CUDA graph.  ``--ptq-artifact DIR`` quantizes and saves the result to DIR
+on the first boot and loads it on later ones (no calibration, no α
+search); an artifact saved by the JAX package's serve loads too, and one
+saved here loads there.  ``--ptq-refresh`` re-quantizes (and re-saves)
+even when the artifact matches: its hash covers the configs, not the
+weight values.  The boot line says which path was taken,
+``[artifact-load]`` or ``[quantize-on-load]``.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import QuantConfig
-from repro_torch.core.calibration import synthetic_calibration_set
+from repro_torch.core.calibration import (collect_stats,
+                                          synthetic_calibration_set)
 from repro_torch.core.smoothing import smoothing_groups
 from repro_torch.device import resolve_device, strict_fp32_matmul
 from repro_torch.kernels import _build
@@ -68,6 +76,13 @@ def main(argv=None, *, attn_impl=None) -> dict:
     ap.add_argument("--group-size", type=int, default=None,
                     help="PTQ group size G (default 128, 16 under --smoke); "
                          "the W4 kernels take any positive multiple of 8")
+    ap.add_argument("--ptq-artifact", default=None,
+                    help="dir for the PTQ artifact: save on first boot, "
+                         "load (skip calibration + alpha search) after")
+    ap.add_argument("--ptq-refresh", action="store_true",
+                    help="force re-quantization even if a matching artifact "
+                         "exists (use after swapping checkpoints: the "
+                         "artifact hash covers configs, not weight values)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-mode", choices=("bucketed", "slotwise"),
                     default="bucketed")
@@ -99,15 +114,21 @@ def main(argv=None, *, attn_impl=None) -> dict:
     _sync(device)
     boot_s = time.perf_counter() - t0
 
-    rep, ptq_s, calib = None, 0.0, []
+    rep, ptq_s, calib, mode, used = None, 0.0, [], None, 0
     if not args.no_quant:
         calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
         t0 = time.perf_counter()
+        seen = collect_stats.batches
         params, rep = load_or_quantize(
-            params, cfg, calib, QuantConfig(group_size=gs))
+            params, cfg, calib, QuantConfig(group_size=gs),
+            artifact_dir=args.ptq_artifact, refresh=args.ptq_refresh)
         _sync(device)
         ptq_s = time.perf_counter() - t0
-        print(f"[quantize-on-load] alpha={rep.alpha:.2f} (searched) "
+        # label the boot by the path taken: a boot that read no calibration
+        # batch loaded the artifact
+        used = collect_stats.batches - seen
+        mode = "quantize-on-load" if used else "artifact-load"
+        print(f"[{mode}] alpha={rep.alpha:.2f} "
               f"{rep.fp_bytes / 1e6:.1f}MB -> {rep.quant_bytes / 1e6:.1f}MB "
               f"in {ptq_s:.1f}s")
         flags = rep.a8_eligibility
@@ -152,9 +173,13 @@ def main(argv=None, *, attn_impl=None) -> dict:
           f"({st.swapped_out_bytes / 1e6:.1f}MB swapped out, "
           f"{st.swapped_in_bytes / 1e6:.1f}MB back in); "
           f"free={eng.pager.free_pages}/{eng.pager.num_pages - 1}")
+    art = Path(args.ptq_artifact) if args.ptq_artifact else None
     return {"engine": eng, "requests": reqs, "report": rep, "cfg": cfg,
             "boot_s": boot_s, "ptq_s": ptq_s, "serve_s": dt, "ttft_s": ttft,
-            "calib_batches": len(calib)}
+            "calib_batches": len(calib) if used else 0, "ptq_mode": mode,
+            "ptq_artifact_bytes": (sum(f.stat().st_size for f in art.iterdir())
+                                   if art is not None and art.is_dir()
+                                   else 0)}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
-"""Convert the JAX reference's params into the port's.
+"""Convert the JAX reference's params into the port's, and back.
 
-Input is the reference param tree with every array turned into numpy
-(``jax.tree.map(np.asarray, params)``): nested dicts whose leaves are arrays
-or quantized-weight objects with ``packed`` / ``scales`` / ``zeros``.  The
+:func:`from_reference` takes the reference param tree with every array
+turned into numpy (``jax.tree.map(np.asarray, params)``), or the host
+tensors :func:`to_reference` gives: nested dicts whose leaves are arrays or
+quantized-weight objects with ``packed`` / ``scales`` / ``zeros``.  The
 ``[L, ...]`` layer stacks under ``"layers"`` become one dict per layer; a
 quantized weight keeps its ``a8`` flag (one per stack in the reference, so
-the same on every layer).
+the same on every layer).  :func:`to_reference` is its inverse, the layout
+of a PTQ artifact (``repro_torch.checkpoint.manager``).
 bfloat16 arrays go through f32, which loses nothing; packed bytes keep the
 reference layout (no repack).  This module imports neither JAX nor the
 reference package.
@@ -23,6 +25,8 @@ from repro_torch.core.quantize import QuantizedTensor
 def to_tensor(a, device="cpu") -> torch.Tensor:
     """A private copy (the port updates weights and pools in place, so it
     must never alias the caller's arrays)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(
@@ -41,7 +45,7 @@ def _convert(node, device, index=None) -> Any:
         return QuantizedTensor(*(_convert(getattr(node, f), device, index)
                                  for f in ("packed", "scales", "zeros")),
                                a8=bool(getattr(node, "a8", True)))
-    a = np.asarray(node)
+    a = node if isinstance(node, torch.Tensor) else np.asarray(node)
     return to_tensor(a if index is None else a[index], device).contiguous()
 
 
@@ -51,8 +55,39 @@ def from_reference(tree, device="cpu"):
     first = tree["layers"]
     while isinstance(first, dict):
         first = next(iter(first.values()))
-    n_layers = (first.packed if _is_quantized(first) else np.asarray(first)
-                ).shape[0]
+    n_layers = (first.packed if _is_quantized(first) else first).shape[0]
     out["layers"] = [_convert(tree["layers"], device, i)
                      for i in range(n_layers)]
+    return out
+
+
+def _stack(nodes) -> Any:
+    first = nodes[0]
+    if isinstance(first, dict):
+        return {k: _stack([n[k] for n in nodes]) for k in first}
+    if isinstance(first, QuantizedTensor):
+        return QuantizedTensor(*(torch.stack([getattr(n, f).cpu()
+                                              for n in nodes])
+                                 for f in ("packed", "scales", "zeros")),
+                               a8=all(bool(n.a8) for n in nodes))
+    return torch.stack([n.cpu() for n in nodes])
+
+
+def _host(node) -> Any:
+    if isinstance(node, dict):
+        return {k: _host(v) for k, v in node.items()}
+    if isinstance(node, QuantizedTensor):
+        return QuantizedTensor(*(getattr(node, f).cpu()
+                                 for f in ("packed", "scales", "zeros")),
+                               a8=node.a8)
+    return node.cpu()
+
+
+def to_reference(params):
+    """Port params → the reference's layout as host tensors: the per-layer
+    dicts stacked back into ``[L, ...]`` under ``"layers"`` (a quantized
+    weight's ``a8`` flag set where it is set in every layer, as the
+    reference keeps one per stack); the inverse of :func:`from_reference`."""
+    out = {k: _host(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = _stack(params["layers"])
     return out

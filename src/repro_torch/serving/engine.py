@@ -43,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import zipfile
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -552,12 +553,33 @@ def decode_step(params, pools, cfg: ModelConfig, tok: torch.Tensor,
 
 
 def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,
-                     qcfg: QuantConfig = QuantConfig()):
-    """Quantize-on-load (paper §2.3): fp params in, W4A16 params out, via the
-    full SmoothQuant+ recipe (in place); the report carries the per-path
-    W4A8 flags (``a8_eligibility``) and the errors that decided them.  The
-    reference's PTQ artifact branch (a saved quantization reloaded instead
-    of recomputed) is not ported yet (ROADMAP A3)."""
+                     qcfg: QuantConfig = QuantConfig(), *, artifact_dir=None,
+                     refresh: bool = False, device="cuda"):
+    """Load or quantize at boot (quantize once, serve many; paper §2.3).
+
+    If ``artifact_dir`` holds a PTQ artifact (saved by either package) whose
+    config hash matches ``(cfg, qcfg)``, the quantized params and report
+    load from disk onto the device of ``params_fp`` (``device`` when it is
+    None): no calibration batch is read and no α is searched.  Otherwise
+    (no artifact, a stale hash, an unknown format, a corrupt ``meta.json``
+    or ``arrays.npz``) the full SmoothQuant+ recipe runs on ``params_fp``,
+    in place, and with ``artifact_dir`` its result is saved for the next
+    boot; with ``params_fp=None`` the load error is raised instead.  The
+    hash covers the configs, not the weight values: after swapping
+    checkpoints under an unchanged config pass ``refresh=True`` to
+    re-quantize.  The report carries the per-path W4A8 flags
+    (``a8_eligibility``) and the errors that decided them."""
     from repro_torch.core import apply as AP
 
-    return AP.smoothquant_plus(params_fp, cfg, calibration_batches, qcfg)
+    if artifact_dir is not None and not refresh and AP.has_ptq(artifact_dir):
+        dev = (device if params_fp is None
+               else params_fp["embed"]["table"].device)
+        try:
+            return AP.load_ptq(artifact_dir, cfg, qcfg, device=dev)
+        except (ValueError, KeyError, OSError, zipfile.BadZipFile):
+            if params_fp is None:
+                raise
+    qp, rep = AP.smoothquant_plus(params_fp, cfg, calibration_batches, qcfg)
+    if artifact_dir is not None:
+        AP.save_ptq(artifact_dir, qp, rep, cfg, qcfg)
+    return qp, rep

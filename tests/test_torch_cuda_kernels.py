@@ -21,7 +21,11 @@ tiles), and B8 (split-KV) and B9 on the tensor-core tile of
 ``csrc/mla_tile.cuh``, are also tested at the paths' shapes and at every
 shape class that takes another of their code paths (B8/B9: r > 512 takes
 the CUDA-core kernel, by shape), for bitwise repeatability, and in a CUDA
-graph replayed after the lengths, table and prefix lengths change in place.
+graph replayed after the lengths, table and prefix lengths change in place;
+over long key ranges with peaked scores (B9 behind 2048 and 8192 prefix
+tokens, B8 at 65,536 positions) they are held to a float64 evaluation,
+since there the plain version's own f32 scores are about the tolerance
+off (``launch/mla_shares.py``).
 B4, on K3's tile (``csrc/attn_tile.cuh``), likewise: head widths 8 to 256
 and the widths past one ring stage that take its CUDA-core kernel (the
 route at each), causal S > T, non-causal S > T, ragged T*grp, grp 1 to 8.
@@ -1023,6 +1027,45 @@ def _mla_prefill_check(q_lat, q_pe, c_suf, k_suf, clean, bad, table, pl, cl,
                                      clean[3], sm_scale=sc)
     assert _rel_err(out, ref) <= 1e-5
     return out
+
+
+# C.3: long key ranges with peaked scores (q scaled by 4), the cases of
+# launch/mla_shares.py: f32 pools, bf16 pools and suffix, int8 pools with
+# an f32 suffix, their codes uniform or written as the engine writes them
+MLA_LONG_KINDS = {"f32": (torch.float32, torch.float32, False),
+                  "bf16": (torch.bfloat16, torch.bfloat16, False),
+                  "int8": (torch.int8, torch.float32, False),
+                  "int8_rows": (torch.int8, torch.float32, True)}
+
+
+@pytest.mark.parametrize("pfx", [2048, 8192])
+@pytest.mark.parametrize("kind", list(MLA_LONG_KINDS))
+def test_b9_long_prefix_peaked_scores(dev, kind, pfx):
+    """A 128-token chunk of 128 heads behind a 2048- or 8192-token prefix:
+    the tile sums each 32-key tile's P V in a fresh accumulator and holds
+    the 1e-5 tolerance where one accumulator carried over the whole key
+    range drifts past it (``tests/test_torch_mla_tc.py`` models both)."""
+    from repro_torch.launch import mla_shares as MS
+
+    pool, suf, rows = MLA_LONG_KINDS[kind]
+    before = PA.mla_paged_prefill_cuda.launches \
+        + PA.mla_paged_prefill_int8_cuda.launches
+    assert MS.b9_share(pfx, 5, pool, suf, rows, dev)[1] <= 1.0
+    assert PA.mla_paged_prefill_cuda.launches \
+        + PA.mla_paged_prefill_int8_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", list(MLA_LONG_KINDS))
+def test_b8_long_split_peaked_scores(dev, kind):
+    """One slot of 128 heads at 65,536 positions: 32 splits of 2048 keys,
+    each summed in fresh per-tile accumulators, within the tolerance."""
+    from repro_torch.launch import mla_shares as MS
+
+    pool, _, rows = MLA_LONG_KINDS[kind]
+    splits, pps = PA.mla_decode_splits(1, 128, 65536 // 16, 16,
+                                       K._build.sm_count(dev))
+    assert splits * pps * 16 == 65536 and pps * 16 >= 2048
+    assert MS.b8_share(65536, 3, pool, rows, dev)[1] <= 1.0
 
 
 def test_mla_routes_by_shape(dev):

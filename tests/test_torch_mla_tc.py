@@ -25,6 +25,12 @@ B8's split rule (``mla_decode_splits``, the wrapper's own function: static
 shapes only), each split's partial state (m, l, acc), the empty state of a
 split past the slot's length, and the fixed split-order combine.
 
+P V: each MMA's exact products summed and truncated towards 0 into its f32
+accumulator, as the tensor cores round; the tile sums each 32-key tile in
+a fresh accumulator added to the output in f32.  Over a long peaked key
+range one accumulator drifts past the tolerance (the last tests: a B9
+prefix and a B8 split of 2048 keys in f32, 4096 with the bf16 terms).
+
 Tolerance 1e-5 relative to max(1, max |ref|), as the card tests; plain TF32
 products miss it at r = 512 (the last test), which is why the split is
 there.
@@ -111,6 +117,51 @@ def _scores(mm, q, k):
     return s
 
 
+# ------------------------------------------------------ P V's MMAs ------
+def _trunc_mma(acc, a, b):
+    """One MMA: ``acc + a @ b`` with exact products, its sum truncated
+    towards 0 into the f32 accumulator, as the tensor cores round it."""
+    exact = acc.astype(np.float64) + a.astype(np.float64) @ b
+    out = exact.astype(F32)
+    over = np.abs(out.astype(np.float64)) > np.abs(exact)
+    out[over] = np.nextafter(out[over], F32(0))
+    return out
+
+
+# keys per MMA of P V, by arithmetic
+PV_STEP = {"tf32x3": 8, "bf16x3": 16, "tf32": 8}
+# the arithmetics whose P V the tile sums in a fresh accumulator per 32-key
+# tile (every exact one)
+MLA_FRESH = ("tf32x3", "bf16x3")
+
+
+def _pv_terms(arith, p, v):
+    """The MMAs' operand pairs for ``p @ v`` over one MMA's keys, in the
+    tile's order: 3xTF32 small*big, big*small, big*big; the lo, mid and hi
+    bf16 terms of P (cut by bit mask) against v exact in bf16."""
+    if arith == "tf32x3":
+        pb, vb = _tf32(p), _tf32(v)
+        return [(_tf32(p - pb), vb), (pb, _tf32(v - vb)), (pb, vb)]
+    if arith == "bf16x3":
+        hi = _trunc16(p)
+        mid = _trunc16(p - hi)
+        return [((p - hi - mid).astype(F32), v), (mid, v), (hi, v)]
+    return [(_tf32(p), _tf32(v))]
+
+
+def _pv(o, p, vt, arith, fresh):
+    """``o + p @ vt`` over one 32-key tile as the tile's MMAs sum it: each
+    MMA's sum truncated into its accumulator; with ``fresh`` into a fresh
+    accumulator added to ``o`` in f32, else ``o`` itself carries every MMA
+    of the key range."""
+    acc = np.zeros_like(o) if fresh else o
+    step = PV_STEP[arith]
+    for j in range(0, p.shape[1], step):
+        for a, b in _pv_terms(arith, p[:, j:j + step], vt[j:j + step]):
+            acc = _trunc_mma(acc, a, b)
+    return (o + acc).astype(F32) if fresh else acc
+
+
 # ------------------------------------------------------------ inputs ------
 def _pools(rng, n_pages, ps, r, dr, kind):
     """Latent pools of ``kind`` as f32 values (bf16-rounded, or int8 codes)
@@ -172,12 +223,15 @@ def _key_tile(ckv, kpe, cs, ps, j0, n):
     return ct, kt, sc
 
 
-def _tile_step(state, q_lat, q_pe, ct, kt, sc, valid, scale, mm):
+def _tile_step(state, q_lat, q_pe, ct, kt, sc, valid, scale, arith,
+               fresh=MLA_FRESH):
     """One online-softmax step of a row group: ``valid`` [16, 32].  Its
     two warps score keys 0-15 and 16-31 (the latent and rope dimensions
     padded to whole slices) and keep l over their own keys (``l`` [2, 16]);
-    both multiply the whole tile's P into the values."""
+    both multiply the whole tile's P into the values, each MMA's sum
+    truncated (:func:`_pv`)."""
     m, l, o = state
+    mm = ARITH[arith]
     ql, cl = _pad_slices(q_lat), _pad_slices(ct)
     qp, kp = _pad_slices(q_pe), _pad_slices(kt)
     if sc is None:        # one accumulator for both score parts
@@ -193,7 +247,7 @@ def _tile_step(state, q_lat, q_pe, ct, kt, sc, valid, scale, mm):
     l = l * corr + np.stack([p[:, :KEYS // 2].sum(1), p[:, KEYS // 2:].sum(1)])
     if sc is not None:
         p = p * sc[0]                       # value weights carry cs, l not
-    o = o * corr[:, None] + mm(p, ct)
+    o = _pv((o * corr[:, None]).astype(F32), p, ct, arith, arith in fresh)
     return mx, l, o
 
 
@@ -227,10 +281,9 @@ def _out(state):
 
 # ----------------------------------------------------------------- B8 ----
 def _b8_emulate(q_lat, q_pe, ckv, kpe, cs, ps, table, lengths, scale,
-                splits, pps, arith):
+                splits, pps, arith, fresh=MLA_FRESH):
     b, h, r = q_lat.shape
     page, width = ckv.shape[1], table.shape[1]
-    mm = ARITH[arith]
     out = np.zeros((b, h, r), F32)
     for bi in range(b):
         n = min(max(int(lengths[bi]), 0), width * page)
@@ -249,7 +302,7 @@ def _b8_emulate(q_lat, q_pe, ckv, kpe, cs, ps, table, lengths, scale,
                             j0 + np.arange(KEYS) < row1, (g1 - g0, KEYS))
                         state = _tile_step(state, q_lat[bi, g0:g1],
                                            q_pe[bi, g0:g1], ct, kt, sc,
-                                           valid, scale, mm)
+                                           valid, scale, arith, fresh)
                     parts.append(_block_state(state))
                 out[bi, g0:g1] = _out(_merge(parts))
     return out
@@ -322,12 +375,11 @@ def test_b8_split_rule_reads_static_shapes_only():
 
 # ----------------------------------------------------------------- B9 ----
 def _b9_emulate(q_lat, q_pe, c_suf, k_suf, ckv, kpe, cs, ps, table, prefix,
-                chunk, scale, pre_arith, suf_arith):
+                chunk, scale, pre_arith, suf_arith, fresh=MLA_FRESH):
     b, t, h, r = q_lat.shape
     dr = q_pe.shape[-1]
     page, width = ckv.shape[1], table.shape[1]
     th = t * h
-    mm_pre, mm_suf = ARITH[pre_arith], ARITH[suf_arith]
     out = np.zeros((b, th, r), F32)
     for bi in range(b):
         pfx = min(max(int(prefix[bi]), 0), width * page)
@@ -353,7 +405,7 @@ def _b9_emulate(q_lat, q_pe, c_suf, k_suf, ckv, kpe, cs, ps, table, prefix,
                     valid = np.broadcast_to(j0 + np.arange(KEYS) < pfx,
                                             (GROUP, KEYS))
                     state = _tile_step(state, qg, pg, ct, kt, sc, valid,
-                                       scale, mm_pre)
+                                       scale, pre_arith, fresh)
                 for j0 in range(0, kv_end, KEYS):
                     if j0 > min(tr[-1], cl - 1):
                         continue             # above the group's diagonal
@@ -362,7 +414,7 @@ def _b9_emulate(q_lat, q_pe, c_suf, k_suf, ckv, kpe, cs, ps, table, prefix,
                     keys = j0 + np.arange(KEYS)
                     valid = (keys[None] <= tr[:, None]) & (keys[None] < cl)
                     state = _tile_step(state, qg, pg, ct, kt, None, valid,
-                                       scale, mm_suf)
+                                       scale, suf_arith, fresh)
                 res = _out(_block_state(state))
                 out[bi, rid[live]] = res[live]
     return out.reshape(b, t, h, r)
@@ -433,3 +485,100 @@ def test_plain_tf32_misses_the_tolerance_at_full_width():
     split = TPA.mla_decode_splits(3, 3, args[6].shape[1], 16, 132)
     assert _rel_err(_b8_emulate(*args, *split, "tf32"), ref) > 10 * TOL
     assert _rel_err(_b8_emulate(*args, *split, "tf32x3"), ref) <= TOL
+
+
+# ------------------------------------------ long key ranges (C.3) --------
+def _mla_long_case(kind, pfx, t=16, r=512, dr=64, ps=16, seed=0):
+    """One slot, one query head: a chunk of ``t`` tokens behind a
+    ``pfx``-token prefix of latent pages, attention peaked (q scaled by
+    4).  ``kind`` f32 / bf16 pools, or int8 pools written as the engine
+    writes them (per row, scale max |row| / 127).  The reference is float64
+    softmax attention over the dequantized prefix and the causal chunk."""
+    rng = np.random.default_rng(seed)
+    table, n_pages = _table(rng, [pfx + t], ps, -(-(pfx + t) // ps))
+    ckv = rng.standard_normal((n_pages, ps, r)).astype(F32)
+    kpe = rng.standard_normal((n_pages, ps, dr)).astype(F32)
+    cs = pe = None
+    if kind == "bf16":
+        ckv, kpe = _bf16(ckv), _bf16(kpe)
+    elif kind == "int8":
+        cs, pe = ((np.abs(a).max(-1) / 127).astype(F32) for a in (ckv, kpe))
+        ckv = np.round(ckv / cs[..., None]).astype(F32)
+        kpe = np.round(kpe / pe[..., None]).astype(F32)
+    q_lat = (4 * rng.standard_normal((1, t, 1, r))).astype(F32)
+    q_pe = (4 * rng.standard_normal((1, t, 1, dr))).astype(F32)
+    c_suf = rng.standard_normal((1, t, r)).astype(F32)
+    k_suf = rng.standard_normal((1, t, dr)).astype(F32)
+    if kind == "bf16":
+        c_suf, k_suf = _bf16(c_suf), _bf16(k_suf)
+    scale = (128 + 64) ** -0.5
+    deq = [_rows(a, table, 0, pfx).astype(np.float64) for a in (ckv, kpe)]
+    if kind == "int8":
+        deq[0] = deq[0] * _rows(cs, table, 0, pfx)[:, None]
+        deq[1] = deq[1] * _rows(pe, table, 0, pfx)[:, None]
+    keys = np.concatenate([np.concatenate(deq, 1),
+                           np.concatenate([c_suf[0], k_suf[0]], 1)])
+    vals = np.concatenate([deq[0], c_suf[0]])
+    qf = np.concatenate([q_lat[0, :, 0], q_pe[0, :, 0]], 1).astype(np.float64)
+    sc = qf @ keys.T * scale
+    sc = np.where(np.arange(pfx + t)[None] <= pfx + np.arange(t)[:, None],
+                  sc, -np.inf)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    ref = (p @ vals / p.sum(-1, keepdims=True))[None, :, None]
+    args = (q_lat, q_pe, c_suf, k_suf, ckv, kpe, cs, pe, table,
+            np.array([pfx], np.int32), np.array([t], np.int32), scale)
+    return args, ref
+
+
+def _b8_long_case(kind, n, h=16, r=512, dr=64, ps=16, seed=0):
+    """One slot of ``n`` latent rows decoded by ``h`` heads, attention
+    peaked (q scaled by 4); pools as :func:`_mla_long_case`'s; the float64
+    reference."""
+    args, _ = _mla_long_case(kind, n, t=h, r=r, dr=dr, ps=ps, seed=seed)
+    q_lat, q_pe, _, _, ckv, kpe, cs, pe, table, _, _, scale = args
+    q_lat, q_pe = q_lat[:, :, 0], q_pe[:, :, 0]       # [1, h, ·]
+    deq = [_rows(a, table, 0, n).astype(np.float64) for a in (ckv, kpe)]
+    if kind == "int8":
+        deq[0] = deq[0] * _rows(cs, table, 0, n)[:, None]
+        deq[1] = deq[1] * _rows(pe, table, 0, n)[:, None]
+    qf = np.concatenate([q_lat[0], q_pe[0]], 1).astype(np.float64)
+    sc = qf @ np.concatenate(deq, 1).T * scale
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    ref = (p @ deq[0] / p.sum(-1, keepdims=True))[None]
+    return (q_lat, q_pe, ckv, kpe, cs, pe, table,
+            np.array([n], np.int32), scale), ref
+
+
+# (pool kind, key range): f32 crosses the tolerance on one accumulator
+# behind 2048 keys, the bf16 terms (bf16 values, int8 codes) behind 4096
+LONG = [("f32", 2048), ("bf16", 4096), ("int8", 4096)]
+
+
+@pytest.mark.parametrize("kind,pfx", LONG)
+def test_b9_fresh_accumulators_bound_the_long_prefix_drift(kind, pfx):
+    """A chunk behind a long prefix with peaked attention: P V carried in
+    one truncating accumulator over the whole key range (f32 pools: 768
+    3xTF32 MMAs a 2048-token prefix) misses the 1e-5 tolerance; the tile's
+    fresh accumulator per 32-key tile meets it.  The card's bf16 MMAs
+    drift less than this model of them (``launch/mla_shares.py``)."""
+    args, ref = _mla_long_case(kind, pfx)
+    inst = B9_INSTANCES[(kind, "bf16" if kind == "bf16" else "f32")]
+    assert _rel_err(_b9_emulate(*args, *inst, fresh=()), ref) > TOL
+    assert _rel_err(_b9_emulate(*args, *inst), ref) <= 0.5 * TOL
+
+
+@pytest.mark.parametrize("kind,n", LONG)
+def test_b8_fresh_accumulators_bound_a_long_split(kind, n):
+    """B8 caps its splits at 32, so one slot at 65,536 (131,072) positions
+    gives each split 2048 (4096) keys, one accumulator's worth before the
+    combine: one truncating accumulator misses the tolerance there, the
+    tile's fresh one per 32-key tile meets it."""
+    for pos, keys in ((65536, 2048), (131072, 4096)):
+        splits, pps = TPA.mla_decode_splits(1, 128, pos // 16, 16, 132)
+        assert (splits, pps * 16) == (32, keys)
+    args, ref = _b8_long_case(kind, n)
+    arith = B8_ARITH[kind]
+    one_split = (1, args[6].shape[1])
+    assert _rel_err(_b8_emulate(*args, *one_split, arith, fresh=()),
+                    ref) > TOL
+    assert _rel_err(_b8_emulate(*args, *one_split, arith), ref) <= 0.5 * TOL
