@@ -58,7 +58,28 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    the outputs path 1's token for token, the launch counts path 1's
    prediction for this run's steps and chunks; prints the artifact's bytes,
    the save and load seconds beside path 1's PTQ seconds and the peak
-   memory, and deletes the artifact;
+   memory, and deletes the artifact (paths 1-4 pass serve ``--prefix-cache
+   off --rate inf``: no cache, every request arriving at submit, as before
+   the cache was ported);
+   path 1d — path 1's params with the prefix cache: 8 requests in two waves
+   of 4 (each drained before the next), every prompt a 96-token system
+   prompt + a 16-100-token suffix, wave 2 opening with wave 1's 112-token
+   page-aligned prompt (a COW copy and a one-token K3 chunk behind 111
+   cached tokens); served cold (cache off) and warm: the tokens equal,
+   wave 2 hits on all 4 admissions with >= 384 cached tokens and a COW,
+   the warm run prefills fewer tokens; each wave's TTFT p50 / max from the
+   engine's histogram, cold and warm;
+   path 1e — path 1's params under serve's ``--chaos`` plan (seed 0),
+   ``strict=False``, prefix cache on, path 1d's 8 requests at once from 90
+   four-token pages, ``max_queue=7`` (the eighth is rejected), one
+   ``ttft_deadline_s=0`` and one cancel mid-decode: every request ends
+   terminal, ``faults_fired_total`` reconciles with the plan, the pager
+   ends with nothing referenced or held, at least two preemptions, the
+   decode graph replays after the ``decode_launch`` fault, untouched
+   requests have path 1d's cold tokens; the Chrome trace is written to a
+   temporary file and its event count printed;
+   metrics overhead — the decode wall per step with the engine's metrics
+   on and off (two engines, batch 4, windows in turns on, off, off, on);
    path 2 — codellama-7b, seeded hot channels injected into the embedding,
    quantize-on-load with the W4A8 eligibility pass, then the engine with
    int8 KV pools and ``act_quant="a8_prefill"`` (``max_prefill_tokens=128``);
@@ -90,7 +111,10 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    other linears K1; path 4b — a second engine over the same quantized
    params with int8 latent pools (the int8 instances of B8/B9), the same
    requests.  Each: launch counts equal to the prediction from the engine's
-   steps and prefill batches, operand checks, step check (a);
+   steps and prefill batches, operand checks, step check (a); path 4c —
+   path 4's params with the prefix cache, two waves of 4 behind a 128-token
+   system prompt (B9 reads cached latent pages, B8 decodes over shared
+   ones), cold and warm as path 1d;
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -149,6 +173,9 @@ DEV = torch.device("cuda")
 # as long as the process and would count in every later peak memory
 GRAPH_STREAM = torch.cuda.Stream()
 RESULTS = {"kernels": {}, "rows": []}
+# the serve flags that keep paths 1-4 as they ran before the prefix cache:
+# no cache, and every request arriving when it is submitted
+SERVE_COLD = ["--prefix-cache", "off", "--rate", "inf"]
 
 
 def require(cond, msg):
@@ -1386,7 +1413,8 @@ def main_path():
         res = serve.main(["--arch", "codellama-7b", "--requests", "8",
                           "--batch-size", "4", "--max-seq", "256",
                           "--max-tokens", "16", "--min-prompt", "32",
-                          "--max-prompt", "200", "--seed", "0"])
+                          "--max-prompt", "200", "--seed", "0",
+                          *SERVE_COLD])
         torch.cuda.synchronize()
         counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1433,6 +1461,9 @@ def main_path():
     profile_decode(eng, reqs, "profile")
     path1b(eng.params, cfg, reqs, outputs)
     path1c(eng.params, res["report"], cfg, outputs, res["ptq_s"])
+    waves, cold_outputs = path1d(eng.params, cfg)
+    path1e(eng.params, cfg, waves, cold_outputs)
+    metrics_overhead(eng.params, cfg, waves[0])
     return counts
 
 
@@ -1466,10 +1497,7 @@ def path1b(params, cfg, reqs, outputs):
     counts = K.launch_counts()
     st = eng.stats
     nl = cfg.num_layers
-    pred = {n: 0 for n in K.WRAPPERS}
-    pred.update({"w4a16_matmul": 7 * nl * (st.steps + st.prefill_batches),
-                 "gqa_paged_decode": nl * st.steps,
-                 "gqa_paged_prefill": nl * st.prefill_batches})
+    pred = path1_prediction(st, nl)
     same = sum(r.output == o for r, o in zip(reqs, outputs))
     print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
           f"prefill batches {st.prefill_batches}; {st.preemptions} "
@@ -1526,7 +1554,7 @@ def path1c(params, report, cfg, outputs, ptq_s):
                           "--batch-size", "4", "--max-seq", "256",
                           "--max-tokens", "16", "--min-prompt", "32",
                           "--max-prompt", "200", "--seed", "0",
-                          "--ptq-artifact", str(d)])
+                          "--ptq-artifact", str(d), *SERVE_COLD])
         torch.cuda.synchronize()
         counts = K.launch_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -1535,10 +1563,7 @@ def path1c(params, report, cfg, outputs, ptq_s):
     eng, reqs = res["engine"], res["requests"]
     st = eng.stats
     nl = cfg.num_layers
-    pred = {n: 0 for n in K.WRAPPERS}
-    pred.update({"w4a16_matmul": 7 * nl * (st.steps + st.prefill_batches),
-                 "gqa_paged_decode": nl * st.steps,
-                 "gqa_paged_prefill": nl * st.prefill_batches})
+    pred = path1_prediction(st, nl)
     same = sum(list(r.output) == o for r, o in zip(reqs, outputs))
     print(f"  artifact {nbytes / 1e9:.3f} GB on disk, saved in {save_s:.1f}s; "
           f"boot [{res['ptq_mode']}] in {res['ptq_s']:.1f}s (path 1's PTQ "
@@ -1566,6 +1591,411 @@ def path1c(params, report, cfg, outputs, ptq_s):
         launches=counts, predicted=pred, decode_steps=st.steps,
         prefill_batches=st.prefill_batches, peak_mem_bytes=peak,
         same_outputs_as_path1=same)
+
+
+def path1_prediction(st, nl):
+    """Path 1's launches for an engine's stats: K1 for 7 linears of every
+    layer on every decode step and prefill batch, K2 once a layer a step,
+    K3 once a layer a batch, nothing else."""
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": 7 * nl * (st.steps + st.prefill_batches),
+                 "gqa_paged_decode": nl * st.steps,
+                 "gqa_paged_prefill": nl * st.prefill_batches})
+    return pred
+
+
+def path4_prediction(st, nl, sfx=""):
+    """Path 4's launches, per layer and call: K1 for wq_a, wq_b, wkv_a, wo
+    and the shared expert's gate/up/down (wkv_b itself is never read to
+    serve); B6 for the routed experts' gate/up/down and the absorbed wk_t /
+    wv; B8 once a decode step, B9 once a prefill batch (``sfx`` "_int8"
+    for int8 latent pools)."""
+    calls = st.steps + st.prefill_batches
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": 7 * nl * calls,
+                 "w4a16_grouped": 5 * nl * calls,
+                 "mla_paged_decode" + sfx: nl * st.steps,
+                 "mla_paged_prefill" + sfx: nl * st.prefill_batches})
+    return pred
+
+
+# ------------------------------------------------- prefix cache, lifecycle ---
+# EngineStats fields a wave of requests adds to (path 1d, path 4c)
+WAVE_STATS = ("prefix_hits", "prefix_matched_tokens", "pages_shared",
+              "pages_inserted", "pages_evicted", "cow_copies",
+              "prefilled_tokens", "steps", "prefill_batches",
+              "decoded_tokens")
+
+
+def prefix_waves(vocab, sys_len, page, seed, n=4):
+    """Two waves of ``n`` prompts behind one ``sys_len``-token system prompt,
+    each with a suffix of 16-100 tokens; the first prompt of wave 1 has a
+    suffix of exactly one page (a page-aligned prompt), and wave 2 opens
+    with that same prompt: a full match, which takes a copy-on-write and
+    prefills one token behind the cached rest."""
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(2, vocab, sys_len).astype(np.int32)
+
+    def prompt(k):
+        return np.concatenate([sys_p, rng.integers(2, vocab, k).astype(
+            np.int32)])
+
+    suf1 = [page] + [int(k) for k in rng.integers(16, 101, n - 1)]
+    w1 = [prompt(k) for k in suf1]
+    suf2 = [int(k) for k in rng.integers(16, 101, n - 1)]
+    w2 = [w1[0].copy()] + [prompt(k) for k in suf2]
+    return w1, w2
+
+
+def run_waves(eng, waves, max_tokens=16):
+    """Serve ``waves`` one after another, each drained before the next.
+    Per wave: its requests, the engine stats it added, its host seconds,
+    and its TTFT from the engine's ``ttft_s`` histogram: wave 1 from
+    ``metrics_snapshot()`` (p50 and max), later waves from the histogram's
+    delta over the wave (p50 and p100 as bucket upper bounds, at most 21%
+    above the observation), with the exact TTFTs of the request stamps
+    beside."""
+    from repro_torch.serving.engine import Request
+
+    hist = eng.metrics.histogram("ttft_s")
+    out, uid = [], 0
+    for w, prompts in enumerate(waves):
+        before = {k: getattr(eng.stats, k) for k in WAVE_STATS}
+        h0 = hist.counts()
+        reqs = [Request(uid=uid + i, prompt=p, max_tokens=max_tokens)
+                for i, p in enumerate(prompts)]
+        uid += len(reqs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        if w == 0:
+            lat = eng.metrics_snapshot()["latency"]["ttft_s"]
+            p50, top = lat["p50"], lat["max"]
+        else:
+            d = hist.counts() - h0
+            p50, top = d.percentile(0.5), d.percentile(1.0)
+        out.append(dict(
+            reqs=reqs, serve_s=serve_s, ttft_p50_s=p50, ttft_max_s=top,
+            ttft_s=sorted(r.first_token_t - r.arrival_t for r in reqs),
+            **{k: getattr(eng.stats, k) - before[k] for k in WAVE_STATS}))
+    return out
+
+
+def _wave_line(label, waves):
+    return "; ".join(
+        f"{label} wave {i + 1}: TTFT p50 {w['ttft_p50_s'] * 1e3:.1f} ms max "
+        f"{w['ttft_max_s'] * 1e3:.1f} ms (request stamps "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in w['ttft_s'])} ms), "
+        f"{w['prefilled_tokens']} prefilled, {w['prefix_hits']} hits, "
+        f"{w['prefix_matched_tokens']} cached tokens, {w['cow_copies']} COW"
+        for i, w in enumerate(waves))
+
+
+def _cold_warm(params, cfg, waves, sys_len, label, pred_fn, *,
+               same_tokens=True, **kw):
+    """The same waves on a cache-off engine, then on a cache-on one whose
+    kernel operands are kept and held against the plain versions; both held
+    to the launch prediction ``pred_fn(stats)`` and to one decode graph.
+    Wave 2 of the warm run must hit on every admission, match at least
+    ``sys_len`` tokens each and take a COW, and with ``same_tokens`` the
+    warm tokens must equal the cold ones (else their agreement is printed).
+    Returns (cold waves, warm waves, warm launches, operand rows, warm
+    graph check, requests with equal tokens)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    runs = []
+    for cache in (False, True):
+        eng = ServingEngine(params, cfg, batch_size=4, max_seq=256,
+                            page_size=16, prefix_cache=cache, seed=0,
+                            device=DEV, **kw)
+        torch.cuda.synchronize()
+        with (path_operands() if cache and same_tokens
+              else contextlib.nullcontext({})) as seen:
+            K.reset_launch_counts()
+            res = run_waves(eng, waves)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        pred = pred_fn(eng.stats)
+        tag = f"{label} {'warm' if cache else 'cold'}"
+        print(f"  {tag}: launches {counts}; predicted {pred}; decode steps "
+              f"{eng.stats.steps}, prefill batches "
+              f"{eng.stats.prefill_batches}", flush=True)
+        require(counts == pred, f"{tag}: launch counts differ from the "
+                "prediction")
+        require(all(r.finish_reason in ("completed", "length")
+                    for w in res for r in w["reqs"]),
+                f"{tag}: a request did not finish")
+        eng.pager.check_invariants()
+        graph = check_decode_graph(eng, tag)
+        if cache:
+            runs.append((res, eng, counts, seen, graph))
+        else:
+            runs.append((res,))
+            del eng
+            gc.collect()
+    (cold,), (warm, eng, counts, seen, graph) = runs
+    print("  " + _wave_line("cold", cold))
+    print("  " + _wave_line("warm", warm), flush=True)
+    operands = check_path_operands(seen, label) if seen else []
+    del eng, seen
+    gc.collect()
+    pairs = [(rw, rc) for ww, wc in zip(warm, cold)
+             for rw, rc in zip(ww["reqs"], wc["reqs"])]
+    differ = [(rw.uid, next(i for i, (a, b) in enumerate(
+        zip(rw.output + [-1], rc.output + [-2])) if a != b))
+        for rw, rc in pairs if rw.output != rc.output]
+    print(f"  {label}: warm tokens equal to cold for "
+          f"{len(pairs) - len(differ)}/{len(pairs)} requests"
+          + (f"; (uid, first differing token) {differ}" if differ else ""))
+    w2 = warm[1]
+    require(not differ or not same_tokens,
+            f"{label}: the cache-on tokens differ from the cache-off run's")
+    require(w2["prefix_hits"] == len(w2["reqs"]),
+            f"{label}: wave 2 did not hit the cache on every admission")
+    require(w2["prefix_matched_tokens"] >= len(w2["reqs"]) * sys_len,
+            f"{label}: wave 2 matched too few tokens")
+    require(w2["cow_copies"] >= 1, f"{label}: no copy-on-write")
+    require(sum(w["prefilled_tokens"] for w in warm)
+            < sum(w["prefilled_tokens"] for w in cold),
+            f"{label}: the cache prefilled no fewer tokens")
+    return cold, warm, counts, operands, graph, len(pairs) - len(differ)
+
+
+def _waves_result(waves):
+    return [{k: v for k, v in w.items() if k != "reqs"} for w in waves]
+
+
+def path1d(params, cfg):
+    """Path 1's params with the prefix cache: 8 requests in two waves of 4,
+    each prompt a 96-token system prompt (6 pages) + a 16-100-token suffix;
+    wave 2 opens with wave 1's 112-token page-aligned prompt (a COW and a
+    one-token K3 chunk behind 111 cached tokens).  The tokens equal a
+    cache-off run of the same waves; wave 2 hits on all 4 admissions."""
+    print("path 1d: path 1's params, prefix cache on: two waves of 4 behind "
+          "a 96-token system prompt, cold then warm", flush=True)
+    nl = cfg.num_layers
+
+    waves = prefix_waves(cfg.vocab_size, 96, 16, seed=1)
+    cold, warm, counts, operands, graph, _ = _cold_warm(
+        params, cfg, waves, 96, "path 1d",
+        lambda st: path1_prediction(st, nl))
+    RESULTS["path1d"] = dict(
+        cold=_waves_result(cold), warm=_waves_result(warm), launches=counts,
+        path_operands=operands, **graph)
+    return waves, [r.output for w in cold for r in w["reqs"]]
+
+
+def path1e(params, cfg, waves, cold_outputs):
+    """Path 1's params under serve's ``--chaos`` plan (seed 0), non-strict,
+    prefix cache on, path 1d's 8 requests at once from 90 four-token pages:
+    ``max_queue=7`` rejects the eighth, request 6 carries
+    ``ttft_deadline_s=0`` and request 1 is cancelled once it has decoded 4
+    tokens.  Every request ends terminal, the fault counters reconcile with
+    the plan, the pager ends with nothing referenced or held (cached pages
+    only), the decode graph replays again after the ``decode_launch``
+    fault, and every request no fault, deadline or cancel touched has path
+    1d's cache-off tokens.  The Chrome trace goes to a temporary file."""
+    from repro_torch.launch.serve import chaos_plan
+    from repro_torch.serving.engine import (FINISH_REASONS, Request,
+                                            ServingEngine)
+    from repro_torch.serving.trace import write_chrome_trace
+
+    print("path 1e: path 1's params, --chaos plan (seed 0), strict=False, "
+          "prefix cache on, page size 4, 90 pages, max_queue=7, a cancel "
+          "and a TTFT deadline", flush=True)
+    plan = chaos_plan(0)
+    eng = ServingEngine(params, cfg, batch_size=4, max_seq=256, page_size=4,
+                        num_pages=90, prefix_cache=True, strict=False,
+                        fault_plan=plan, max_queue=7, seed=0, device=DEV)
+    reqs = [Request(uid=i, prompt=p, max_tokens=16,
+                    ttft_deadline_s=0.0 if i == 6 else None)
+            for i, p in enumerate(waves[0] + waves[1])]
+    g = eng.decode_graph
+    torch.cuda.synchronize()
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        accepted = [eng.submit(r) for r in reqs]
+        cancel_step, fault_step, replays_after = None, None, 0
+        while eng.queue or any(s is not None for s in eng.slots):
+            r0 = g.replays
+            eng.step()
+            if any(site == "decode_launch" and s == eng._step_idx
+                   for s, site, _ in plan.log):
+                fault_step = eng._step_idx
+            elif fault_step is not None and g.replays > r0:
+                replays_after += 1
+            if cancel_step is None:
+                for i, r in enumerate(eng.slots):
+                    if (r is not None and r.uid == 1 and len(r.output) >= 4
+                            and eng.pos[i] >= eng.pref_target[i]):
+                        require(eng.cancel(1), "path 1e: cancel refused")
+                        cancel_step = eng._step_idx
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+    st = eng.stats
+    nl = cfg.num_layers
+    pred = path1_prediction(st, nl)
+    ctr = eng.metrics.counter("faults_fired_total")
+    fired = ctr.snapshot()
+    untouched = [r for r in reqs if r.finish_reason in ("completed", "length")
+                 and not r.retries and not r.reprefills]
+    same = sum(r.output == cold_outputs[r.uid] for r in untouched)
+    same_all = sum(r.output == cold_outputs[r.uid] for r in reqs
+                   if r.finish_reason in ("completed", "length"))
+    tmp = Path(tempfile.mkdtemp(prefix="chaos_trace_"))
+    try:
+        obj = write_chrome_trace(str(tmp / "trace.json"), eng.trace,
+                                 n_slots=eng.B)
+        trace_bytes = (tmp / "trace.json").stat().st_size
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_events = len(obj["traceEvents"])
+    states = [(r.uid, r.finish_reason, len(r.output), r.retries,
+               r.reprefills) for r in reqs]
+    print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
+          f"prefill batches {st.prefill_batches}, engine steps "
+          f"{eng._step_idx}; served in {serve_s:.2f}s", flush=True)
+    print(f"  terminal states (uid, reason, tokens, retries, re-prefills): "
+          f"{states}")
+    print(f"  fault counters {fired}; plan injected {plan.total_injected} "
+          f"{ {k: v for k, v in plan.injected.items() if v} }, pressure "
+          f"polls {plan.pressure_hits}; log {plan.log}")
+    print(f"  {st.preemptions} preemptions, {st.resumes} resumes, "
+          f"{st.retries} retries, {st.expired} expired, {st.cancelled} "
+          f"cancelled (step {cancel_step}), {st.rejected} rejected, "
+          f"{st.failed} failed; {st.prefix_hits} cache hits, "
+          f"{st.cow_copies} COW, {st.pages_evicted} evicted; decode_launch "
+          f"fault at step {fault_step}, {replays_after} replays after it; "
+          f"untouched requests with path 1d's cold tokens {same}/"
+          f"{len(untouched)} (all finished: {same_all}); Chrome trace "
+          f"{n_events} events, {trace_bytes} bytes", flush=True)
+    require(accepted == [True] * 7 + [False],
+            "path 1e: max_queue did not reject exactly the eighth request")
+    require(all(r.finish_reason in FINISH_REASONS for r in reqs),
+            "path 1e: a request is not terminal")
+    require((reqs[1].finish_reason, reqs[6].finish_reason,
+             reqs[7].finish_reason) == ("cancelled", "deadline", "rejected"),
+            "path 1e: cancel / deadline / rejection did not land")
+    require(ctr.total() == plan.total_injected == st.faults_injected
+            and all(ctr.value(site=s) == n for s, n in plan.injected.items()),
+            "path 1e: fault counters do not reconcile with the plan")
+    eng.pager.check_invariants()
+    require(int(eng.pager.refs().sum()) == 0
+            and int(eng.pager.held().sum()) == 0
+            and eng.pager.free_pages + eng.pager.evictable_pages()
+            == eng.pager.num_pages - 1 and not eng._swapped,
+            "path 1e: pages left referenced or held after the drain")
+    require(st.preemptions >= 2, "path 1e: fewer than two preemptions")
+    require(plan.injected["decode_launch"] >= 1 and replays_after > 0,
+            "path 1e: no decode replay after a decode_launch fault")
+    require(untouched and same == len(untouched),
+            "path 1e: an untouched request's tokens differ from path 1d's")
+    require(counts == pred, "path 1e: launch counts differ from the "
+            "prediction")
+    RESULTS["path1e"] = dict(
+        launches=counts, predicted=pred, states=states, fault_counters=fired,
+        injected=plan.total_injected, fault_log=plan.log,
+        preemptions=st.preemptions, resumes=st.resumes, retries=st.retries,
+        decode_fault_step=fault_step, replays_after_fault=replays_after,
+        untouched=len(untouched), untouched_same=same, serve_s=serve_s,
+        trace_events=n_events, trace_bytes=trace_bytes,
+        path_operands=check_path_operands(seen, "path 1e"),
+        **check_decode_graph(eng, "path 1e"))
+    del eng, seen
+    gc.collect()
+
+
+def metrics_overhead(params, cfg, prompts, steps=16):
+    """The decode wall per step with the engine's recording on and off: two
+    engines over path 1's params (batch 4, the same 4 prompts, 64 new
+    tokens), both decoding all 4 slots, timed in windows of ``steps``
+    steps in turns on, off, off, on (host clock, synchronised); then both
+    drain, and their tokens must be equal."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    print("metrics overhead: decode wall per step, metrics on vs off, path "
+          "1's params, batch 4", flush=True)
+    engs, reqs = {}, {}
+    for on in (True, False):
+        eng = ServingEngine(params, cfg, batch_size=4, max_seq=256,
+                            page_size=16, metrics=on, seed=0, device=DEV)
+        reqs[on] = [Request(uid=i, prompt=p, max_tokens=4 * steps + 8)
+                    for i, p in enumerate(prompts)]
+        for r in reqs[on]:
+            eng.submit(r)
+        while (eng.queue or any(r is None or eng.pos[i] < eng.pref_target[i]
+                                for i, r in enumerate(eng.slots))):
+            eng.step()
+        engs[on] = eng
+    walls = {True: [], False: []}
+    for on in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engs[on].step()
+        torch.cuda.synchronize()
+        walls[on].append((time.perf_counter() - t0) / steps)
+    for on in (True, False):
+        engs[on].run_until_drained()
+    same = [r.output for r in reqs[True]] == [r.output for r in reqs[False]]
+    on_ms = statistics.mean(walls[True]) * 1e3
+    off_ms = statistics.mean(walls[False]) * 1e3
+    print(f"  decode wall per step: metrics on {on_ms:.3f} ms "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in walls[True])}), off "
+          f"{off_ms:.3f} ms ({', '.join(f'{w * 1e3:.3f}' for w in walls[False])}"
+          f"); on/off {on_ms / off_ms:.4f}; tokens equal {same}", flush=True)
+    require(same, "metrics on and off gave different tokens")
+    RESULTS["metrics_overhead"] = dict(
+        on_ms_per_step=on_ms, off_ms_per_step=off_ms,
+        on_windows_s=walls[True], off_windows_s=walls[False],
+        steps_per_window=steps, same_tokens=same)
+    del engs
+    gc.collect()
+
+
+def path4c(params, cfg):
+    """Path 4's params (deepseek-v2-236b, 2 layers, fp latent pools,
+    128-token chunks) with the prefix cache: two waves of 4 behind a
+    128-token system prompt; wave 2 opens with wave 1's 144-token
+    page-aligned prompt.  B9 reads cached latent pages, B8 decodes over
+    shared ones.
+
+    At the config's capacity factor (1.25) a prefill call drops the expert
+    assignments past each expert's capacity, and which ones drop depends on
+    every token in the call, pad rows included: a warm suffix chunk shares
+    its call with other tokens than the cold prompt did, so its MoE output,
+    and the greedy tokens after it, may move (in both packages; the
+    reference's smoke config, factor 4.0, never drops).  That run is
+    printed.  The checked run raises the factor to 28 (capacity >= tokens
+    per call: no assignment ever drops, so every token's function is its
+    own), and there the tokens must equal the cache-off run's."""
+    import dataclasses as dc
+
+    print("path 4c: path 4's params, prefix cache on: two waves of 4 behind "
+          "a 128-token system prompt, cold then warm", flush=True)
+    nl = cfg.num_layers
+
+    def pred(st):
+        return path4_prediction(st, nl)
+
+    waves = prefix_waves(cfg.vocab_size, 128, 16, seed=2)
+    *_, same_125 = _cold_warm(
+        params, cfg, waves, 128, "path 4c at capacity factor 1.25", pred,
+        same_tokens=False, max_prefill_tokens=128)
+    no_drop = cfg.with_(moe=dc.replace(cfg.moe, capacity_factor=28.0))
+    cold, warm, counts, operands, graph, _ = _cold_warm(
+        params, no_drop, waves, 128, "path 4c", pred,
+        max_prefill_tokens=128)
+    RESULTS["path4c"] = dict(
+        cold=_waves_result(cold), warm=_waves_result(warm), launches=counts,
+        path_operands=operands, same_at_factor_1_25=same_125, **graph)
+    return counts
 
 
 def _same_params(a, b) -> bool:
@@ -1869,7 +2299,8 @@ def path3():
                           "--batch-size", "4", "--max-seq", "256",
                           "--max-tokens", "16", "--min-prompt", "32",
                           "--max-prompt", "200", "--seed", "0",
-                          "--act-quant", "a8_prefill"], attn_impl="flash")
+                          "--act-quant", "a8_prefill", *SERVE_COLD],
+                         attn_impl="flash")
         torch.cuda.synchronize()
         counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1956,7 +2387,7 @@ def path3_group256():
                           "--max-tokens", "8", "--min-prompt", "32",
                           "--max-prompt", "200", "--seed", "1",
                           "--group-size", "256", "--act-quant",
-                          "a8_prefill"])
+                          "a8_prefill", *SERVE_COLD])
         torch.cuda.synchronize()
         counts = K.launch_counts()
     reqs, cfg, rep = res["requests"], res["cfg"], res["report"]
@@ -2003,16 +2434,7 @@ def _path4_engine(params, cfg, reqs, label):
         counts = K.launch_counts()
     st = eng.stats
     nl = cfg.num_layers
-    calls = st.steps + st.prefill_batches
-    sfx = "_int8" if quant else ""
-    # per layer and call: K1 for wq_a, wq_b, wkv_a, wo and the shared
-    # expert's gate/up/down (wkv_b itself is never read to serve); B6 for
-    # the routed experts' gate/up/down and the absorbed wk_t / wv
-    pred = {n: 0 for n in K.WRAPPERS}
-    pred.update({"w4a16_matmul": 7 * nl * calls,
-                 "w4a16_grouped": 5 * nl * calls,
-                 "mla_paged_decode" + sfx: nl * st.steps,
-                 "mla_paged_prefill" + sfx: nl * st.prefill_batches})
+    pred = path4_prediction(st, nl, "_int8" if quant else "")
     print(f"  {label}: launches {counts}; predicted {pred}; decode steps "
           f"{st.steps}, prefill batches {st.prefill_batches} (rows, max "
           f"prefix_len) {st.chunk_rows}")
@@ -2099,6 +2521,7 @@ def path4():
     print(f"  path 4: peak memory {ptq_peak / 2 ** 30:.2f} GiB (PTQ), "
           f"{res4['peak_mem_bytes'] / 2 ** 30:.2f} GiB (serving and step "
           "check)", flush=True)
+    path4c(params, cfg)
     RESULTS["path4"] = dict(res4, ptq_s=ptq_s, alpha=rep.alpha,
                             ptq_peak_mem_bytes=ptq_peak, fp_bytes=rep.fp_bytes,
                             quant_bytes=rep.quant_bytes,

@@ -1,6 +1,6 @@
 """PTQ artifacts: a quantized param tree and its metadata on disk (port of
 the PTQ half of ``repro/checkpoint/manager.py``; the train-checkpoint half
-waits for ROADMAP item 9).
+waits for ROADMAP queue A item 4).
 
 The files are the reference's, byte for byte in meaning, so an artifact
 saved by either package loads in the other: ``arrays.npz`` holds every leaf

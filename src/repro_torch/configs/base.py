@@ -93,7 +93,7 @@ class ModelConfig:
         if self.mixer not in ("attention", "mla"):
             raise NotImplementedError(
                 f"mixer={self.mixer!r}: only GQA attention and MLA are ported "
-                "(SSM mixers: ROADMAP.md queue A item 8)")
+                "(SSM mixers: ROADMAP.md queue A item 2)")
         if (self.mixer == "mla") != (self.mla is not None):
             raise ValueError(f"{self.name}: mixer={self.mixer!r} and "
                              f"mla={self.mla!r} disagree")
@@ -101,7 +101,7 @@ class ModelConfig:
             raise NotImplementedError(
                 f"family={self.family!r}: only the dense and MoE decoders are "
                 "ported (hybrid, SSM and encoder-decoder: ROADMAP.md queue A "
-                "item 8)")
+                "item 2)")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"{self.name}: family={self.family!r} and "
                              f"moe={self.moe!r} disagree")

@@ -26,6 +26,19 @@ saved here loads there.  ``--ptq-refresh`` re-quantizes (and re-saves)
 even when the artifact matches: its hash covers the configs, not the
 weight values.  The boot line says which path was taken,
 ``[artifact-load]`` or ``[quantize-on-load]``.
+
+Requests arrive as a Poisson stream (``--rate`` per second), stamped on the
+engine's clock.  ``--shared-prefix-len N`` puts the same N tokens (a system
+prompt) in front of every synthetic prompt; with ``--prefix-cache on`` (the
+default, as in the JAX CLI) requests after the first prefill only their
+uncached suffix.  ``--max-queue``, ``--deadline-s`` and ``--ttft-deadline-s``
+bound the waiting line and each request's time; ``--chaos`` installs the
+seeded fault plan of :func:`chaos_plan` (``--fault-seed``) and serves
+non-strict, so the drain must survive every injection site.  The stat lines
+render ``ServingEngine.metrics_snapshot()``; ``--no-metrics`` turns the
+engine's recording off, and ``--trace-out PATH`` writes the step journal
+and request timelines as a Chrome trace (open it in https://ui.perfetto.dev
+or chrome://tracing).
 """
 from __future__ import annotations
 
@@ -46,6 +59,25 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.w4a16_matmul import GROUP_MULTIPLE
 from repro_torch.models import api
 from repro_torch.serving.engine import Request, ServingEngine, load_or_quantize
+from repro_torch.serving.faults import FaultPlan, FaultSpec
+from repro_torch.serving.trace import write_chrome_trace
+
+
+def chaos_plan(seed: int = 0) -> FaultPlan:
+    """``--chaos``: a seeded plan that fires at every injection site (the JAX
+    CLI's plan, spec for spec)."""
+    return FaultPlan([
+        FaultSpec("page_alloc", every=11, times=3),
+        FaultSpec("page_grow", prob=0.05, times=3),
+        FaultSpec("pool_pressure", step=4, value=2, duration=3),
+        FaultSpec("swap_drain", op=0, times=1),
+        FaultSpec("swap_corrupt", op=1, times=1),
+        FaultSpec("prefix_evict", every=5, times=2),
+        FaultSpec("decode_launch", step=6, times=2),
+        FaultSpec("prefill_launch", op=2, times=1),
+        FaultSpec("fixed_drain", op=0, times=1),
+        FaultSpec("enc_evict", op=1, times=1),
+    ], seed=seed)
 
 
 def _sync(device) -> None:
@@ -90,7 +122,35 @@ def main(argv=None, *, attn_impl=None) -> dict:
     ap.add_argument("--reservation", choices=("lazy", "worstcase"),
                     default="lazy")
     ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="request arrival rate (Poisson, requests/s)")
+    ap.add_argument("--prefix-cache", choices=("on", "off"), default="on",
+                    help="shared-prefix KV cache: block-hash reuse of full "
+                         "prompt pages + suffix-only prefill (default on)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="give every synthetic request this many identical "
+                         "leading prompt tokens (a shared system prompt)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded waiting line: submit() sheds load "
+                         "(finish_reason='rejected') past this depth")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request total wall budget from arrival")
+    ap.add_argument("--ttft-deadline-s", type=float, default=None,
+                    help="per-request first-token budget from arrival")
+    ap.add_argument("--chaos", action="store_true",
+                    help="install a seeded fault plan firing at every "
+                         "injection site and serve non-strict")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the --chaos fault plan")
+    ap.add_argument("--no-metrics", action="store_true",
+                    help="disable the engine's histograms, timelines and "
+                         "step journal")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the step journal + request timelines as "
+                         "Chrome trace_event JSON")
     args = ap.parse_args(argv)
+    if args.trace_out and args.no_metrics:
+        ap.error("--trace-out needs metrics enabled (drop --no-metrics)")
     gs = (args.group_size if args.group_size is not None
           else 16 if args.smoke else 128)
     if not args.no_quant and (gs <= 0 or gs % GROUP_MULTIPLE):
@@ -141,38 +201,89 @@ def main(argv=None, *, attn_impl=None) -> dict:
               + ", ".join(f"{k.split('/', 1)[1]}={'a8' if v else 'a16'}"
                           for k, v in flags.items()))
 
+    fault_plan = chaos_plan(args.fault_seed) if args.chaos else None
+    prefix_cache = args.prefix_cache == "on"
     eng = ServingEngine(params, cfg, batch_size=args.batch_size,
                         max_seq=args.max_seq, page_size=args.page_size,
                         num_pages=args.num_pages,
                         prefill_mode=args.prefill_mode,
                         max_prefill_tokens=args.max_prefill_tokens,
                         reservation=args.reservation, seed=args.seed,
-                        device=device)
+                        prefix_cache=prefix_cache, max_queue=args.max_queue,
+                        fault_plan=fault_plan, strict=not args.chaos,
+                        metrics=not args.no_metrics, device=device)
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(args.min_prompt, args.max_prompt + 1, args.requests)
-    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, int(n)
-                                               ).astype(np.int32),
-                    max_tokens=args.max_tokens)
+    sys_p = rng.integers(2, cfg.vocab_size,
+                         args.shared_prefix_len).astype(np.int32)
+    reqs = [Request(uid=i, prompt=np.concatenate(
+                        [sys_p, rng.integers(2, cfg.vocab_size, int(n)
+                                             ).astype(np.int32)]),
+                    max_tokens=args.max_tokens,
+                    deadline_s=args.deadline_s,
+                    ttft_deadline_s=args.ttft_deadline_s)
             for i, n in enumerate(lens)]
+    # Poisson arrival offsets, drawn after the prompts, rebased on the
+    # engine's clock at submit time: deadlines count from arrival
+    gaps = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
     _sync(device)
     t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
+    base = eng._clock()
+    for r, g in zip(reqs, gaps):
+        r.arrival_t = base + float(g)
+    accepted = sum(eng.submit(r) for r in reqs)
     eng.run_until_drained()
     _sync(device)
     dt = time.perf_counter() - t0
-    st = eng.stats
-    ttft = [r.first_token_t - r.arrival_t for r in reqs]
-    print(f"served {st.completed}/{args.requests} requests, "
-          f"{st.decoded_tokens} decoded + {st.prefilled_tokens} prefilled "
-          f"tokens in {dt:.2f}s ({st.decoded_tokens / dt:.1f} decode tok/s); "
-          f"ttft p50={np.median(ttft) * 1e3:.1f}ms max={max(ttft) * 1e3:.1f}ms")
-    print(f"pager: peak concurrency {st.max_active}/{args.batch_size}, "
-          f"{st.grown_pages} pages grown lazily, "
-          f"{st.preemptions} preemptions "
-          f"({st.swapped_out_bytes / 1e6:.1f}MB swapped out, "
-          f"{st.swapped_in_bytes / 1e6:.1f}MB back in); "
-          f"free={eng.pager.free_pages}/{eng.pager.num_pages - 1}")
+
+    # every stat line renders the engine's metrics_snapshot()
+    snap = eng.metrics_snapshot()
+    st = snap["engine"]
+
+    def ms(h, k="p50"):
+        return f"{snap['latency'][h][k] * 1e3:.1f}ms"
+
+    print(f"served {st['completed']}/{args.requests} requests "
+          f"({accepted} accepted), {st['decoded_tokens']} decoded + "
+          f"{st['prefilled_tokens']} prefilled tokens in {dt:.2f}s "
+          f"({st['decoded_tokens'] / dt:.1f} decode tok/s)")
+    if not args.no_metrics:
+        print(f"latency: ttft p50={ms('ttft_s')} max={ms('ttft_s', 'max')} "
+              f"p99={ms('ttft_s', 'p99')}  itl p50={ms('itl_s')} "
+              f"p99={ms('itl_s', 'p99')}  e2e p50={ms('e2e_s')} "
+              f"p99={ms('e2e_s', 'p99')}  queue-wait "
+              f"p50={ms('queue_wait_s')}  swap-stall "
+              f"p50={ms('swap_stall_s')}")
+    print(f"lifecycle: rejected={st['rejected']} expired={st['expired']} "
+          f"cancelled={st['cancelled']} failed={st['failed']} "
+          f"retries={st['retries']} faults_injected={st['faults_injected']}")
+    if fault_plan is not None:
+        print(f"chaos: fault counters "
+              f"{snap['counters'].get('faults_fired_total', {})}")
+    pg = snap["pager"]
+    print(f"pager: peak concurrency {st['max_active']}/{args.batch_size}, "
+          f"{st['grown_pages']} pages grown lazily, "
+          f"{st['preemptions']} preemptions "
+          f"({st['swapped_out_bytes'] / 1e6:.1f}MB swapped out, "
+          f"{st['swapped_in_bytes'] / 1e6:.1f}MB back in); "
+          f"free={pg['free_pages']}/{pg['total_pages']} "
+          f"counts={pg['counts']}")
+    if prefix_cache:
+        hit = st["prefix_hits"] / max(st["admitted"], 1)
+        print(f"prefix-cache: hit-rate {hit:.0%} "
+              f"({st['prefix_hits']}/{st['admitted']} admissions, "
+              f"{st['prefix_matched_tokens']} prompt tokens served from "
+              f"cache), {st['pages_shared']} pages shared, "
+              f"{st['pages_inserted']} inserted, "
+              f"{st['pages_evicted']} evicted, "
+              f"{st['cow_copies']} copy-on-writes")
+    if args.trace_out:
+        obj = write_chrome_trace(args.trace_out, eng.trace,
+                                 n_slots=args.batch_size)
+        print(f"trace: {len(obj['traceEvents'])} events -> "
+              f"{args.trace_out}")
+    ttft = [r.first_token_t - r.arrival_t for r in reqs
+            if r.first_token_t is not None]
     art = Path(args.ptq_artifact) if args.ptq_artifact else None
     return {"engine": eng, "requests": reqs, "report": rep, "cfg": cfg,
             "boot_s": boot_s, "ptq_s": ptq_s, "serve_s": dt, "ttft_s": ttft,

@@ -3,8 +3,12 @@
 ``init_model`` defaults to the GPU and raises when there is no card; pass
 ``device="cpu"`` explicitly to build on the CPU.  The swap helpers
 (:func:`gather_pool_rows`, :func:`scatter_pool_rows`,
-:func:`swap_image_checksum`) move a preempted slot's pool rows; the
-copy-on-write ``copy_pool_page`` waits for the prefix-cache slice.
+:func:`swap_image_checksum`) move a preempted slot's pool rows, and
+:func:`copy_pool_page` gives a prefix-cache hit its copy-on-write page.
+Still to port from the reference facade: the hybrid SSM and
+encoder-decoder state leaves (``state_leaves``, ``init_fixed_state``,
+``encode_kv_fn``; ROADMAP.md).  Its training loss, dense-cache
+``prefill_fn`` / ``decode_fn`` and shape specs are not ported.
 """
 from __future__ import annotations
 
@@ -71,6 +75,19 @@ def scatter_pool_rows(pools, rows, pages: torch.Tensor):
         for k, leaf in lp.items():
             leaf.index_copy_(0, pages, lr[k].to(leaf.device, leaf.dtype,
                                                 non_blocking=True))
+    return pools
+
+
+def copy_pool_page(pools, src: torch.Tensor, dst: torch.Tensor):
+    """Copy-on-write: duplicate pool pages ``src[n]`` into ``dst[n]`` (int64,
+    on the pools' device; the destinations are distinct fresh pages) across
+    every leaf of every layer, codes and int8 scales alike, bit for bit and
+    in place: the decode CUDA graph holds these tensors, so the copy writes
+    into their storage.  ``src`` is read whole before any ``dst`` row is
+    written."""
+    for lp in pools["layers"]:
+        for leaf in lp.values():
+            leaf.index_copy_(0, dst, leaf.index_select(0, src))
     return pools
 
 

@@ -9,14 +9,26 @@ page: every unused table entry points at it, so idle rows' writes land
 somewhere harmless.
 
 Pages carry refcounts and belong to one *group* of tables (``"kv"`` first);
-:meth:`PagePool.attach` shares resident pages into a slot.  Preemption swaps
-a slot out (:meth:`PagePool.split_for_swap`, :meth:`PagePool.swap_out`,
-:meth:`PagePool.swap_in`): its private pages' rows go to the host and the
-pages return to the free list, while its shared pages stay resident under
-*swap holds* until resume re-acquires them (or :meth:`PagePool.drop_hold`
-abandons them).  The prefix-cache evictor, copy-on-write and the read-only
-groups' detach / reattach of the reference pager wait for the slices that
-port those features (ROADMAP.md).
+:meth:`PagePool.attach` shares resident pages into a slot.  A full,
+read-only page may be listed by several slots; the page under a slot's
+write cursor is always private (one reference, not cached).  The prefix
+cache (``serving/prefix_cache.py``) registers as the pool's *evictor*: pages
+it indexes stay resident after their last reference drops (refcount 0 +
+cached = evictable) and are reclaimed LRU-first exactly when an allocation
+would otherwise fail.  :meth:`PagePool.cow` gives a slot a private copy of a
+shared page before it writes into it (copy-on-write).
+
+Preemption swaps a slot out (:meth:`PagePool.split_for_swap`,
+:meth:`PagePool.swap_out`, :meth:`PagePool.swap_in`): its private pages'
+rows go to the host and the pages return to the free list, while its shared
+or cached pages stay resident under *swap holds* until resume re-acquires
+them (or :meth:`PagePool.drop_hold` abandons them).  The read-only groups'
+detach / reattach of the reference pager come with the encoder-decoder
+state leaves (ROADMAP.md).
+
+A :class:`~repro_torch.serving.faults.FaultPlan` on ``PagePool.faults``
+probes ``page_alloc`` and ``pool_pressure`` in :meth:`PagePool.can_alloc`
+and ``page_grow`` in :meth:`PagePool.grow`.
 """
 from __future__ import annotations
 
@@ -24,11 +36,16 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.serving.faults import TransientFault
+
 TRASH_PAGE = 0
 
 
 class PagerInvariantError(RuntimeError):
-    """A pager tripwire fired (stale table, refcount drift)."""
+    """A pager tripwire fired (stale table, refcount drift, shared-page write
+    hazard).  ``slot`` names the offending slot where there is one, so a
+    non-strict engine can quarantine that request and keep serving; it is
+    ``None`` for pool-wide violations (refcount drift)."""
 
     def __init__(self, msg: str, slot: Optional[int] = None):
         super().__init__(msg)
@@ -39,9 +56,11 @@ class PagePool:
     """Host-side page allocator over the device pools.
 
     Invariants (:meth:`check_invariants`): the trash page is never
-    allocated or held; ``ref[p]`` equals the number of table listings of
-    ``p`` plus its swap holds; ``free`` and ``{ref > 0}`` partition ``{1,
-    .., num_pages-1}``; a page is listed by at most one group's tables.
+    allocated, cached or held; ``ref[p]`` equals the number of table
+    listings of ``p`` plus its swap holds; ``free``, ``{ref > 0}`` and
+    ``{ref == 0, cached}`` (the evictable set, mirrored by the evictor's
+    LRU) partition ``{1, .., num_pages-1}``; a page is listed by at most one
+    group's tables.
     """
 
     def __init__(self, num_pages: int, page_size: int, batch_size: int,
@@ -66,6 +85,13 @@ class PagePool:
             for g in groups}
         self._ref = np.zeros(num_pages, np.int32)   # slot listings + holds
         self._held: Dict[int, int] = {}             # page -> swap-hold count
+        self._cached: set = set()                   # prefix-cache resident
+        self._evictor = None                        # PrefixCache (or None)
+        self.faults = None                          # FaultPlan (or None)
+        # cumulative page events; the engine's step journal diffs them
+        # across a step
+        self.counts: Dict[str, int] = {
+            "grown": 0, "cow": 0, "attached": 0, "freed": 0, "evicted": 0}
 
     # ------------------------------------------------------------- queries --
     @property
@@ -75,8 +101,20 @@ class PagePool:
     def pages_needed(self, tokens: int) -> int:
         return max(1, -(-tokens // self.page_size))
 
+    def evictable_pages(self) -> int:
+        return self._evictor.evictable_count() if self._evictor else 0
+
     def can_alloc(self, n: int) -> bool:
-        return n <= len(self._free)
+        """Whether ``n`` pages are obtainable, free now or by LRU eviction
+        of unreferenced cached pages.  The ``page_alloc`` fault reports an
+        outage and ``pool_pressure`` withholds phantom pages: both take the
+        callers' existing "not enough pages" paths."""
+        avail = len(self._free) + self.evictable_pages()
+        if self.faults is not None:
+            if self.faults.fires("page_alloc"):
+                return False
+            avail -= self.faults.pressure_pages()
+        return n <= avail
 
     def slot_pages(self, slot: int, group: str = "kv") -> List[int]:
         return list(self._slot_pages_g[group][slot])
@@ -87,6 +125,9 @@ class PagePool:
 
     def page_ref(self, page: int) -> int:
         return int(self._ref[page])
+
+    def is_cached(self, page: int) -> bool:
+        return page in self._cached
 
     def refs(self) -> np.ndarray:
         """[num_pages] int32 refcounts (slot listings + swap holds)."""
@@ -99,12 +140,54 @@ class PagePool:
             h[p] = n
         return h
 
+    def cached_mask(self) -> np.ndarray:
+        """[num_pages] bool: page is registered (read-only) in the cache."""
+        m = np.zeros(self.num_pages, bool)
+        m[list(self._cached)] = True
+        return m
+
+    # --------------------------------------------------- evictor / caching --
+    def set_evictor(self, evictor) -> None:
+        """Register the prefix cache: it keeps unreferenced cached pages
+        resident (LRU) and gives them back through :meth:`release_cached`."""
+        self._evictor = evictor
+
+    def mark_cached(self, page: int) -> None:
+        """The prefix cache indexed ``page`` (full, read-only from now on)."""
+        if page == TRASH_PAGE:
+            raise ValueError("cannot cache the trash page")
+        self._cached.add(page)
+
+    def release_cached(self, page: int) -> None:
+        """The evictor reclaimed an unreferenced cached page: back to free."""
+        if self._ref[page] != 0 or page not in self._cached:
+            raise RuntimeError(f"page {page} is not an evictable cached page")
+        self._cached.discard(page)
+        self._free.append(page)
+        self.counts["evicted"] += 1
+
+    def _take_free(self, n: int) -> List[int]:
+        """Pop ``n`` free pages, evicting LRU cached pages as needed."""
+        while len(self._free) < n and self._evictor is not None \
+                and self._evictor.evict_one():
+            pass
+        if n > len(self._free):
+            raise RuntimeError(f"out of pages: need {n}, free "
+                               f"{len(self._free)}")
+        return [self._free.pop() for _ in range(n)]
+
     # ------------------------------------------------------- alloc / free ---
     def _release(self, page: int) -> None:
+        """Drop one reference; an unreferenced page returns to the free list
+        unless the prefix cache indexes it (then it turns evictable)."""
         self._ref[page] -= 1
         assert self._ref[page] >= 0, f"refcount underflow on page {page}"
         if self._ref[page] == 0:
-            self._free.append(page)
+            if page in self._cached:
+                self._evictor.on_unreferenced(page)
+            else:
+                self._free.append(page)
+                self.counts["freed"] += 1
 
     def alloc(self, slot: int, n: int) -> List[int]:
         """Give ``slot`` ``n`` pages.  The slot must currently own none."""
@@ -113,26 +196,30 @@ class PagePool:
         return self.grow(slot, n)
 
     def grow(self, slot: int, n: int = 1, group: str = "kv") -> List[int]:
-        """Append ``n`` fresh private pages to ``slot``'s table."""
+        """Append ``n`` fresh private pages to ``slot``'s table (lazy decode
+        growth, or admission).  The ``page_grow`` fault raises
+        :class:`TransientFault` before anything is allocated."""
         sp, tab = self._slot_pages_g[group], self._table_g[group]
         owned = len(sp[slot])
         if owned + n > self._maxp[group]:
             raise ValueError(
                 f"slot {slot} would own {owned + n} {group} pages > "
                 f"max={self._maxp[group]}")
-        if n > len(self._free):
-            raise RuntimeError(f"out of pages: need {n}, free "
-                               f"{len(self._free)}")
-        pages = [self._free.pop() for _ in range(n)]
+        if self.faults is not None and self.faults.fires("page_grow"):
+            raise TransientFault(
+                f"injected page_grow fault (slot {slot}, n={n})")
+        pages = self._take_free(n)
         for p in pages:
             self._ref[p] = 1
         sp[slot].extend(pages)
         tab[slot, owned:owned + n] = pages
+        self.counts["grown"] += n
         return pages
 
     def attach(self, slot: int, pages: List[int], group: str = "kv") -> None:
-        """Share already-referenced pages into ``slot``'s table (one more
-        reference each), appended in order."""
+        """Share resident pages into ``slot``'s table (a prefix-cache hit),
+        appended in order.  Each gains one reference; an evictable page is
+        pinned again (it leaves the evictor's LRU)."""
         sp, tab = self._slot_pages_g[group], self._table_g[group]
         owned = len(sp[slot])
         if owned + len(pages) > self._maxp[group]:
@@ -143,14 +230,40 @@ class PagePool:
             if p == TRASH_PAGE:
                 raise ValueError("cannot attach the trash page")
             if self._ref[p] == 0:
-                raise RuntimeError(f"page {p} is not resident (freed?)")
+                if p not in self._cached:
+                    raise RuntimeError(f"page {p} is not resident (freed?)")
+                self._evictor.on_referenced(p)
             self._ref[p] += 1
         sp[slot].extend(pages)
         tab[slot, owned:owned + len(pages)] = pages
+        self.counts["attached"] += len(pages)
+
+    def cow(self, slot: int, logical_idx: int, *,
+            hold_src: bool = False) -> Tuple[int, int]:
+        """Copy-on-write: replace ``slot``'s shared logical page with a fresh
+        private one and return ``(src, dst)``; the caller copies the device
+        rows ``src → dst`` before the slot reads or writes that page.  With
+        ``hold_src`` the slot's reference on ``src`` becomes a hold, pinning
+        it until the caller has copied it and calls :meth:`drop_hold`;
+        without, a ``src`` whose refcount reaches 0 is evictable at once,
+        and a later allocation in the same plan could overwrite it before a
+        deferred copy reads it."""
+        sp, tab = self._slot_pages_g["kv"], self._table_g["kv"]
+        old = sp[slot][logical_idx]
+        new = self._take_free(1)[0]
+        self._ref[new] = 1
+        self.counts["cow"] += 1
+        sp[slot][logical_idx] = new
+        tab[slot, logical_idx] = new
+        if hold_src:
+            self._held[old] = self._held.get(old, 0) + 1
+        else:
+            self._release(old)
+        return old, new
 
     def drop_hold(self, page: int) -> None:
-        """Release one hold on ``page`` (a swap image discarded): the
-        reference it kept alive is dropped normally."""
+        """Release one hold on ``page`` (a COW source copied, or a swap
+        image discarded): the reference it kept alive drops normally."""
         self._unhold(page)
         self._release(page)
 
@@ -177,13 +290,14 @@ class PagePool:
     def split_for_swap(self, slot: int) -> Tuple[List[Tuple[int, int]],
                                                  List[Tuple[int, int]]]:
         """Partition ``slot``'s kv pages into ``(kept, private)`` lists of
-        ``(logical_idx, page)``.  *Kept* pages are shared (refcount > 1):
-        they stay in the pool under a hold and resume re-acquires them.
-        *Private* pages are the ones whose rows round-trip through the host
-        swap buffer."""
+        ``(logical_idx, page)``.  *Kept* pages are shared (refcount > 1) or
+        cached: they stay in the pool under a hold and resume re-acquires
+        them.  *Private* pages are the ones whose rows round-trip through
+        the host swap buffer."""
         kept, private = [], []
         for li, p in enumerate(self._slot_pages_g["kv"][slot]):
-            (kept if self._ref[p] > 1 else private).append((li, p))
+            shared = self._ref[p] > 1 or p in self._cached
+            (kept if shared else private).append((li, p))
         return kept, private
 
     def swap_out(self, slot: int,
@@ -217,10 +331,7 @@ class PagePool:
         sp, tab = self._slot_pages_g["kv"], self._table_g["kv"]
         if sp[slot]:
             raise RuntimeError(f"slot {slot} already owns pages")
-        if len(private_lis) > len(self._free):
-            raise RuntimeError(f"out of pages: need {len(private_lis)}, "
-                               f"free {len(self._free)}")
-        fresh = [self._free.pop() for _ in private_lis]
+        fresh = self._take_free(len(private_lis))
         entries: Dict[int, int] = {}
         for li, p in kept:
             self._unhold(p)
@@ -251,15 +362,23 @@ class PagePool:
         held = self.held()
         assert counts[TRASH_PAGE] == 0, "trash page was allocated"
         assert TRASH_PAGE not in self._free, "trash page in free list"
+        assert TRASH_PAGE not in self._cached, "trash page cached"
         assert held[TRASH_PAGE] == 0, "trash page held"
         assert (self._ref == counts + held).all(), \
             "refcounts out of sync with slot tables + swap holds"
         free = set(self._free)
         assert len(free) == len(self._free), "free list duplicate"
         referenced = set(np.nonzero(self._ref)[0].tolist())
+        evictable = {p for p in self._cached if self._ref[p] == 0}
         assert not (free & referenced), "free page still referenced"
-        assert free | referenced == set(range(1, self.num_pages)), \
-            "page leak / invention"
+        assert not (free & self._cached), "free page still cached"
+        assert free | referenced | evictable == set(
+            range(1, self.num_pages)), "page leak / invention"
+        if self._evictor is not None:
+            assert set(self._evictor.evictable_page_ids()) == evictable, (
+                "evictor LRU out of sync with unreferenced cached pages")
+        else:
+            assert not evictable, "cached pages with no evictor registered"
         for g in self.groups:
             tab = self._table_g[g]
             for s, sp in enumerate(self._slot_pages_g[g]):
@@ -271,12 +390,16 @@ class PagePool:
 
 
 def assert_live_tables(table, write_pos, page_size: int, active, *,
-                       refs=None, held=None) -> None:
+                       refs=None, held=None, cached=None) -> None:
     """Pager tripwires, vectorized: an active slot's live table prefix (the
     pages covering positions 0..write_pos) must never reference the trash
-    page, and with ``refs`` (+ ``held``, the swap holds) every table listing
-    must be counted (``refs == listings + holds``) and the page under each
-    active write cursor must be private (one reference, no hold)."""
+    page, and with ``refs`` (+ ``held``, the swap holds, and ``cached``, the
+    pool's :meth:`PagePool.cached_mask`) every table listing must be counted
+    (``refs == listings + holds``) and the page under each active write
+    cursor must be private: one reference, no hold, not cached (shared and
+    cached pages are read-only and take a copy-on-write first).  Raises
+    :class:`PagerInvariantError`, with ``.slot`` where one slot is at
+    fault."""
     table = np.asarray(table)
     write_pos = np.asarray(write_pos)
     active = np.asarray(active, bool)
@@ -307,10 +430,16 @@ def assert_live_tables(table, write_pos, page_size: int, active, *,
                                              p_max - 1)]
     shared = active & ((refs[wp_page] - held[wp_page] != 1)
                        | (held[wp_page] != 0))
+    if cached is not None:
+        shared |= active & np.asarray(cached)[wp_page]
     if shared.any():
         s = int(np.argmax(shared))
+        p = int(wp_page[s])
         raise PagerInvariantError(
             f"shared-page write hazard: active slot {s} would write position "
-            f"{int(write_pos[s])} into page {int(wp_page[s])} "
-            f"(ref={int(refs[wp_page[s]])}, held={int(held[wp_page[s]])})",
+            f"{int(write_pos[s])} into page {p} (ref={int(refs[p])}, "
+            f"held={int(held[p])}"
+            + (f", cached={bool(np.asarray(cached)[p])}" if cached is not None
+               else "")
+            + ") — shared/cached pages are read-only and need copy-on-write",
             slot=s)

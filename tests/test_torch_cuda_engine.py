@@ -128,3 +128,83 @@ def test_tight_pool_matches_roomy_pool_on_the_card(dev, name):
     assert tight.resumes == tight.preemptions
     assert tight.swapped_out_bytes == tight.swapped_in_bytes > 0
     assert outs[0] == outs[1]
+
+
+def _prefix_waves(vocab, seed=7):
+    """Two waves behind one 12-token (3-page) shared prefix; wave 2 opens
+    with the bare prefix, a page-aligned full match (COW)."""
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(2, vocab, 12).astype(np.int32)
+    w1 = [np.concatenate([sys_p, rng.integers(2, vocab, n).astype(np.int32)])
+          for n in (3, 5, 2)]
+    w2 = [sys_p.copy(), w1[0].copy(),
+          rng.integers(2, vocab, 19).astype(np.int32)]
+    return w1, w2
+
+
+@pytest.mark.parametrize("name", ["codellama", "codellama_int8",
+                                  "deepseek"])
+def test_prefix_cache_under_the_graph_equals_cold_run(dev, name):
+    """The prefix cache on the card: cached prefix pages read by K3 / B9,
+    a COW copy into the pools the decode graph holds, a one-token chunk
+    behind a full prefix; the tokens equal the cache-off run's and the
+    decode still replays one graph, once a step."""
+    arch, kvq = CONFIGS[name]
+    cfg, params = _quantized(arch, dev)
+    cfg = cfg.with_(kv_quant=kvq)
+    outs, engs = [], []
+    for cache in (False, True):
+        eng = ServingEngine(params, cfg, batch_size=2, max_seq=32,
+                            page_size=4, num_pages=11, prefix_cache=cache,
+                            device=dev)
+        out = []
+        for wave in _prefix_waves(cfg.vocab_size):
+            reqs = [Request(uid=len(out) + i, prompt=p, max_tokens=5)
+                    for i, p in enumerate(wave)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_drained()
+            out += [r.output for r in reqs]
+        eng.pager.check_invariants()
+        assert eng.decode_graph.replays == eng.stats.steps
+        outs.append(out)
+        engs.append(eng)
+    cold, warm = engs
+    assert outs[0] == outs[1]
+    assert warm.stats.prefix_hits >= 2 and warm.stats.cow_copies >= 1
+    assert warm.stats.prefilled_tokens < cold.stats.prefilled_tokens
+
+
+def test_decode_launch_fault_skips_one_replay(dev):
+    """A ``decode_launch`` fault at step 3 launches nothing: the graph
+    replays once a decode step that ran, the launch counters equal one
+    replay's counts per replay plus the prefill chunks', and the tokens
+    equal the unfaulted run's."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+
+    cfg, params = _quantized("codellama-7b", dev)
+    runs = []
+    for faulted in (False, True):
+        plan = (FaultPlan([FaultSpec("decode_launch", step=3, times=1)])
+                if faulted else None)
+        eng = ServingEngine(params, cfg, batch_size=3, max_seq=32,
+                            page_size=4, fault_plan=plan, device=dev)
+        reqs = _requests(cfg.vocab_size, 3, 8)
+        K.reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        st = eng.run_until_drained()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        g = eng.decode_graph
+        assert g.replays == st.steps
+        nl = cfg.num_layers
+        assert counts["gqa_paged_decode"] == nl * st.steps
+        assert counts["gqa_paged_prefill"] == nl * st.prefill_batches
+        assert counts["w4a16_matmul"] == 7 * nl * (st.steps
+                                                   + st.prefill_batches)
+        runs.append((st, [r.output for r in reqs], plan))
+    (st0, out0, _), (st1, out1, plan) = runs
+    assert plan.injected["decode_launch"] == 1
+    assert st1.retries == 1 and out1 == out0
+    assert st1.steps == st0.steps

@@ -205,6 +205,9 @@ def test_port_imports_neither_jax_nor_reference():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.')]\n"
         "assert len(mods) >= 20, mods\n"
+        "new = {'repro_torch.serving.' + m for m in "
+        "('faults', 'prefix_cache', 'metrics', 'trace')}\n"
+        "assert new <= set(mods), new - set(mods)\n"
         "[importlib.import_module(m) for m in mods]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
