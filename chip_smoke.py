@@ -115,6 +115,25 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    path 4's params with the prefix cache, two waves of 4 behind a 128-token
    system prompt (B9 reads cached latent pages, B8 decodes over shared
    ones), cold and warm as path 1d;
+   path 5 — the registry's other dense decoders at full width, random
+   seeded weights with every bias and LayerNorm shift filled from a seeded
+   N(0, 0.02²), SmoothQuant+ in f32 (G=128), A16, fp pools, path 1's 8
+   requests: llama3.2-3b (tied 128256-row head, grp 3), chatglm3-6b
+   (RoPE-2d, grp 16; through the serve entry), qwen2-vl-7b (M-RoPE,
+   q/k/v/o biases, grp 7) and starcoder2-15b (LayerNorm, GELU MLP, biases,
+   grp 12) at full depth, mistral-large-123b (12288 ↔ 28672 GEMMs, grp
+   12) with its depth cut to 6 of 88 layers (reduced: a layer is 5.5 GB in
+   f32, the whole model 490 GB).  Each: launch counts equal to the
+   prediction (K1 for 7 linears a layer, 6 with the GELU MLP, per decode
+   step and prefill batch; K2 once a layer a step; K3 once a layer a
+   batch), graph replays equal to the decode steps with one replay bitwise
+   against an eager step, one prefill and one decode step against the
+   dequantized gather oracle, every kernel against its plain version on the
+   path's operands; tok/s, TTFT p50 / max, PTQ s and peak memory per model,
+   and the path's seconds.  The kernel phase holds K2/K3 at path 5's (Hkv,
+   grp) (8, 3), (4, 7), (4, 12), (2, 16), (8, 12) at path 1's lengths and
+   chunk shape, f32 and bf16, and K1 at its MLP widths (4096 ↔ 13696,
+   6144 ↔ 24576, 12288 ↔ 28672; T=4 and 512);
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -423,6 +442,30 @@ def check_k1():
                        W4.w4a16_matmul_plain, (4, 64, 512), False)
 
 
+# path 5's widest GEMMs: chatglm3-6b's MLP, starcoder2-15b's, mistral-large's
+DENSE_WIDTHS = ((4096, 13696), (13696, 4096), (6144, 24576), (24576, 6144),
+                (12288, 28672), (28672, 12288))
+
+
+def check_k1_widths():
+    """K1 at path 5's MLP widths, T=4 (decode) and 512 (a prefill chunk),
+    G=128, f32 X."""
+    print("K1 at path 5's MLP widths")
+    rows = {}
+    for ci, co in DENSE_WIDTHS:
+        gen = torch.Generator(device=DEV).manual_seed(ci + co)
+        w = torch.randn(ci, co, generator=gen, device=DEV) * ci ** -0.5
+        qt = quantize(w, group_size=128)
+        del w
+        for t in (4, 512):
+            x = torch.randn(t, ci, generator=gen, device=DEV)
+            rows[(t, ci, co)] = _gemm_case(
+                "w4a16_matmul", W4.w4a16_matmul_cuda, W4.w4a16_matmul_plain,
+                qt, x, False, "")
+        del qt
+    return rows
+
+
 def check_b5():
     print("B5 w4a8_matmul (replaces repro/kernels/w4a16_matmul.py:"
           "_kernel_a8)")
@@ -518,7 +561,12 @@ K2_CASES = [(f"grp={grp}", 4, 32, grp, 128, [1024, 700, 333, 17], kind)
             for kind in (torch.float32, torch.bfloat16, torch.int8)] + [
     ("path 1", 4, 32, 1, 128, [216, 150, 90, 33], torch.float32),
     ("path 2", 4, 32, 1, 128, [216, 150, 90, 33], torch.int8),
-    ("path 3", 4, 8, 2, 64, [216, 150, 90, 33], torch.float32)]
+    ("path 3", 4, 8, 2, 64, [216, 150, 90, 33], torch.float32)] + [
+    # path 5's (Hkv, grp): llama3.2-3b, qwen2-vl-7b, starcoder2-15b,
+    # chatglm3-6b, mistral-large-123b; path 1's lengths
+    (f"path 5, Hkv={hkv} grp={grp}", 4, hkv, grp, 128, [216, 150, 90, 33],
+     kind) for hkv, grp in ((8, 3), (4, 7), (4, 12), (2, 16), (8, 12))
+    for kind in (torch.float32, torch.bfloat16)]
 
 
 def check_k2():
@@ -593,7 +641,12 @@ K3_CASES = [("table", 4, t, 32, 1, 128, prefix, [t, t - 7, t // 2, 1], kind,
     # a long prefix with peaked scores (q scaled by 4): P V sums past 2048
     # keys, where one accumulator drifted past the tolerance
     ("peaked", 1, 128, 32, 1, 128, [1920], [128], kind, torch.float32)
-    for kind in (torch.float32, torch.int8)]
+    for kind in (torch.float32, torch.int8)] + [
+    # path 5's (Hkv, grp) at path 1's chunk shape
+    (f"path 5, Hkv={hkv} grp={grp}", 2, 256, hkv, grp, 128, [0, 0],
+     [256, 200], kind, kind)
+    for hkv, grp in ((8, 3), (4, 7), (4, 12), (2, 16), (8, 12))
+    for kind in (torch.float32, torch.bfloat16)]
 
 
 def check_k3():
@@ -1959,6 +2012,191 @@ def metrics_overhead(params, cfg, prompts, steps=16):
     gc.collect()
 
 
+# ------------------------------------------------ path 5: dense decoders ---
+# (arch, depth or None for the config's own): full depth where the f32
+# model, PTQ's peak and the step check's dequantized copy fit in 80 GB
+PATH5 = (("llama3.2-3b", None), ("chatglm3-6b", None), ("qwen2-vl-7b", None),
+         ("starcoder2-15b", None), ("mistral-large-123b", 6))
+
+
+def fill_biases(params, seed=0, sd=0.02):
+    """Every bias and LayerNorm shift drawn in place from a seeded N(0, sd²)
+    (``init_linear`` and ``init_norm`` zero them), so that the bias adds
+    are live; returns how many tensors were filled."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    n = 0
+
+    def walk(node):
+        nonlocal n
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in items:
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif k in ("b", "bias"):
+                v.copy_(torch.randn(v.shape, generator=gen, device=DEV) * sd)
+                n += 1
+    walk(params)
+    return n
+
+
+def path5_prediction(st, nl, n_linear):
+    """A dense decoder's launches: K1 for each of its ``n_linear`` quantized
+    linears (7 for SwiGLU, 6 for the GELU MLP) of every layer on every decode
+    step and prefill batch, K2 once a layer a step, K3 once a layer a
+    batch, nothing else."""
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": n_linear * nl * (st.steps
+                                                   + st.prefill_batches),
+                 "gqa_paged_decode": nl * st.steps,
+                 "gqa_paged_prefill": nl * st.prefill_batches})
+    return pred
+
+
+def _path5_serve(arch):
+    """One model through the serve entry, as path 1."""
+    from repro_torch.launch import serve
+
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        res = serve.main(["--arch", arch, "--requests", "8",
+                          "--batch-size", "4", "--max-seq", "256",
+                          "--max-tokens", "16", "--min-prompt", "32",
+                          "--max-prompt", "200", "--seed", "0",
+                          *SERVE_COLD])
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    return (res["engine"], res["requests"], res["report"], counts, seen,
+            dict(ptq_s=res["ptq_s"], serve_s=res["serve_s"],
+                 ttft_s=sorted(res["ttft_s"]), biases_filled=0))
+
+
+def _path5_library(arch, depth):
+    """One model through the library entry points, as path 4: every bias
+    and LayerNorm shift filled before PTQ, then path 1's requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.calibration import synthetic_calibration_set
+    from repro_torch.models import api
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            load_or_quantize)
+
+    cfg = get_config(arch).with_(dtype="float32")
+    if depth is not None:
+        cfg = cfg.with_(num_layers=depth)
+    params = api.init_model(cfg, seed=0, device=DEV)
+    n_bias = fill_biases(params)
+    calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, rep = load_or_quantize(params, cfg, calib,
+                                   QuantConfig(group_size=128))
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    ptq_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 201, 8)
+    reqs = [Request(uid=i, prompt=rng.integers(2, cfg.vocab_size, int(n)
+                                               ).astype(np.int32),
+                    max_tokens=16) for i, n in enumerate(lens)]
+    eng = ServingEngine(params, cfg, batch_size=4, max_seq=256, page_size=16,
+                        seed=0, device=DEV)
+    torch.cuda.synchronize()
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+    return (eng, reqs, rep, counts, seen,
+            dict(ptq_s=ptq_s, serve_s=serve_s, ptq_peak_mem_bytes=ptq_peak,
+                 ttft_s=sorted(r.first_token_t - r.arrival_t for r in reqs),
+                 biases_filled=n_bias))
+
+
+def _path5_model(arch, depth):
+    from repro_torch.configs import get_config
+
+    label = f"path 5 {arch}"
+    torch.cuda.reset_peak_memory_stats()
+    t_model = time.perf_counter()
+    if arch == "chatglm3-6b":
+        eng, reqs, rep, counts, seen, res = _path5_serve(arch)
+    else:
+        eng, reqs, rep, counts, seen, res = _path5_library(arch, depth)
+    cfg, st = eng.cfg, eng.stats
+    nl = cfg.num_layers
+    pred = path5_prediction(st, nl, 6 if cfg.mlp == "gelu" else 7)
+    cut = "" if depth is None else (
+        f", reduced: num_layers {get_config(arch).num_layers} → {depth}")
+    print(f"  {label} (d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_kv_heads} KV heads (grp {cfg.num_heads // cfg.num_kv_heads}"
+          f"), d_ff {cfg.d_ff}, rope {cfg.rope}, {cfg.norm}, {cfg.mlp}, "
+          f"biases {cfg.attn_bias} ({res['biases_filled']} tensors filled), "
+          f"{nl} layers{cut}): launches {counts}; predicted {pred}; decode "
+          f"steps {st.steps}, prefill batches {st.prefill_batches}",
+          flush=True)
+    require(all(r.finish_reason in ("completed", "length") for r in reqs),
+            f"{label}: a request did not finish")
+    require(all(len(r.output) == r.max_tokens or r.finish_reason ==
+                "completed" for r in reqs),
+            f"{label}: a request stopped early without EOS")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+            f"{label}: token out of range")
+    require(counts == pred, f"{label}: launch counts differ from the "
+            "prediction")
+    tok_s = st.decoded_tokens / res["serve_s"]
+    ttft = res["ttft_s"]
+    completed = st.completed
+    res.update(arch=arch, num_layers=nl, full_depth=depth is None,
+               alpha=rep.alpha, launches=counts, predicted=pred,
+               decode_steps=st.steps, prefill_batches=st.prefill_batches,
+               decoded_tokens=st.decoded_tokens,
+               prefilled_tokens=st.prefilled_tokens, decode_tok_s=tok_s,
+               fp_bytes=rep.fp_bytes, quant_bytes=rep.quant_bytes,
+               **check_decode_graph(eng, label))
+    res["path_operands"] = check_path_operands(seen, label)
+    del seen
+    res.update(check_step_against_plain(eng.params, cfg, eng.PS,
+                                        reqs[0].prompt))
+    profile_decode(eng, reqs, f"path5_{arch}_profile")
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    res["model_s"] = time.perf_counter() - t_model
+    print(f"  {label}: PTQ alpha={rep.alpha:.2f} in {res['ptq_s']:.1f}s "
+          f"({rep.fp_bytes / 1e9:.2f} GB -> {rep.quant_bytes / 1e9:.2f} GB); "
+          f"served {completed} requests in {res['serve_s']:.2f}s: "
+          f"{tok_s:.1f} decode tok/s, TTFT p50 {statistics.median(ttft):.3f}s "
+          f"max {ttft[-1]:.3f}s; peak memory "
+          + (f"{res['ptq_peak_mem_bytes'] / 2 ** 30:.2f} GiB (PTQ), "
+             if "ptq_peak_mem_bytes" in res else "")
+          + f"{res['peak_mem_bytes'] / 2 ** 30:.2f} GiB (whole model); "
+          f"{res['model_s']:.1f}s in all", flush=True)
+    del eng
+    return res
+
+
+def path5():
+    """The registry's other dense decoders at full width, served in f32 at
+    G=128, A16, fp pools: llama3.2-3b, chatglm3-6b (through the serve
+    entry), qwen2-vl-7b and starcoder2-15b at full depth,
+    mistral-large-123b with its depth cut."""
+    print("path 5: llama3.2-3b, chatglm3-6b, qwen2-vl-7b, starcoder2-15b, "
+          "mistral-large-123b (6 of 88 layers) at full width, SmoothQuant+ "
+          "W4A16 f32, fp pools, path 1's requests", flush=True)
+    t0 = time.perf_counter()
+    models = {}
+    for arch, depth in PATH5:
+        models[arch] = _path5_model(arch, depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    print(f"path 5 took {took:.1f}s", flush=True)
+    RESULTS["path5"] = dict(models=models, seconds=took)
+    return {arch: m["launches"] for arch, m in models.items()}
+
+
 def path4c(params, cfg):
     """Path 4's params (deepseek-v2-236b, 2 layers, fp latent pools,
     128-token chunks) with the prefix cache: two waves of 4 behind a
@@ -2548,6 +2786,7 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     k1, b5, k2, k3 = check_k1(), check_b5(), check_k2(), check_k3()
+    check_k1_widths()
     b67, b4, b89 = check_grouped(), check_flash(), check_mla()
     check_mla_long()
     check_offset_only()
@@ -2579,6 +2818,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     counts4, counts4b = path4()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path5()
 
     # one row per kernel: its path's shape in the paths' f32, and its
     # launches on the path that runs it

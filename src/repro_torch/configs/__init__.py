@@ -1,9 +1,10 @@
 """Config registry (port of ``repro/configs/__init__.py``).
 
-The paper's own Code Llama family, the Granite MoE and DeepSeek-V2 (MLA,
-shared experts) are ported; every
-other architecture of the reference registry raises a clear "not ported
-yet" error.
+The paper's own Code Llama family, the dense decoders (Llama-3.2,
+Mistral-Large, ChatGLM3 with RoPE-2d, StarCoder2 with LayerNorm, GELU and
+biases, Qwen2-VL with M-RoPE and the patch-embedding stub), the Granite MoE
+and DeepSeek-V2 (MLA, shared experts) are ported; the hybrid, SSM and
+encoder-decoder architectures raise a clear "not ported yet" error.
 """
 from __future__ import annotations
 
@@ -13,13 +14,17 @@ from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
                                      MoEConfig, QuantConfig)
 
 ARCH_IDS = ("codellama-7b", "codellama-13b", "codellama-34b",
+            "llama3.2-3b", "mistral-large-123b", "chatglm3-6b",
+            "starcoder2-15b", "qwen2-vl-7b",
             "granite-moe-1b-a400m", "deepseek-v2-236b")
 
 # the reference registry's other architectures (see ROADMAP.md queue A)
-NOT_PORTED = (
-    "mistral-large-123b", "chatglm3-6b", "llama3.2-3b", "starcoder2-15b",
-    "zamba2-7b", "qwen2-vl-7b", "rwkv6-7b", "whisper-medium",
-)
+NOT_PORTED = ("zamba2-7b", "rwkv6-7b", "whisper-medium")
+
+
+def _modname(arch_id: str) -> str:
+    """The reference's module name: ``llama3.2-3b`` → ``llama3_2_3b``."""
+    return arch_id.replace("-", "_").replace(".", "_")
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
@@ -29,6 +34,5 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
             f"{ARCH_IDS} (see ROADMAP.md queue A)")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    mod = importlib.import_module(
-        f"repro_torch.configs.{arch_id.replace('-', '_')}")
+    mod = importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG

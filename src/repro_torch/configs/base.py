@@ -1,6 +1,6 @@
 """Model / quantization configuration dataclasses (port of
-``repro/configs/base.py``: the dense and MoE decoder families, GQA or
-Multi-head Latent Attention).
+``repro/configs/base.py``: the dense, VLM-stub and MoE decoder families,
+GQA or Multi-head Latent Attention).
 
 The fields keep the reference's names and defaults so a config prints the
 same in both packages.  Features the port has not covered yet stay as
@@ -38,7 +38,7 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | moe (others not ported yet)
+    family: str                        # dense | moe | vlm (others not ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -47,14 +47,14 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None     # default d_model // num_heads
     mixer: str = "attention"           # attention | mla
-    mlp: str = "swiglu"
-    rope: str = "standard"
+    mlp: str = "swiglu"                # swiglu | gelu
+    rope: str = "standard"             # standard | 2d | mrope
     rope_theta: float = 1e4
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"              # rmsnorm | layernorm
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     tie_embeddings: bool = False
-    attn_bias: bool = False
+    attn_bias: bool = False            # biases on q/k/v/o and the GELU MLP
     dtype: str = "bfloat16"
     # int8 KV page pools with per-(position, head) f32 scales
     kv_quant: bool = False
@@ -93,15 +93,15 @@ class ModelConfig:
         if self.mixer not in ("attention", "mla"):
             raise NotImplementedError(
                 f"mixer={self.mixer!r}: only GQA attention and MLA are ported "
-                "(SSM mixers: ROADMAP.md queue A item 2)")
+                "(SSM mixers: ROADMAP.md queue A item 1)")
         if (self.mixer == "mla") != (self.mla is not None):
             raise ValueError(f"{self.name}: mixer={self.mixer!r} and "
                              f"mla={self.mla!r} disagree")
-        if self.family not in ("dense", "moe"):
+        if self.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"family={self.family!r}: only the dense and MoE decoders are "
-                "ported (hybrid, SSM and encoder-decoder: ROADMAP.md queue A "
-                "item 2)")
+                f"family={self.family!r}: only the dense, VLM-stub and MoE "
+                "decoders are ported (hybrid, SSM and encoder-decoder: "
+                "ROADMAP.md queue A item 1)")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"{self.name}: family={self.family!r} and "
                              f"moe={self.moe!r} disagree")
@@ -116,11 +116,16 @@ class ModelConfig:
             raise ValueError(
                 f"paged_attn_impl={self.paged_attn_impl!r}: expected 'auto' "
                 "or 'gather'")
-        if self.rope != "standard" or self.norm != "rmsnorm" \
-                or self.mlp != "swiglu" or self.attn_bias:
+        for field, ported in (("rope", ("standard", "2d", "mrope")),
+                              ("norm", ("rmsnorm", "layernorm")),
+                              ("mlp", ("swiglu", "gelu"))):
+            if getattr(self, field) not in ported:
+                raise NotImplementedError(
+                    f"{self.name}: {field}={getattr(self, field)!r}: the port "
+                    f"has {ported}")
+        if self.mlp == "gelu" and self.moe is not None:
             raise NotImplementedError(
-                f"{self.name}: only the Llama-style block (standard rope, "
-                "rmsnorm, swiglu, no biases) is ported")
+                f"{self.name}: the MoE experts are SwiGLU only")
         return self
 
 

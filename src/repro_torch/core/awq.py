@@ -13,8 +13,9 @@ those deltas.  A group spans every layer, as the reference's groups span
 its stacked ``[L, ...]`` tensors: its one α minimizes the loss summed over
 the layers (``s`` itself stays per layer).  The MoE expert taps record the
 max only, so ``moe.down`` falls back to the max statistics, as in the
-reference.  Like :func:`repro_torch.core.apply.smoothquant_plus` it works
-in place on the params it is given.
+reference.  A group with no provider (the GELU MLP's ``down``) is skipped,
+unsmoothed, with no α.  Like :func:`repro_torch.core.apply.smoothquant_plus`
+it works in place on the params it is given.
 """
 from __future__ import annotations
 
@@ -91,6 +92,8 @@ def awq_quantize(params, cfg: ModelConfig,
     grid = np.round(np.arange(0.0, 1.0 + 1e-9, step), 10)
     layers = params["layers"]
     for g in SM.smoothing_groups(cfg):
+        if g.provider.kind == "none":      # nothing to smooth (s = 1)
+            continue
         try:
             acts = [_mean_stats(col, i, g.stats_sub)
                     for i in range(len(layers))]

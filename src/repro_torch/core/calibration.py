@@ -19,7 +19,9 @@ inputs never pass through
 (:meth:`StatsCollector.record_explicit`) under the block's ``moe_key``;
 as in the reference those taps record the max only, no sums.
 ``collect_stats.batches`` counts the batches every call has read, so a
-caller can tell a boot that calibrated from one that did not.
+caller can tell a boot that calibrated from one that did not.  A VLM
+config's calibration batches carry the reference's patch-embedding stub
+(``embeds``, 4 rows), added at the first positions as the model adds it.
 """
 from __future__ import annotations
 
@@ -125,14 +127,15 @@ collect_stats.batches = 0
 
 
 def _lm_pass(col: StatsCollector, params, cfg: ModelConfig, batch) -> None:
-    from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
 
     device = params["embed"]["table"].device
     tokens = batch["tokens"].to(device)
     b, t = tokens.shape
     pos = torch.arange(t, device=device)[None].expand(b, t)
-    x = L.apply_embedding(params["embed"], tokens)
+    embeds = batch.get("embeds")
+    x = LM.embed_in(params, tokens,
+                    None if embeds is None else embeds.to(device))
     for i, lp in enumerate(params["layers"]):
         col.register_tree(("layers",), (i,), lp)
         col.moe_key = (("layers",), (i,))
@@ -144,7 +147,9 @@ def synthetic_calibration_set(cfg: ModelConfig, *, n_seqs: int = 8,
                               seq_len: int = 64, domain: str = "humaneval",
                               seed: int = 0) -> List[Dict[str, torch.Tensor]]:
     """Offline stand-in for the paper's calibration sets: the reference's
-    Zipf token draws, number for number (CPU int32 tensors)."""
+    Zipf token draws, number for number (CPU int32 tensors); a VLM config's
+    batches also carry the reference's ``embeds`` (4 standard-normal patch
+    rows from seed + 9, the same for every sequence)."""
     zipf_a = {"humaneval": 1.3, "pile": 1.1, "c4": 1.05}[domain]
     offset = {"humaneval": 0, "pile": 1, "c4": 2}[domain]
     rng = np.random.default_rng(seed + offset * 1000)
@@ -152,5 +157,10 @@ def synthetic_calibration_set(cfg: ModelConfig, *, n_seqs: int = 8,
     for _ in range(n_seqs):
         ranks = rng.zipf(zipf_a, size=(1, seq_len)).astype(np.int64)
         toks = (ranks * (offset * 7919 + 31) % cfg.vocab_size).astype(np.int32)
-        out.append({"tokens": torch.from_numpy(toks)})
+        batch = {"tokens": torch.from_numpy(toks)}
+        if cfg.family == "vlm":
+            emb_rng = np.random.default_rng(seed + 9)
+            batch["embeds"] = torch.from_numpy(emb_rng.standard_normal(
+                (1, 4, cfg.d_model), np.float32)).to(cfg.tdtype)
+        out.append(batch)
     return out

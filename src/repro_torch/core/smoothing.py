@@ -4,9 +4,14 @@
 For every smoothing group — linear weights sharing one input activation —
 ``s_j = max|X_j|^α / max|W_j|^(1-α)`` (paper eq. 6), ``W ← diag(s) W`` and
 the matching ``1/s`` is fused into the activation's provider: the preceding
-RMSNorm scale (``"norm"``) or the preceding linear's output columns
-(``"linear_out"``), or only the V columns of MLA's ``wkv_b``
-(``"linear_out_mla_v"``: ``wo``'s input is attention over those values).
+norm's scale, and a LayerNorm's bias too (``"norm"``), or the preceding
+linear's output columns (``"linear_out"``), or only the V columns of MLA's
+``wkv_b`` (``"linear_out_mla_v"``: ``wo``'s input is attention over those
+values).  The GELU MLP's ``down`` has a non-linear producer
+(``"none"``): its ``s`` is 1 and it is quantized unsmoothed.  As in the
+reference, ``"linear_out"`` scales only ``wv``'s weight columns, not its
+bias, so on a model with a nonzero ``wv`` bias the ``layers.wo`` transform
+is not exact; the port keeps that behaviour.
 ``tie="kv"`` reduces the o-proj's ``s`` (max) over each
 KV head's query group so it can fuse into ``wv``'s ``Hkv·Dh`` columns.
 ``row_compensations`` are non-quantized consumers of the same activation
@@ -39,7 +44,7 @@ BLOCK = ("layers",)
 
 @dataclasses.dataclass(frozen=True)
 class Provider:
-    kind: str                       # norm | linear_out | linear_out_mla_v
+    kind: str               # norm | linear_out | linear_out_mla_v | none
     path: Path = ()
 
 
@@ -104,6 +109,13 @@ def _mlp_groups(cfg: ModelConfig) -> List[Group]:
                                 Provider("linear_out", sh + ("up", "w")),
                                 sh + ("down", "w")))
         return groups
+    if cfg.mlp == "gelu":   # up smoothable; down's producer is non-linear
+        return [
+            Group("mlp.in", (mlp + ("up", "w"),),
+                  Provider("norm", ("norm2",)), mlp + ("up", "w")),
+            Group("mlp.down", (mlp + ("down", "w"),), Provider("none"),
+                  mlp + ("down", "w")),
+        ]
     return [
         Group("mlp.in", (mlp + ("gate", "w"), mlp + ("up", "w")),
               Provider("norm", ("norm2",)), mlp + ("gate", "w")),
@@ -146,7 +158,10 @@ def _align(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def compute_group_s(layer, cfg: ModelConfig, act: np.ndarray, group: Group,
                     alpha: float) -> np.ndarray:
     """Smoothing factors ``s[*stat_lead, Ci]`` for one group of one layer
-    (``[Ci]``, or ``[E, F]`` for ``moe.down``)."""
+    (``[Ci]``, or ``[E, F]`` for ``moe.down``); ones for a ``"none"``
+    provider."""
+    if group.provider.kind == "none":
+        return np.ones_like(act)
     wmax = None
     for wp in group.weights:
         wm = _w_absmax_in(tget(layer, wp), act.shape)
@@ -175,7 +190,9 @@ def _scale_(w: torch.Tensor, factor: torch.Tensor, divide: bool) -> None:
 
 def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
     """Scale the group's weight rows (and its row compensations) by s and
-    fuse 1/s into the provider."""
+    fuse 1/s into the provider (nothing for a ``"none"`` provider)."""
+    if group.provider.kind == "none":
+        return
     dev = tget(layer, group.weights[0]).device
     st = torch.from_numpy(s).to(dev)
     for wp in group.weights + group.row_compensations:
@@ -191,7 +208,10 @@ def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
             s.reshape(hkv, grp, dh)[:, 0, :].reshape(hkv * dh))
     sp = torch.from_numpy(s_prov).to(dev)
     if group.provider.kind == "norm":
-        _scale_(tget(layer, group.provider.path)["scale"], sp, divide=True)
+        nrm = tget(layer, group.provider.path)
+        for leaf in ("scale", "bias"):
+            if leaf in nrm:
+                _scale_(nrm[leaf], sp, divide=True)
     elif group.provider.kind == "linear_out":
         # columns of [*lead, Ci, Co] (per expert for stacked weights)
         w = tget(layer, group.provider.path)

@@ -8,15 +8,21 @@
 // high nibble.  X is f32 or bf16, scales/zeros f32 or bf16, the sum f32,
 // stored in X's type.
 //
-// Arithmetic.  The tensor cores take the raw codes (0..15, exact in bf16):
-// the tile never forms (code - zero) * scale in 16 bits, which would round
-// the scale and, for an offset-only group, the zero.  Per quantization
-// group it accumulates P[t, c] = sum_k x[t, k] * code[k, c] in f32 MMA
-// accumulators and the group sum xs[t] = sum_k x[t, k] in f32, then folds
-// acc[t, c] += scale[g, c] * (P[t, c] - zero[g, c] * xs[t]) at the group's
-// end.  bf16 X is one MMA pass; f32 X is split into three bf16 terms
-// hi + mid + lo that hold its 24-bit significand exactly, so each term x
-// code product is exact and f32 X costs three passes through the same body.
+// Arithmetic.  The tensor cores take the codes centred at 8 (code - 8 in
+// -8..7, exact in bf16): the tile never forms (code - zero) * scale in 16
+// bits, which would round the scale and, for an offset-only group, the
+// zero.  Per quantization group it accumulates P[t, c] = sum_k x[t, k] *
+// (code[k, c] - 8) in f32 MMA accumulators and the group sum xs[t] =
+// sum_k x[t, k] in f32, then folds acc[t, c] += scale[g, c] * (P[t, c] -
+// (zero[g, c] - 8) * xs[t]) at the group's end.  Centring keeps P small
+// when X has a nonzero mean (a GELU MLP's hidden input): with the raw
+// codes 0..15, P and zero * xs were both about 7.5 * xs and cancelled, so
+// the MMAs' truncated sums of P left an error that grew with Ci (1.45x the
+// f32 tolerance at starcoder2-15b's 24576-wide down projection on an H100
+// 80GB HBM3 at 700 W; PERF.md).  bf16 X is one MMA pass; f32 X is split
+// into three bf16 terms hi + mid + lo that hold its 24-bit significand
+// exactly, so each term x code product is exact and f32 X costs three
+// passes through the same body.
 //
 // Instruction: mma.sync.m16n8k16 (bf16 -> f32) with A and B swapped: the
 // weight codes are the 16-row A operand (output columns as M, built in
@@ -85,12 +91,12 @@ __host__ __device__ inline size_t operand_bytes(int padded, int bn,
 }
 
 // Two codes of one packed column from the byte pair u (byte 0: row r,
-// byte 2: row r + 4) as a bf16x2 {code(r), code(r+4)}: 0x4300 | c is the
-// bf16 128 + c, and subtracting 128 leaves c exactly.
+// byte 2: row r + 4) as a bf16x2 {code(r) - 8, code(r+4) - 8}: 0x4300 | c
+// is the bf16 128 + c, and subtracting 136 leaves c - 8 exactly.
 __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t nibbles) {
   const uint32_t v = nibbles | 0x43004300u;
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-                             __floats2bfloat162_rn(128.f, 128.f));
+                             __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
@@ -353,14 +359,15 @@ a16_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
       }
       if (!kWhole && c + 1 < ch.per_group) continue;
 
-      // the group's last chunk: fold it in, acc += scale * (P - zero * xs)
+      // the group's last chunk: fold it in,
+      // acc += scale * (P - (zero - 8) * xs)
       const ST* ss = reinterpret_cast<const ST*>(st + w_bytes) + cw;
       const ST* zs = reinterpret_cast<const ST*>(st + w_bytes + s_bytes) + cw;
       float sc[4], zr[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         sc[j] = to_f32(ss[j]);
-        zr[j] = to_f32(zs[j]);
+        zr[j] = to_f32(zs[j]) - 8.f;    // exact: zeros are integers
       }
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {

@@ -13,10 +13,13 @@ prefill-chunk GEMMs of A8-eligible layers on per-token int8 activations
 (decode stays A16).  ``main`` returns the engine, the
 requests and the timings for callers that drive it as a library; such a
 caller may pass ``attn_impl="flash"``, which, as in the JAX CLI, has no
-flag.  Serve
-the Granite MoE on the CPU with ``--arch granite-moe-1b-a400m --smoke
---device cpu``, DeepSeek-V2 (MLA, shared experts) with ``--arch
-deepseek-v2-236b --smoke --device cpu``.  ``--num-pages`` below the default
+flag.  ``--arch``
+takes every ported ID (``configs.ARCH_IDS``): the Code Llamas, the dense
+decoders ``llama3.2-3b``, ``mistral-large-123b``, ``chatglm3-6b``
+(RoPE-2d), ``starcoder2-15b`` (LayerNorm, GELU, biases) and
+``qwen2-vl-7b`` (M-RoPE, text prompts), the Granite MoE and DeepSeek-V2
+(MLA, shared experts); each serves on the CPU with ``--arch ID --smoke
+--device cpu``.  ``--num-pages`` below the default
 ``batch·pages + 1`` serves under pool pressure: the engine preempts and
 swaps (the pager line counts both).  On a card the decode step runs as one
 CUDA graph.  ``--ptq-artifact DIR`` quantizes and saves the result to DIR
@@ -49,7 +52,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.calibration import (collect_stats,
                                           synthetic_calibration_set)
@@ -87,7 +90,8 @@ def _sync(device) -> None:
 
 def main(argv=None, *, attn_impl=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="codellama-7b")
+    ap.add_argument("--arch", default="codellama-7b", choices=ARCH_IDS,
+                    help="model config: " + ", ".join(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)

@@ -30,8 +30,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 
 
 def forward_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
-    """Teacher-forced logits ``[B, T, V]`` f32 of ``batch["tokens"]``."""
-    return LM.lm_forward(params, batch["tokens"], cfg)
+    """Teacher-forced logits ``[B, T, V]`` f32 of ``batch["tokens"]`` (plus
+    the VLM stub's ``batch["embeds"]`` where given)."""
+    return LM.lm_forward(params, batch["tokens"], cfg,
+                         embeds=batch.get("embeds"))
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,

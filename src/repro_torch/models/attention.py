@@ -35,10 +35,11 @@ NEG_INF = -1e30
 def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     d, h, hkv, dh, dt = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.hdim, cfg.tdtype)
-    return {"wq": L.init_linear(gen, d, h * dh, dt),
-            "wk": L.init_linear(gen, d, hkv * dh, dt),
-            "wv": L.init_linear(gen, d, hkv * dh, dt),
-            "wo": L.init_linear(gen, h * dh, d, dt)}
+    b = cfg.attn_bias
+    return {"wq": L.init_linear(gen, d, h * dh, dt, bias=b),
+            "wk": L.init_linear(gen, d, hkv * dh, dt, bias=b),
+            "wv": L.init_linear(gen, d, hkv * dh, dt, bias=b),
+            "wo": L.init_linear(gen, h * dh, d, dt, bias=b)}
 
 
 def _qkv(p, x, positions, cfg: ModelConfig):
@@ -48,8 +49,8 @@ def _qkv(p, x, positions, cfg: ModelConfig):
     q = L.apply_linear(p["wq"], x, act=act).reshape(b, t, h, dh)
     k = L.apply_linear(p["wk"], x, act=act).reshape(b, t, hkv, dh)
     v = L.apply_linear(p["wv"], x, act=act).reshape(b, t, hkv, dh)
-    q = L.apply_rope(q, positions, theta=cfg.rope_theta)
-    k = L.apply_rope(k, positions, theta=cfg.rope_theta)
+    q = L.apply_rope(q, positions, theta=cfg.rope_theta, variant=cfg.rope)
+    k = L.apply_rope(k, positions, theta=cfg.rope_theta, variant=cfg.rope)
     return q, k, v
 
 

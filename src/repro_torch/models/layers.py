@@ -1,8 +1,13 @@
 """Primitive layers (port of ``repro/models/layers.py``, the decoder subset).
 
-A linear parameter is ``{"w": Tensor[Ci, Co]}`` or, after SmoothQuant+ PTQ,
-``{"w": QuantizedTensor}``; :func:`apply_linear` dispatches on the leaf type,
-so the same model code serves the fp and W4A16 paths.
+A linear parameter is ``{"w": Tensor[Ci, Co]}`` (plus ``"b": Tensor[Co]``
+where the config has biases) or, after SmoothQuant+ PTQ, ``{"w":
+QuantizedTensor, ...}``; :func:`apply_linear` dispatches on the leaf type,
+so the same model code serves the fp and W4A16 paths.  A norm is RMSNorm
+``{"scale"}`` or LayerNorm ``{"scale", "bias"}``; RoPE comes in the
+reference's ``standard``, ``2d`` (ChatGLM) and ``mrope`` (Qwen2-VL)
+variants.  Norms, biases, GELU and RoPE are plain PyTorch ops: the
+reference computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -25,8 +30,12 @@ def _randn(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- linear ----
-def init_linear(gen: torch.Generator, ci: int, co: int, dtype) -> Params:
-    return {"w": _randn(gen, (ci, co), ci ** -0.5, dtype)}
+def init_linear(gen: torch.Generator, ci: int, co: int, dtype,
+                bias: bool = False) -> Params:
+    p = {"w": _randn(gen, (ci, co), ci ** -0.5, dtype)}
+    if bias:
+        p["b"] = torch.zeros(co, dtype=dtype, device=gen.device)
+    return p
 
 
 def apply_linear(p: Params, x: torch.Tensor, *, act: str = "a16"
@@ -36,21 +45,35 @@ def apply_linear(p: Params, x: torch.Tensor, *, act: str = "a16"
     if col is not None:
         col.record_input(w, x)
     if isinstance(w, QuantizedTensor):
-        return kops.w4a16_matmul(x, w, act=act)
-    # fp linear in the input dtype, like the reference's bf16-output dot
-    return torch.matmul(x, w.to(x.dtype))
+        y = kops.w4a16_matmul(x, w, act=act)
+    else:
+        # fp linear in the input dtype, like the reference's bf16-output dot
+        y = torch.matmul(x, w.to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
 
 
 # ----------------------------------------------------------------- norms ----
-def init_norm(d: int, dtype, device) -> Params:
-    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+def init_norm(d: int, dtype, device, kind: str = "rmsnorm") -> Params:
+    p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
 
 
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm computed in f32, cast back to the input dtype."""
+    """LayerNorm (a ``"bias"`` leaf) or RMSNorm, computed in f32 and cast
+    back to the input dtype."""
     xf = x.to(torch.float32)
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
+    if "bias" in p:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 
 
@@ -89,13 +112,49 @@ def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
-               theta: float = 1e4) -> torch.Tensor:
-    """Standard rotary embedding; x[B, T, H, Dh], positions[B, T]."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions.to(torch.float32)[..., None] * inv      # [B, T, Dh/2]
-    return _rotate(x, ang[:, :, None, :])
+               theta: float = 1e4, variant: str = "standard") -> torch.Tensor:
+    """Rotary embedding of x[B, T, H, Dh] at positions[B, T] (``mrope``
+    also takes ``[3, B, T]``: one stream each for t, h, w).
+
+    ``standard`` rotates the two halves of Dh; ``2d`` (ChatGLM) rotates the
+    first half of Dh only, with the half's own frequencies; ``mrope``
+    (Qwen2-VL) splits the Dh/2 frequencies into sections (Dh/4, Dh/8,
+    Dh/8), each turned by its own stream (text positions: three equal
+    streams, which is the standard rotation)."""
+    dh = x.shape[-1]
+    if variant == "standard":
+        inv = rope_freqs(dh, theta, x.device)
+        ang = positions.to(torch.float32)[..., None] * inv  # [B, T, Dh/2]
+        return _rotate(x, ang[:, :, None, :])
+    if variant == "2d":
+        half = dh // 2
+        inv = rope_freqs(half, theta, x.device)
+        ang = positions.to(torch.float32)[..., None] * inv
+        return torch.cat([_rotate(x[..., :half], ang[:, :, None, :]),
+                          x[..., half:]], dim=-1)
+    if variant == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        inv = rope_freqs(dh, theta, x.device)               # [Dh/2]
+        parts, start = [], 0
+        for s, sec in enumerate((dh // 4, dh // 8, dh // 8)):
+            parts.append(positions[s].to(torch.float32)[..., None]
+                         * inv[start:start + sec])
+            start += sec
+        if start < inv.shape[0]:
+            parts.append(positions[0].to(torch.float32)[..., None]
+                         * inv[start:])
+        ang = torch.cat(parts, dim=-1)                      # [B, T, Dh/2]
+        return _rotate(x, ang[:, :, None, :])
+    raise ValueError(f"unknown rope variant {variant!r}")
 
 
 # ------------------------------------------------------------------ misc ----
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU in f32, cast back (the reference's
+    ``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x.to(torch.float32), approximate="tanh").to(x.dtype)

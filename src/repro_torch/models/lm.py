@@ -1,7 +1,8 @@
 """Decoder-only LM, dense and MoE (port of ``repro/models/lm.py``).
 
-Params: ``{"embed": {"table"}, "final_norm": {"scale"}, "lm_head": {"w"},
-"layers": [block, ...]}`` — one dict per layer, walked by a Python loop
+Params: ``{"embed": {"table"}, "final_norm": {"scale"[, "bias"]},
+"lm_head": {"w"}, "layers": [block, ...]}`` — one dict per layer (norms of
+``cfg.norm``), walked by a Python loop
 where the reference ``lax.scan``s over ``[L, ...]`` stacks.  With
 ``cfg.tie_embeddings`` there is no ``lm_head``: the logits are
 ``norm(x) @ table.T``.  A MoE block's ``"mlp"`` is the router and the
@@ -9,7 +10,9 @@ stacked experts (``models/mlp.py``).  ``cfg.mixer`` picks GQA or MLA
 (``models/attention.py``).  Paged caches are ``{"layers": [pool, ...]}``,
 one pool per layer, updated in place: ``{"k", "v"}`` for GQA, the latent
 ``{"ckv", "kpe"}`` for MLA, plus their ``*_s`` scales under
-``kv_quant``.  Every linear gets ``act=cfg.act_kernel``.
+``kv_quant``.  Every linear gets ``act=cfg.act_kernel``.  ``embeds``
+(the VLM family's patch-embedding stub, ``[B, n, D]``) is added to the
+token embeddings of the first n positions, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,10 +30,10 @@ Params = Dict[str, Any]
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
     dt, dev = cfg.tdtype, gen.device
-    return {"norm1": L.init_norm(cfg.d_model, dt, dev),
+    return {"norm1": L.init_norm(cfg.d_model, dt, dev, cfg.norm),
             "mixer": (A.init_mla(gen, cfg) if cfg.mixer == "mla"
                       else A.init_gqa(gen, cfg)),
-            "norm2": L.init_norm(cfg.d_model, dt, dev),
+            "norm2": L.init_norm(cfg.d_model, dt, dev, cfg.norm),
             "mlp": M.init_moe(gen, cfg) if cfg.moe else M.init_mlp(gen, cfg)}
 
 
@@ -38,7 +41,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random weights drawn from ``gen`` (on ``gen``'s device)."""
     dt = cfg.tdtype
     p = {"embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
-         "final_norm": L.init_norm(cfg.d_model, dt, gen.device)}
+         "final_norm": L.init_norm(cfg.d_model, dt, gen.device, cfg.norm)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.vocab_size, dt)
     p["layers"] = [_init_block(gen, cfg) for _ in range(cfg.num_layers)]
@@ -82,6 +85,17 @@ def _block_decode_paged(p, x, rope_pos, write_pos, pool, table_rows, cfg):
     return x + _channel_mix(p, L.apply_norm(p["norm2"], x), cfg), pool
 
 
+def embed_in(p: Params, tokens: torch.Tensor,
+             embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings, plus the precomputed patch embeddings ``embeds[B,
+    n, D]`` at the first n positions (tokens there are pad)."""
+    x = L.apply_embedding(p["embed"], tokens)
+    if embeds is not None:
+        n = embeds.shape[1]
+        x = torch.cat([x[:, :n] + embeds.to(x.dtype), x[:, n:]], dim=1)
+    return x
+
+
 def _lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final norm + fp head (the head stays unquantized), f32 logits; the
     tied head reads the embedding table."""
@@ -93,25 +107,26 @@ def _lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def lm_forward(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+               positions: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Teacher-forced forward: tokens[B, T] → logits[B, T, V] f32."""
     b, t = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
-    x = L.apply_embedding(p["embed"], tokens)
+    x = embed_in(p, tokens, embeds)
     for lp in p["layers"]:
         x = _block_forward(lp, x, positions, cfg)
     return _lm_head(p, x, cfg)
 
 
 def lm_prefill_chunk(p: Params, tokens, cache, start_len, chunk_len,
-                     table_rows, cfg: ModelConfig, *, last_idx=None
-                     ) -> Tuple[torch.Tensor, Any]:
+                     table_rows, cfg: ModelConfig, *, last_idx=None,
+                     embeds=None) -> Tuple[torch.Tensor, Any]:
     """One [B, T] prompt chunk per slot, KV written straight into the paged
     pools; returns the logits at ``last_idx`` per row (meaningful on a
     prompt's final chunk) and the pools."""
     b, t = tokens.shape[:2]
-    x = L.apply_embedding(p["embed"], tokens)
+    x = embed_in(p, tokens, embeds)
     for lp, pool in zip(p["layers"], cache["layers"]):
         x, _ = _block_prefill_chunk(lp, x, start_len, chunk_len, pool,
                                     table_rows, cfg)
@@ -123,9 +138,13 @@ def lm_prefill_chunk(p: Params, tokens, cache, start_len, chunk_len,
 
 def lm_decode_paged(p: Params, token, cache, position, table_rows,
                     cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
-    """One decode step: token[B, 1] at position[B] → (logits[B, V], pools)."""
+    """One decode step: token[B, 1] at position[B] → (logits[B, V], pools).
+    M-RoPE's three streams are views of ``position`` (no copy, so the
+    decode CUDA graph captures them)."""
     x = L.apply_embedding(p["embed"], token)
     pos = position[:, None]
+    if cfg.rope == "mrope":
+        pos = pos[None].expand(3, *pos.shape)
     for lp, pool in zip(p["layers"], cache["layers"]):
         x, _ = _block_decode_paged(lp, x, pos, position, pool, table_rows,
                                    cfg)

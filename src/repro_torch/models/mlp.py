@@ -1,5 +1,6 @@
-"""Channel mixers: the dense SwiGLU MLP and the sort-based top-k MoE (port
-of ``repro/models/mlp.py``).
+"""Channel mixers: the dense SwiGLU or GELU MLP and the sort-based top-k
+MoE (port of ``repro/models/mlp.py``).  The GELU MLP (StarCoder2) is
+``{up, down}``, with biases under ``cfg.attn_bias``.
 
 The MoE uses the reference's equal-capacity sort-based dispatch: token
 slots are sorted by assigned expert (stable, so ties keep row order),
@@ -29,15 +30,22 @@ from repro_torch.models import layers as L
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,
              d_ff: Optional[int] = None) -> Dict[str, Any]:
     d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.tdtype
-    return {"gate": L.init_linear(gen, d, f, dt),
-            "up": L.init_linear(gen, d, f, dt),
-            "down": L.init_linear(gen, f, d, dt)}
+    if cfg.mlp == "swiglu":
+        return {"gate": L.init_linear(gen, d, f, dt),
+                "up": L.init_linear(gen, d, f, dt),
+                "down": L.init_linear(gen, f, d, dt)}
+    b = cfg.attn_bias
+    return {"up": L.init_linear(gen, d, f, dt, bias=b),
+            "down": L.init_linear(gen, f, d, dt, bias=b)}
 
 
 def apply_mlp(p: Dict[str, Any], x: torch.Tensor, *, act: str = "a16"
               ) -> torch.Tensor:
-    h = L.swiglu(L.apply_linear(p["gate"], x, act=act),
-                 L.apply_linear(p["up"], x, act=act))
+    if "gate" in p:
+        h = L.swiglu(L.apply_linear(p["gate"], x, act=act),
+                     L.apply_linear(p["up"], x, act=act))
+    else:
+        h = L.gelu(L.apply_linear(p["up"], x, act=act))
     return L.apply_linear(p["down"], h, act=act)
 
 

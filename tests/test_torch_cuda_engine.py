@@ -1,8 +1,11 @@
 """The engine on the card: its decode step runs as one CUDA graph
 (``serving/decode_graph.py``), and preemption swaps through pinned host
 buffers.  Smoke configs quantized on the card (f32, G=16): codellama-7b
-(fp and int8 pools), granite-moe-1b-a400m, deepseek-v2-236b (fp and int8
-latent pools).
+(fp and int8 pools), the dense decoders llama3.2-3b, mistral-large-123b,
+chatglm3-6b (RoPE-2d), starcoder2-15b (LayerNorm, GELU, biases) and
+qwen2-vl-7b (M-RoPE: its three position streams are views inside the
+graph), granite-moe-1b-a400m, deepseek-v2-236b (fp and int8 latent
+pools).
 
 - a replay's logits equal, bit for bit, an eager ``api.decode_paged_fn`` of
   the same inputs on a copy of the pools taken before the replay, and the
@@ -29,6 +32,11 @@ pytestmark = pytest.mark.cuda
 
 CONFIGS = {"codellama": ("codellama-7b", False),
            "codellama_int8": ("codellama-7b", True),
+           "llama3.2": ("llama3.2-3b", False),
+           "mistral_large": ("mistral-large-123b", False),
+           "chatglm3": ("chatglm3-6b", False),
+           "starcoder2": ("starcoder2-15b", False),
+           "qwen2_vl": ("qwen2-vl-7b", False),
            "granite": ("granite-moe-1b-a400m", False),
            "deepseek": ("deepseek-v2-236b", False),
            "deepseek_int8": ("deepseek-v2-236b", True)}

@@ -26,6 +26,10 @@ over long key ranges with peaked scores (B9 behind 2048 and 8192 prefix
 tokens, B8 at 65,536 positions) they are held to a float64 evaluation,
 since there the plain version's own f32 scores are about the tolerance
 off (``launch/mla_shares.py``).
+The dense decoders' shapes: K2/K3 at their (Hkv, grp) (8, 3), (4, 7),
+(4, 12), (2, 16), (8, 12) with Dh 128 at path 1's lengths and chunks (K3
+also behind prefixes), fp and int8 pools, and K1 at their MLP widths
+(4096 ↔ 13696, 6144 ↔ 24576, 12288 ↔ 28672) at T=4 and 512.
 B4, on K3's tile (``csrc/attn_tile.cuh``), likewise: head widths 8 to 256
 and the widths past one ring stage that take its CUDA-core kernel (the
 route at each), causal S > T, non-causal S > T, ragged T*grp, grp 1 to 8.
@@ -81,6 +85,26 @@ def test_w4a16_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
     assert y.dtype == xdt and tuple(y.shape) == (t, co)
     tol = 1e-5 if xdt == torch.float32 else 1e-2
     assert _rel_err(y, W4.w4a16_matmul_plain(x, qt)) <= tol
+
+
+# the dense decoders' GEMM widths: chatglm3-6b, starcoder2-15b,
+# mistral-large-123b
+DENSE_WIDTHS = [(4096, 13696), (13696, 4096), (6144, 24576), (24576, 6144),
+                (12288, 28672), (28672, 12288)]
+
+
+@pytest.mark.parametrize("t", [4, 512])
+@pytest.mark.parametrize("ci,co", DENSE_WIDTHS)
+def test_w4a16_kernel_dense_widths(dev, ci, co, t):
+    gen = torch.Generator(device=dev).manual_seed(ci + co + t)
+    w = torch.randn(ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=128)
+    del w
+    x = torch.randn(t, ci, generator=gen, device=dev)
+    y = ops.w4a16_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (t, co)
+    assert _rel_err(y, W4.w4a16_matmul_plain(x, qt)) <= 1e-5
 
 
 @pytest.mark.parametrize("xdt,sdt", [(torch.float32, torch.float32),
@@ -370,6 +394,19 @@ def test_k2_split_combine_bitwise_repeatable(dev, kind):
     assert torch.equal(a, b)
 
 
+# the dense decoders' (Hkv, grp) at Dh 128: llama3.2-3b (8, 3), qwen2-vl-7b
+# (4, 7), starcoder2-15b (4, 12), chatglm3-6b (2, 16), mistral-large-123b
+# (8, 12); path 1's decode lengths and prefill chunks
+DENSE_GROUPS = [(8, 3), (4, 7), (4, 12), (2, 16), (8, 12)]
+
+
+@pytest.mark.parametrize("kind", list(_KINDS))
+@pytest.mark.parametrize("hkv,grp", DENSE_GROUPS)
+def test_k2_dense_groups_match_plain(dev, hkv, grp, kind):
+    _k2_check(*_k2_case(dev, _KINDS[kind], (4, hkv, grp, 128, 128, 16,
+                                            [216, 150, 90, 33]), grp))
+
+
 # (b, t, hkv, grp, dh, dv, ps, prefix, chunk)
 K3_SHAPES = {
     "path1": (2, 256, 32, 1, 128, 128, 16, [0, 0], [256, 200]),
@@ -418,6 +455,18 @@ def _k3_check(q, k_suf, v_suf, clean, table, pl, cl, sc):
 def test_k3_shapes_match_plain(dev, shape, kind):
     pool, suf = K3_KINDS[kind]
     _k3_check(*_k3_case(dev, _KINDS[pool], _KINDS[suf], K3_SHAPES[shape]))
+
+
+@pytest.mark.parametrize("kind", list(K3_KINDS))
+@pytest.mark.parametrize("hkv,grp", DENSE_GROUPS)
+def test_k3_dense_groups_match_plain(dev, hkv, grp, kind):
+    pool, suf = K3_KINDS[kind]
+    _k3_check(*_k3_case(dev, _KINDS[pool], _KINDS[suf],
+                        (2, 256, hkv, grp, 128, 128, 16, [0, 0], [256, 200]),
+                        grp))
+    _k3_check(*_k3_case(dev, _KINDS[pool], _KINDS[suf],
+                        (2, 128, hkv, grp, 128, 128, 16, [128, 37],
+                         [128, 90]), grp + 1))
 
 
 @pytest.mark.parametrize("kind", list(K3_KINDS))

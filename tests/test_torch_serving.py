@@ -262,6 +262,27 @@ def test_unported_features_raise(models):
         quantize_params({"layers": []}, gcfg, QuantConfig(skip_router=False))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("zamba2-7b")
+    # the registry's other dense decoders are ported, full and smoke
+    from repro_torch.configs import NOT_PORTED
+    for arch in ("llama3.2-3b", "mistral-large-123b", "chatglm3-6b",
+                 "starcoder2-15b", "qwen2-vl-7b"):
+        for smoke in (False, True):
+            get_config(arch, smoke=smoke).check()
+    assert NOT_PORTED == ("zamba2-7b", "rwkv6-7b", "whisper-medium")
+    for arch in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
+    for kw in (dict(family="hybrid"), dict(family="audio"),
+               dict(family="ssm"), dict(mixer="rwkv6")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A "
+                           "item 1"):
+            tcfg.with_(**kw).check()
+    # a GELU MoE has no expert kernel layout: refused
+    with pytest.raises(NotImplementedError, match="SwiGLU"):
+        gcfg.with_(mlp="gelu").check()
+    for kw in (dict(rope="none"), dict(norm="groupnorm"), dict(mlp="relu")):
+        with pytest.raises(NotImplementedError, match="the port has"):
+            tcfg.with_(**kw).check()
 
 
 @pytest.mark.parametrize("gs", [12, 4, 0, -8])

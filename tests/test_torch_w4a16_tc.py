@@ -6,13 +6,18 @@ and B6's per-expert ``rows`` on the CPU (plain version, ``apply_moe``).
 The emulation follows the kernel step by step: f32 X split into three bf16
 terms (bf16 X is one term), the A operand built from the packed bytes as
 the kernel builds it (byte pairs of packed rows r and r + 4, nibble masks,
-the bf16 ``0x4300 | code`` minus 128), the MMA k order and column order of
+the bf16 ``0x4300 | code`` minus 136, the code centred at 8), the MMA k
+order and column order of
 the fragments, the ring's chunks (a group of G > 128 walks several stages,
 a chunk of G % 16 != 0 is padded to a whole k-step with zero X), one f32
-raw-code sum P per group beside the group sum xs (summed in the kernel's
-staging order, chunk by chunk), the fold ``acc += scale · (P − zero ·
-xs)``, and the split-K partition of the groups summed in split order.  Tolerances relative to max |ref|: f32
-1e-5 (sums in another order), bf16 1e-2 (the output is rounded to bf16).
+centred-code sum P per group beside the group sum xs (summed in the
+kernel's staging order, chunk by chunk), the fold ``acc += scale · (P −
+(zero − 8) · xs)``, and the split-K partition of the groups summed in split
+order.  Tolerances relative to max |ref|: f32 1e-5 (sums in another
+order), bf16 1e-2 (the output is rounded to bf16).  With the MMAs' sums
+truncated towards zero, a positive-mean input (a GELU MLP's hidden) over a
+24576-wide contraction stays within the tolerance with the centred codes
+and misses it with the raw codes 0..15, which the tile summed before.
 """
 import functools
 
@@ -24,7 +29,7 @@ import torch
 from repro.core import quantize as jq
 from repro.kernels import ref as jref
 from repro_torch.configs import get_config
-from repro_torch.core.quantize import quantize
+from repro_torch.core.quantize import dequantize, quantize, unpack_codes
 from repro_torch.kernels import ops
 from repro_torch.kernels import w4a16_grouped as G
 from repro_torch.models import mlp as TM
@@ -70,8 +75,8 @@ def _a_operand(pc):
             hi = ((u >> 4) & 0x000F000F) | 0x43004300
             for reg, base in ((lo, 0), (hi, 8)):
                 k = 16 * s + base + 2 * t4
-                codes[k] = _bf16_bits(reg & 0xFFFF) - 128.0
-                codes[k + 1] = _bf16_bits(reg >> 16) - 128.0
+                codes[k] = _bf16_bits(reg & 0xFFFF) - 136.0
+                codes[k + 1] = _bf16_bits(reg >> 16) - 136.0
                 src[k] = r + (n if base else 0)
                 src[k + 1] = r + 4 + (n if base else 0)
     return codes, src
@@ -147,7 +152,8 @@ def _tile(x, packed, scales, zeros, g, splits, f32):
                             @ codes[ks][:, frag].astype(np.float64)
                         P[:, frag] = (P[:, frag] + prod).astype(np.float32)
             inner = (P.astype(np.float64)
-                     - zr[gi].astype(np.float64) * xs).astype(np.float32)
+                     - (zr[gi].astype(np.float64) - 8.0) * xs
+                     ).astype(np.float32)
             acc = (acc.astype(np.float64) + sc[gi].astype(np.float64)
                    * inner).astype(np.float32)
         parts.append(acc)
@@ -212,6 +218,51 @@ def test_tile_arithmetic_matches_k1_oracle(t, ci, co, g, splits, offset_only,
     if not f32:
         y = _bf16(y)
     _close(y, want[:t], f32)
+
+
+def _trunc32(v):
+    """float64 → f32 rounded towards zero (an MMA's accumulator write)."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+@pytest.mark.parametrize("centre", [8.0, 0.0])
+def test_centred_codes_hold_positive_mean_inputs(centre):
+    """starcoder2-15b's down projection: a GELU hidden (mean ~0.28 of its
+    ~0.6 spread) into Ci = 24576 (192 groups of 128).  Each k-step's MMA
+    adds 16 exact products to P and truncates towards zero; the fold is
+    ``scale · (P − (zero − centre) · xs)``.  With the codes centred at 8 the
+    tile stays within half of the f32 tolerance against the plain
+    version; with the raw codes (centre 0) P and zero · xs cancel and the
+    truncations leave more than the tolerance."""
+    rng = np.random.default_rng(0)
+    ci, co, t, g = 24576, 64, 2, 128
+    w = torch.from_numpy((rng.standard_normal((ci, co)) * ci ** -0.5)
+                         .astype(np.float32))
+    qt = quantize(w, group_size=g)
+    codes = unpack_codes(qt.packed, g).numpy().astype(np.float64) - centre
+    sc, zr = qt.scales.numpy(), qt.zeros.numpy().astype(np.float64) - centre
+    x = torch.nn.functional.gelu(torch.from_numpy(rng.standard_normal(
+        (t, ci)).astype(np.float32)), approximate="tanh").numpy()
+    terms = _terms(x, True)
+    acc = np.zeros((t, co), np.float32)
+    for gi in range(ci // g):
+        P = np.zeros((t, co), np.float32)
+        for k0 in range(gi * g, (gi + 1) * g, 16):
+            for tm in terms:
+                P = _trunc32(P.astype(np.float64)
+                             + tm[:, k0:k0 + 16].astype(np.float64)
+                             @ codes[k0:k0 + 16])
+        xs = x[:, gi * g:(gi + 1) * g].sum(1, dtype=np.float32)[:, None]
+        inner = (P.astype(np.float64) - zr[gi] * xs).astype(np.float32)
+        acc = (acc.astype(np.float64) + sc[gi].astype(np.float64)
+               * inner).astype(np.float32)
+    plain = x @ dequantize(qt, torch.float32).numpy()
+    ratio = np.abs(acc - plain).max() / (1e-5 * max(1.0,
+                                                    np.abs(plain).max()))
+    assert (ratio < 0.5) if centre else (ratio > 1.0), ratio
 
 
 def test_three_bf16_terms_hold_f32_exactly():
