@@ -134,6 +134,31 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    grp) (8, 3), (4, 7), (4, 12), (2, 16), (8, 12) at path 1's lengths and
    chunk shape, f32 and bf16, and K1 at its MLP widths (4096 ↔ 13696,
    6144 ↔ 24576, 12288 ↔ 28672; T=4 and 512);
+   path 6 — zamba2-7b at full width and depth (81 Mamba2 layers, 13
+   applications of the weight-shared attention + MLP block) through the
+   serve entry, SmoothQuant+ in f32 (G=128), fp pools, path 1's requests:
+   launch counts equal the prediction (K1 for 5 linears a Mamba2 layer and
+   7 a shared application, every decode step and prefill batch; K2 / K3
+   once an application), the decode graph (its fixed-rows Mamba2 state
+   updated in place) replays once a step, and in the decode profile one
+   replay with a parked slot (``active`` False) is held bitwise against an
+   eager step (logits, pools, fixed rows; the parked slot's rows
+   unchanged); after the path's first replay its step reruns from the
+   state before it and must land on the replay's rows bit for bit; one
+   prefill chunk and one decode step against the dequantized gather
+   oracle; path 6b — path 6's params under path 1b's tight pool: at least
+   two preemptions, each swapping one slot's fixed rows with its private
+   KV rows under one CRC, checked at swap-in, the fixed-rows bytes whole
+   slots', the tokens path 6's; path 7 — rwkv6-7b at full width and depth
+   (32 layers) through ``api.prefill_fn`` / ``api.decode_fn`` (RWKV6 has
+   no paged path), SmoothQuant+ in f32 (G=128), 8 greedy requests in two
+   batches of 4 equal-length prompts, 16 tokens: K1 (8 linears a layer, a
+   prefill and a decode step each) held to the prediction and to its
+   plain version on the path's operands, a prefill and a decode step
+   against the dequantized weights, the decode step's wall and device ms
+   and the prefill's wall per prompt token (the Python scan).  The kernel
+   phase holds K1 at the SSM paths' widths (Co 112 / 128, narrower than a
+   tile; 3584 ↔ 7168; 4096 ↔ 14336) and K2 / K3 at Dh 112;
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -466,6 +491,35 @@ def check_k1_widths():
     return rows
 
 
+# path 6's and path 7's GEMMs: zamba2-7b's Mamba2 projections (in_dt
+# 3584 -> 112 and in_bc 3584 -> 128, the narrowest outputs K1 takes on a
+# path; in_z / in_x 3584 -> 7168; out_proj 7168 -> 3584), the narrow outputs
+# at Ci 7168 too, and rwkv6-7b's channel mix (4096 <-> 14336)
+SSM_WIDTHS = ((3584, 112), (3584, 128), (3584, 7168), (7168, 3584),
+              (7168, 112), (7168, 128), (4096, 14336), (14336, 4096))
+
+
+def check_k1_ssm():
+    """K1 at paths 6 and 7's widths, T=4 (decode) and 256 (a prefill
+    chunk), G=128, f32 X (bf16 X too at the narrow outputs)."""
+    print("K1 at the SSM paths' widths (Co 112 / 128: narrower than one "
+          "tile)")
+    rows = {}
+    for ci, co in SSM_WIDTHS:
+        gen = torch.Generator(device=DEV).manual_seed(ci + co + 7)
+        w = torch.randn(ci, co, generator=gen, device=DEV) * ci ** -0.5
+        for dt in ((torch.float32, torch.bfloat16) if co <= 128
+                   else (torch.float32,)):
+            qt = quantize(w, group_size=128, dtype=dt)
+            for t in (4, 256):
+                x = torch.randn(t, ci, generator=gen, device=DEV).to(dt)
+                rows[(t, ci, co, dt)] = _gemm_case(
+                    "w4a16_matmul", W4.w4a16_matmul_cuda,
+                    W4.w4a16_matmul_plain, qt, x, False, "")
+        del w
+    return rows
+
+
 def check_b5():
     print("B5 w4a8_matmul (replaces repro/kernels/w4a16_matmul.py:"
           "_kernel_a8)")
@@ -566,7 +620,10 @@ K2_CASES = [(f"grp={grp}", 4, 32, grp, 128, [1024, 700, 333, 17], kind)
     # chatglm3-6b, mistral-large-123b; path 1's lengths
     (f"path 5, Hkv={hkv} grp={grp}", 4, hkv, grp, 128, [216, 150, 90, 33],
      kind) for hkv, grp in ((8, 3), (4, 7), (4, 12), (2, 16), (8, 12))
-    for kind in (torch.float32, torch.bfloat16)]
+    for kind in (torch.float32, torch.bfloat16)] + [
+    # path 6: zamba2-7b's shared attention, 32 heads of 112, grp 1
+    ("path 6, Dh=112", 4, 32, 1, 112, [216, 150, 90, 33], kind)
+    for kind in (torch.float32, torch.bfloat16, torch.int8)]
 
 
 def check_k2():
@@ -646,7 +703,14 @@ K3_CASES = [("table", 4, t, 32, 1, 128, prefix, [t, t - 7, t // 2, 1], kind,
     (f"path 5, Hkv={hkv} grp={grp}", 2, 256, hkv, grp, 128, [0, 0],
      [256, 200], kind, kind)
     for hkv, grp in ((8, 3), (4, 7), (4, 12), (2, 16), (8, 12))
-    for kind in (torch.float32, torch.bfloat16)]
+    for kind in (torch.float32, torch.bfloat16)] + [
+    # path 6: zamba2-7b's shared attention (Dh=112), a fresh chunk and one
+    # behind a prefix
+    (f"path 6, Dh=112", 2, 256, 32, 1, 112, prefix, [256, 200], kind, sdt)
+    for prefix in ([0, 0], [128, 64])
+    for kind, sdt in ((torch.float32, torch.float32),
+                      (torch.bfloat16, torch.bfloat16),
+                      (torch.int8, torch.float32))]
 
 
 def check_k3():
@@ -714,7 +778,7 @@ def check_k3():
                 f"chunk={chunk} {_pool_label(kind)}, {str(sdt)[6:]} suffix "
                 f"({tag})")
         key = (t, sum(prefix) > 0, kind, sdt) if tag == "table" \
-            else (tag, kind)
+            else (tag, kind, sum(prefix) > 0)
         rows[key] = record(name, case, max_err(out, ref), tol, ms, plain,
                            lib, bnd, by, wrapper,
                            extra=dict(bound_f32_ms=bnd_f32))
@@ -1150,16 +1214,33 @@ class _Capture:
         return self.fn(*args, **kw)
 
 
-def _eager_step(graph):
+def _graph_fixed(graph):
+    """The fixed-rows state a hybrid decode graph's step holds (None for an
+    attention stack's)."""
+    return graph.step.args[2] if graph.active is not None else None
+
+
+def _eager_step(graph, fixed_before=None):
     """The decode graph's step once more, eagerly, on the inputs of the
     replay just issued (still in the graph's static tensors): it writes the
     pools the rows the replay wrote, bit for bit (:func:`graph_vs_eager`),
-    and its launches are taken back from the counters."""
+    and its launches are taken back from the counters.  A hybrid step's
+    recurrence is not idempotent: it reruns from ``fixed_before`` (the state
+    before the replay) and must land on the replay's state bit for bit."""
+    fixed = _graph_fixed(graph)
+    if fixed is not None:
+        after_replay = {k: v.clone() for k, v in fixed.items()}
+        for k, v in fixed.items():
+            v.copy_(fixed_before[k])
     before = K.launch_counts()
     with torch.no_grad():
-        graph.step(graph.token, graph.position, graph.table)
+        graph.step(*graph.inputs)
     after = K.launch_counts()
     K.add_launch_counts({n: before[n] - after[n] for n in after})
+    if fixed is not None:
+        require(all(torch.equal(fixed[k], after_replay[k]) for k in fixed),
+                "the eager decode step's fixed rows differ from the graph "
+                "replay's")
 
 
 @contextlib.contextmanager
@@ -1186,12 +1267,17 @@ def path_operands():
     def first_replay(graph, *inputs):
         if graph.graph is not None:
             return replay(graph, *inputs)
+        # warm-up and capture run every row inactive: the state they leave
+        # is the state before the replay
+        fixed = _graph_fixed(graph)
+        before = (None if fixed is None
+                  else {k: v.clone() for k, v in fixed.items()})
         keep[0] = False
         try:
             logits = replay(graph, *inputs)
         finally:
             keep[0] = True
-        _eager_step(graph)
+        _eager_step(graph, before)
         return logits
 
     DecodeGraph.__call__ = first_replay
@@ -1362,12 +1448,25 @@ def graph_vs_eager(eng, label):
     """At one decode step: the graph's logits against an eager
     ``api.decode_paged_fn`` of the same inputs on a copy of the pools taken
     before the replay, bit for bit, and the pools the replay wrote against
-    the copy's."""
+    the copy's.  A hybrid engine's step parks its first decoding slot
+    (``active`` False): the fixed rows the replay wrote must equal the
+    eager step's bit for bit, the parked slot's must be unchanged, and the
+    state before the replay is restored afterwards (the engine has not
+    advanced, and a recurrence, unlike a KV write, is not idempotent)."""
     from repro_torch.models import api
 
     dec = [i for i in eng._active_slots()
            if eng.pos[i] >= eng.pref_target[i]]
     require(dec, f"{label}: no decoding slot for the graph check")
+    extra, fixed, act = {}, None, None
+    if eng.has_fixed:
+        require(len(dec) >= 2, f"{label}: the hybrid graph check needs two "
+                "decoding slots")
+        parked, dec = dec[0], dec[1:]
+        act = np.zeros(eng.B, bool)
+        act[dec] = True
+        fixed = {k: t.clone() for k, t in eng.fixed.items()}
+        extra = dict(fixed=fixed, active=eng._tensor(act, torch.bool))
     tok, pos, tbl = eng._decode_inputs(dec)
     pools = {"layers": [{k: t.clone() for k, t in lp.items()}
                         for lp in eng.pools["layers"]]}
@@ -1375,21 +1474,41 @@ def graph_vs_eager(eng, label):
         eager = api.decode_paged_fn(
             eng.params, {"token": eng._tensor(tok),
                          "position": eng._tensor(pos)},
-            pools, eng._tensor(tbl), eng.cfg)[0]
-    graph = eng.decode_graph(tok, pos, tbl)
+            pools, eng._tensor(tbl), eng.cfg, **extra)[0]
+    before = None if fixed is None else {k: t.clone()
+                                         for k, t in eng.fixed.items()}
+    graph = eng.decode_graph(tok, pos, tbl,
+                             *(() if act is None else (act,)))
     torch.cuda.synchronize()
     same = torch.equal(graph, eager)
     pools_same = all(torch.equal(lp[k], lc[k]) for lp, lc in
                      zip(eng.pools["layers"], pools["layers"]) for k in lp)
+    out = dict(graph_logits_bitwise_equal=same,
+               graph_pools_bitwise_equal=pools_same)
+    msg = ""
+    if fixed is not None:
+        out["graph_fixed_bitwise_equal"] = all(
+            torch.equal(eng.fixed[k], fixed[k]) for k in fixed)
+        out["parked_rows_unchanged"] = all(
+            torch.equal(eng.fixed[k][:, parked], before[k][:, parked])
+            for k in fixed)
+        out["active_rows_changed"] = all(
+            not torch.equal(eng.fixed[k][:, dec], before[k][:, dec])
+            for k in fixed)
+        for k, t in eng.fixed.items():
+            t.copy_(before[k])
+        msg = (f", fixed rows bitwise equal {out['graph_fixed_bitwise_equal']}"
+               f", parked slot {parked}'s rows unchanged "
+               f"{out['parked_rows_unchanged']}, the decoding rows' changed "
+               f"{out['active_rows_changed']}")
     print(f"  {label}: graph replay vs an eager step on a copy of the pools "
           f"({len(dec)} decoding rows): logits bitwise equal {same} (max "
           f"|diff| {max_err(graph, eager):.3g}), pools bitwise equal "
-          f"{pools_same}")
-    require(same and pools_same, f"{label}: the decode graph differs from "
+          f"{pools_same}{msg}")
+    require(all(out.values()), f"{label}: the decode graph differs from "
             "the eager step")
-    del pools
-    return dict(graph_logits_bitwise_equal=same,
-                graph_pools_bitwise_equal=pools_same)
+    del pools, fixed, before
+    return out
 
 
 def profile_decode(eng, reqs, key, steps=8):
@@ -2197,6 +2316,388 @@ def path5():
     return {arch: m["launches"] for arch, m in models.items()}
 
 
+# ----------------------------------------------------- paths 6, 6b and 7 ---
+def path6_prediction(st, cfg):
+    """zamba2-7b's launches: K1 for the 5 linears of each of its 81 Mamba2
+    layers and the 7 of each of the 13 shared-block applications (496),
+    on every decode step and prefill batch; K2 once an application a step,
+    K3 once an application a batch; nothing else."""
+    g = cfg.num_layers // cfg.hybrid.attn_every
+    per = 5 * cfg.num_layers + 7 * g
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": per * (st.steps + st.prefill_batches),
+                 "gqa_paged_decode": g * st.steps,
+                 "gqa_paged_prefill": g * st.prefill_batches})
+    return pred
+
+
+def _state_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+@torch.no_grad()
+def check_hybrid_step_against_plain(params, cfg, ps, prompt):
+    """One hybrid prefill chunk of the whole prompt and one decode step,
+    through the kernels, against the same steps on the dequantized weights
+    with the dense-gather oracle (each over its own pools and fixed
+    rows)."""
+    plain_params = dequantized_params(params)
+    plain_cfg = cfg.with_(paged_attn_impl="gather")
+    logits = {}
+    for name, prm, c in (("kernel", params, cfg),
+                         ("plain", plain_params, plain_cfg)):
+        pool, table = _fresh_pool(c, ps, len(prompt))
+        fixed = LM.init_fixed_state(c, 1, DEV)
+        toks = torch.as_tensor(prompt, dtype=torch.int32, device=DEV)[None]
+        zero = torch.zeros(1, dtype=torch.int32, device=DEV)
+        clen = torch.tensor([len(prompt)], dtype=torch.int32, device=DEV)
+        pre, _, _ = LM.hybrid_prefill_chunk(
+            prm, toks, pool, fixed, zero.long(), zero, clen, table, c)
+        nxt = torch.tensor([[int(prompt[-1])]], dtype=torch.int32,
+                           device=DEV)
+        dec = LM.hybrid_decode_paged(
+            prm, nxt, pool, fixed, clen, table,
+            torch.ones(1, dtype=torch.bool, device=DEV), c)[0]
+        logits[name] = (pre, dec)
+    errs = {}
+    for i, step in enumerate(("prefill", "decode")):
+        a, b = logits["kernel"][i], logits["plain"][i]
+        require(bool(torch.isfinite(a).all()), f"{step} logits not finite")
+        err = max_err(a, b)
+        tol = 2e-3 * max(1.0, float(b.abs().max()))
+        print(f"  {step} step logits vs plain: max |diff| = {err:.3g} "
+              f"(tol {tol:.3g}), argmax {int(a.argmax())} vs "
+              f"{int(b.argmax())}")
+        require(err <= tol, f"{step} logits differ from the plain path")
+        errs[f"{step}_logit_err"] = err
+    del plain_params
+    return errs
+
+
+def path6():
+    """zamba2-7b at full width and depth through the serve entry: 81 Mamba2
+    layers and 13 applications of the weight-shared attention + MLP block,
+    random weights from seed 0, SmoothQuant+ in f32 (G=128, α searched),
+    fp pools, path 1's 8 requests, batch 4; then path 6b."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    print("path 6: zamba2-7b full width and depth (81 Mamba2 layers, 13 "
+          "shared-attention applications), SmoothQuant+ W4A16 f32, fp "
+          "pools, path 1's 8 requests", flush=True)
+    t_path = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        res = serve.main(["--arch", "zamba2-7b", "--requests", "8",
+                          "--batch-size", "4", "--max-seq", "256",
+                          "--max-tokens", "16", "--min-prompt", "32",
+                          "--max-prompt", "200", "--seed", "0",
+                          *SERVE_COLD])
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    eng, reqs, cfg = res["engine"], res["requests"], res["cfg"]
+    st = eng.stats
+    pred = path6_prediction(st, cfg)
+    fixed_slot = _state_bytes(api.init_fixed_state(cfg, 1, "meta"))
+    print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
+          f"prefill batches {st.prefill_batches}; fixed-rows state "
+          f"{fixed_slot / 1e6:.1f} MB a slot", flush=True)
+    require(all(r.finish_reason in ("completed", "length") for r in reqs),
+            "path 6: a request did not finish")
+    require(all(len(r.output) == 16 or r.finish_reason == "completed"
+                for r in reqs), "path 6: a request stopped early without EOS")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+            "path 6: token out of range")
+    require(counts == pred, "path 6: launch counts differ from the "
+            "prediction")
+    tok_s = st.decoded_tokens / res["serve_s"]
+    ttft = sorted(res["ttft_s"])
+    rep = res["report"]
+    print(f"  PTQ alpha={rep.alpha:.2f} in {res['ptq_s']:.1f}s "
+          f"({rep.fp_bytes / 1e9:.2f} GB -> {rep.quant_bytes / 1e9:.2f} GB); "
+          f"served {st.completed} requests in {res['serve_s']:.2f}s: "
+          f"{tok_s:.1f} decode tok/s, TTFT p50 {statistics.median(ttft):.3f}s "
+          f"max {ttft[-1]:.3f}s, peak memory {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    out = dict(launches=counts, predicted=pred, decode_steps=st.steps,
+               prefill_batches=st.prefill_batches,
+               decoded_tokens=st.decoded_tokens,
+               prefilled_tokens=st.prefilled_tokens, serve_s=res["serve_s"],
+               decode_tok_s=tok_s, ttft_s=ttft, ptq_s=res["ptq_s"],
+               boot_s=res["boot_s"], alpha=rep.alpha,
+               fp_bytes=rep.fp_bytes, quant_bytes=rep.quant_bytes,
+               peak_mem_bytes=peak, fixed_bytes_per_slot=fixed_slot,
+               **check_decode_graph(eng, "path 6"))
+    out["path_operands"] = check_path_operands(seen, "path 6")
+    del seen
+    out.update(check_hybrid_step_against_plain(eng.params, cfg, eng.PS,
+                                               reqs[0].prompt))
+    outputs = [list(r.output) for r in reqs]
+    profile_decode(eng, reqs, "path6_profile")
+    out["path6b"] = path6b(eng.params, cfg, reqs, outputs, fixed_slot)
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"path 6 took {out['seconds']:.1f}s", flush=True)
+    RESULTS["path6"] = out
+    return counts
+
+
+def path6b(params, cfg, reqs, outputs, fixed_slot):
+    """Path 6's quantized params, the same 8 requests, from 72 four-token
+    pages: preemptions swap each victim's private KV rows and its fixed
+    rows (its Mamba2 state, ``fixed_slot`` bytes) out through pinned host
+    buffers, one CRC-32 over both, checked at swap-in; the outputs equal
+    path 6's token for token."""
+    from repro_torch.models import api
+    from repro_torch.serving import engine as E
+
+    print("path 6b: path 6's params, the same 8 requests, page size 4, 72 "
+          "pages: preemption with the fixed-rows state in the swap image",
+          flush=True)
+    reqs = [E.Request(uid=r.uid, prompt=r.prompt, max_tokens=r.max_tokens)
+            for r in reqs]
+    eng = E.ServingEngine(params, cfg, batch_size=4, max_seq=256,
+                          page_size=4, num_pages=72, seed=0, device=DEV)
+    crc_calls = [0]
+    crc = api.swap_image_checksum
+
+    def counted(*a, **kw):
+        crc_calls[0] += 1
+        return crc(*a, **kw)
+
+    api.swap_image_checksum = counted
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        api.swap_image_checksum = crc
+    counts = K.launch_counts()
+    st = eng.stats
+    pred = path6_prediction(st, cfg)
+    same = sum(r.output == o for r, o in zip(reqs, outputs))
+    print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
+          f"prefill batches {st.prefill_batches}; {st.preemptions} "
+          f"preemptions, {st.resumes} resumes, "
+          f"{st.swapped_out_bytes / 1e6:.1f} MB swapped out (of which "
+          f"{st.swapped_fixed_bytes / 1e6:.1f} MB fixed rows = "
+          f"{st.swapped_fixed_bytes / max(fixed_slot, 1):.1f} slots' state), "
+          f"{st.swapped_in_bytes / 1e6:.1f} MB back in; {crc_calls[0]} CRC "
+          f"computations (drain and swap-in); served in {serve_s:.2f}s; "
+          f"outputs equal to path 6's for {same}/{len(reqs)} requests",
+          flush=True)
+    require(counts == pred, "path 6b: launch counts differ from the "
+            "prediction")
+    require(st.preemptions >= 2, "path 6b: fewer than two preemptions")
+    require(st.resumes == st.preemptions and st.retries == 0,
+            "path 6b: a preemption did not resume by swap-in")
+    require(st.swapped_fixed_bytes == st.preemptions * fixed_slot,
+            "path 6b: the fixed-rows bytes are not whole slots' state")
+    require(st.swapped_out_bytes == st.swapped_in_bytes > 0
+            and st.swapped_fixed_in_bytes == st.swapped_fixed_bytes,
+            "path 6b: swapped bytes out and in differ")
+    require(crc_calls[0] >= 2 * st.preemptions,
+            "path 6b: an image was not checked at swap-in")
+    require(same == len(reqs), "path 6b: outputs differ from path 6's")
+    eng.pager.check_invariants()
+    require(eng.pager.free_pages == eng.pager.num_pages - 1,
+            "path 6b: pages left allocated")
+    return dict(launches=counts, predicted=pred, decode_steps=st.steps,
+                prefill_batches=st.prefill_batches,
+                preemptions=st.preemptions, resumes=st.resumes,
+                swapped_out_bytes=st.swapped_out_bytes,
+                swapped_fixed_bytes=st.swapped_fixed_bytes,
+                swapped_in_bytes=st.swapped_in_bytes, crc_calls=crc_calls[0],
+                serve_s=serve_s, same_outputs_as_path6=same,
+                **check_decode_graph(eng, "path 6b"))
+
+
+def _profile_steps(step, steps):
+    """Host wall per call of ``step`` over ``steps`` calls, unprofiled and
+    under torch.profiler (with the device's kernel time per call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_plain = (time.perf_counter() - t0) / steps
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA) / 1e6 / steps
+    return wall_plain, wall, busy
+
+
+def path7():
+    """rwkv6-7b at full width and depth (32 layers) through the contiguous
+    cache's entry points, ``api.prefill_fn`` / ``api.decode_fn``:
+    SmoothQuant+ in f32 (G=128, α searched) through the library, then 8
+    greedy requests in two batches of 4 prompts of one length each, 16 new
+    tokens; K1 runs the 8 quantized linears of every layer.  RWKV6 has no
+    paged serving path (its state is O(1) a slot)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.calibration import synthetic_calibration_set
+    from repro_torch.models import api
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serving.engine import load_or_quantize
+
+    print("path 7: rwkv6-7b full width and depth through prefill_fn / "
+          "decode_fn, SmoothQuant+ W4A16 f32, 8 requests in two batches of "
+          "4", flush=True)
+    t_path = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("rwkv6-7b").with_(dtype="float32")
+    params = api.init_model(cfg, seed=0, device=DEV)
+    calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, rep = load_or_quantize(params, cfg, calib,
+                                   QuantConfig(group_size=128))
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    ptq_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(32, 201, 2)]
+    batches = [rng.integers(2, cfg.vocab_size, (4, n)).astype(np.int32)
+               for n in lens]
+    max_tokens = 16
+    nh, hk = SSM.rwkv_dims(cfg)
+    state_slot = cfg.num_layers * nh * hk * hk * 4
+    outputs, ttft, prefill_s, decode_s = [], [], [], 0.0
+    steps = 0
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        for toks in batches:
+            n = toks.shape[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = api.prefill_fn(
+                params, {"tokens": torch.from_numpy(toks).to(DEV)}, cfg,
+                n + max_tokens)
+            tok = logits.argmax(-1).to(torch.int32)
+            out = [tok.cpu()]
+            dt = time.perf_counter() - t0
+            prefill_s.append(dt)
+            ttft += [dt] * len(toks)
+            t0 = time.perf_counter()
+            for s in range(max_tokens - 1):
+                pos = torch.full((len(toks),), n + s, dtype=torch.int32,
+                                 device=DEV)
+                logits, cache = api.decode_fn(
+                    params, {"token": tok[:, None], "position": pos}, cache,
+                    cfg)
+                tok = logits.argmax(-1).to(torch.int32)
+                out.append(tok.cpu())
+                steps += 1
+            decode_s += time.perf_counter() - t0
+            outputs += torch.stack(out, 1).tolist()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred["w4a16_matmul"] = 8 * cfg.num_layers * (len(batches) + steps)
+    decoded = len(outputs) * (max_tokens - 1)
+    tok_s = decoded / decode_s
+    print(f"  launches {counts}; predicted {pred}; {len(batches)} prefills "
+          f"(prompt lengths {lens}), {steps} decode steps; wkv state "
+          f"{state_slot / 1e6:.1f} MB a request", flush=True)
+    require(counts == pred, "path 7: launch counts differ from the "
+            "prediction")
+    require(all(0 <= t < cfg.vocab_size for o in outputs for t in o),
+            "path 7: token out of range")
+    operands = check_path_operands(seen, "path 7")
+    del seen
+    # one prefill and one decode step on the first prompt against the
+    # dequantized weights (plain PyTorch linears)
+    plain = dequantized_params(params)
+    prompt = torch.from_numpy(batches[0][:1]).to(DEV)
+    errs = {}
+    with torch.no_grad():
+        res = {}
+        for name, prm in (("kernel", params), ("plain", plain)):
+            lg, c = api.prefill_fn(prm, {"tokens": prompt}, cfg,
+                                   prompt.shape[1] + 1)
+            nxt = lg.argmax(-1).to(torch.int32)[:, None]
+            pos = torch.full((1,), prompt.shape[1], dtype=torch.int32,
+                             device=DEV)
+            res[name] = (lg, api.decode_fn(prm, {"token": nxt,
+                                                 "position": pos}, c, cfg)[0])
+        for i, step in enumerate(("prefill", "decode")):
+            a, b = res["kernel"][i], res["plain"][i]
+            require(bool(torch.isfinite(a).all()), f"path 7 {step} logits "
+                    "not finite")
+            err = max_err(a, b)
+            tol = 2e-3 * max(1.0, float(b.abs().max()))
+            print(f"  {step} step logits vs plain: max |diff| = {err:.3g} "
+                  f"(tol {tol:.3g})")
+            require(err <= tol, f"path 7 {step} logits differ from the plain "
+                    "path")
+            errs[f"{step}_logit_err"] = err
+    del plain, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a steady window: 8 contiguous decode steps of batch 4, and the
+    # prefill of one 4-row batch, host wall and device kernel time
+    toks = torch.from_numpy(batches[0]).to(DEV)
+    with torch.no_grad():
+        logits, cache = api.prefill_fn(params, {"tokens": toks}, cfg,
+                                       toks.shape[1] + 64)
+        box = {"tok": logits.argmax(-1).to(torch.int32)[:, None],
+               "cache": cache, "n": toks.shape[1]}
+
+        def step():
+            pos = torch.full((4,), box["n"], dtype=torch.int32, device=DEV)
+            lg, box["cache"] = api.decode_fn(
+                params, {"token": box["tok"], "position": pos},
+                box["cache"], cfg)
+            box["tok"] = lg.argmax(-1).to(torch.int32)[:, None]
+            box["n"] += 1
+
+        dec_wall, dec_wall_prof, dec_dev = _profile_steps(step, 8)
+        pre_wall, _, pre_dev = _profile_steps(
+            lambda: api.prefill_fn(params, {"tokens": toks}, cfg,
+                                   toks.shape[1] + 1), 1)
+    peak = torch.cuda.max_memory_allocated()
+    took = time.perf_counter() - t_path
+    print(f"  PTQ alpha={rep.alpha:.2f} in {ptq_s:.1f}s "
+          f"({rep.fp_bytes / 1e9:.2f} GB -> {rep.quant_bytes / 1e9:.2f} GB, "
+          f"PTQ peak {ptq_peak / 2 ** 30:.2f} GiB); {decoded} decoded tokens "
+          f"in {decode_s:.2f}s: {tok_s:.1f} decode tok/s, TTFT p50 "
+          f"{statistics.median(ttft):.3f}s max {max(ttft):.3f}s (the batch's "
+          f"prefill); decode step (batch 4): {dec_wall * 1e3:.2f} ms wall, "
+          f"{dec_dev * 1e3:.2f} ms device; prefill of 4x{toks.shape[1]}: "
+          f"{pre_wall * 1e3:.1f} ms wall = {pre_wall * 1e3 / toks.numel():.3f}"
+          f" ms a prompt token, {pre_dev * 1e3:.1f} ms device; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; {took:.1f}s in all", flush=True)
+    RESULTS["path7"] = dict(
+        launches=counts, predicted=pred, prompt_lens=lens,
+        decode_steps=steps, decoded_tokens=decoded, decode_s=decode_s,
+        decode_tok_s=tok_s, ttft_s=sorted(ttft), prefill_s=prefill_s,
+        ptq_s=ptq_s, ptq_peak_mem_bytes=ptq_peak, alpha=rep.alpha,
+        fp_bytes=rep.fp_bytes, quant_bytes=rep.quant_bytes,
+        decode_wall_ms=dec_wall * 1e3, decode_wall_profiled_ms=(
+            dec_wall_prof * 1e3), decode_device_ms=dec_dev * 1e3,
+        prefill_wall_ms=pre_wall * 1e3, prefill_device_ms=pre_dev * 1e3,
+        prefill_ms_per_prompt_token=pre_wall * 1e3 / toks.numel(),
+        wkv_bytes_per_request=state_slot, peak_mem_bytes=peak,
+        path_operands=operands, seconds=took, **errs)
+    del params, cache, box
+    return counts
+
+
 def path4c(params, cfg):
     """Path 4's params (deepseek-v2-236b, 2 layers, fp latent pools,
     128-token chunks) with the prefix cache: two waves of 4 behind a
@@ -2787,6 +3288,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     k1, b5, k2, k3 = check_k1(), check_b5(), check_k2(), check_k3()
     check_k1_widths()
+    check_k1_ssm()
     b67, b4, b89 = check_grouped(), check_flash(), check_mla()
     check_mla_long()
     check_offset_only()
@@ -2821,6 +3323,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     path5()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path6()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path7()
 
     # one row per kernel: its path's shape in the paths' f32, and its
     # launches on the path that runs it

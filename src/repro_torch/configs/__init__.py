@@ -2,24 +2,27 @@
 
 The paper's own Code Llama family, the dense decoders (Llama-3.2,
 Mistral-Large, ChatGLM3 with RoPE-2d, StarCoder2 with LayerNorm, GELU and
-biases, Qwen2-VL with M-RoPE and the patch-embedding stub), the Granite MoE
-and DeepSeek-V2 (MLA, shared experts) are ported; the hybrid, SSM and
-encoder-decoder architectures raise a clear "not ported yet" error.
+biases, Qwen2-VL with M-RoPE and the patch-embedding stub), the Granite MoE,
+DeepSeek-V2 (MLA, shared experts), Zamba2 (Mamba2 plus a weight-shared
+attention block) and RWKV6 are ported; the encoder-decoder architecture
+raises a clear "not ported yet" error.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
-                                     MoEConfig, QuantConfig)
+from repro_torch.configs.base import (HybridConfig,  # noqa: F401
+                                     MLAConfig, ModelConfig, MoEConfig,
+                                     QuantConfig)
 
 ARCH_IDS = ("codellama-7b", "codellama-13b", "codellama-34b",
             "llama3.2-3b", "mistral-large-123b", "chatglm3-6b",
             "starcoder2-15b", "qwen2-vl-7b",
-            "granite-moe-1b-a400m", "deepseek-v2-236b")
+            "granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-7b",
+            "rwkv6-7b")
 
 # the reference registry's other architectures (see ROADMAP.md queue A)
-NOT_PORTED = ("zamba2-7b", "rwkv6-7b", "whisper-medium")
+NOT_PORTED = ("whisper-medium",)
 
 
 def _modname(arch_id: str) -> str:

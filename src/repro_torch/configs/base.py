@@ -1,6 +1,7 @@
 """Model / quantization configuration dataclasses (port of
 ``repro/configs/base.py``: the dense, VLM-stub and MoE decoder families,
-GQA or Multi-head Latent Attention).
+GQA or Multi-head Latent Attention, the Zamba2-style hybrid (Mamba2 plus a
+weight-shared attention block) and the attention-free RWKV6 stack).
 
 The fields keep the reference's names and defaults so a config prints the
 same in both packages.  Features the port has not covered yet stay as
@@ -36,9 +37,15 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: mamba2 backbone + weight-shared attention block."""
+    attn_every: int = 6                # shared attn after every N mamba layers
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | moe | vlm (others not ported)
+    family: str                        # dense | moe | vlm | hybrid | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -46,16 +53,23 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None     # default d_model // num_heads
-    mixer: str = "attention"           # attention | mla
+    mixer: str = "attention"           # attention | mla | mamba2 | rwkv6
     mlp: str = "swiglu"                # swiglu | gelu
-    rope: str = "standard"             # standard | 2d | mrope
+    rope: str = "standard"             # standard | 2d | mrope | none
     rope_theta: float = 1e4
     norm: str = "rmsnorm"              # rmsnorm | layernorm
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    ssm_state: int = 0                 # mamba2 state size N
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_kernel: int = 4
     tie_embeddings: bool = False
     attn_bias: bool = False            # biases on q/k/v/o and the GELU MLP
     dtype: str = "bfloat16"
+    # long-context marker (a sub-quadratic mixer), as in the reference
+    subquadratic: bool = False
     # int8 KV page pools with per-(position, head) f32 scales
     kv_quant: bool = False
     # full-sequence attention (calibration, teacher-forced forward):
@@ -90,21 +104,35 @@ class ModelConfig:
 
     def check(self) -> "ModelConfig":
         """Raise for the features the port does not cover yet."""
-        if self.mixer not in ("attention", "mla"):
+        if self.mixer not in ("attention", "mla", "mamba2", "rwkv6"):
             raise NotImplementedError(
-                f"mixer={self.mixer!r}: only GQA attention and MLA are ported "
-                "(SSM mixers: ROADMAP.md queue A item 1)")
+                f"mixer={self.mixer!r}: the port has GQA attention, MLA, "
+                "Mamba2 and RWKV6")
         if (self.mixer == "mla") != (self.mla is not None):
             raise ValueError(f"{self.name}: mixer={self.mixer!r} and "
                              f"mla={self.mla!r} disagree")
-        if self.family not in ("dense", "moe", "vlm"):
+        if self.family not in ("dense", "moe", "vlm", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"family={self.family!r}: only the dense, VLM-stub and MoE "
-                "decoders are ported (hybrid, SSM and encoder-decoder: "
-                "ROADMAP.md queue A item 1)")
+                f"family={self.family!r}: the dense, VLM-stub, MoE, hybrid "
+                "and SSM decoders are ported (encoder-decoder: ROADMAP.md "
+                "queue A item 1)")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"{self.name}: family={self.family!r} and "
                              f"moe={self.moe!r} disagree")
+        if (self.family == "hybrid") != (self.hybrid is not None) or (
+                self.family == "hybrid" and self.mixer != "mamba2"):
+            raise ValueError(f"{self.name}: family={self.family!r}, "
+                             f"mixer={self.mixer!r} and hybrid="
+                             f"{self.hybrid!r} disagree (a hybrid stack is "
+                             "Mamba2 with a HybridConfig)")
+        if (self.family == "ssm") != (self.mixer in ("mamba2", "rwkv6")
+                                      and self.family != "hybrid"):
+            raise ValueError(f"{self.name}: family={self.family!r} and "
+                             f"mixer={self.mixer!r} disagree")
+        if self.family == "ssm" and self.mixer == "mamba2":
+            raise NotImplementedError(
+                f"{self.name}: a pure Mamba2 stack has no config in the "
+                "registry; the port serves Mamba2 in the hybrid layout")
         if self.moe is not None and self.moe.router_dtype != "float32":
             raise NotImplementedError(
                 f"{self.name}: router_dtype={self.moe.router_dtype!r}: the "
@@ -116,7 +144,10 @@ class ModelConfig:
             raise ValueError(
                 f"paged_attn_impl={self.paged_attn_impl!r}: expected 'auto' "
                 "or 'gather'")
-        for field, ported in (("rope", ("standard", "2d", "mrope")),
+        # RWKV6 has no attention, so no rotary embedding to pick
+        ropes = ("standard", "2d", "mrope") + (
+            ("none",) if self.mixer == "rwkv6" else ())
+        for field, ported in (("rope", ropes),
                               ("norm", ("rmsnorm", "layernorm")),
                               ("mlp", ("swiglu", "gelu"))):
             if getattr(self, field) not in ported:

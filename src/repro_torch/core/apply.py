@@ -5,8 +5,9 @@ The port smooths and quantizes the given params *in place*: each fp weight
 is replaced by its :class:`QuantizedTensor` as soon as it is quantized, so
 the f32 7B model never exists twice and its fp linear weights are freed.
 The reference flags one ``a8`` per stacked ``[L, ...]`` tensor (one bad
-layer vetoes the stack); the port keeps one dict per layer and stamps that
-same flag on the path in every layer.  MoE experts quantize as stacked
+layer vetoes the stack; for the hybrid's ``[g, k, ...]`` groups one per
+group stack); the port keeps one dict per layer and stamps that same flag
+on the path in every layer of the block.  MoE experts quantize as stacked
 ``[E, Ci, Co]`` tensors (one flag per stack); the router is a row
 compensation of smoothing and stays fp.  An MLA layer also gets the int4
 absorbed pair ``mixer/wkv_b_absorbed`` (:func:`_mla_absorbed_quantize`),
@@ -58,7 +59,9 @@ class PTQReport:
 
 
 def quantizable_paths(cfg: ModelConfig) -> List[Tuple[Any, ...]]:
-    """Every weight named by the smoothing group table, per layer."""
+    """Every weight named by the smoothing group table, per layer (of any
+    block; :func:`repro_torch.core.smoothing.block_paths` pairs each with
+    its block)."""
     return [wp for g in SM.smoothing_groups(cfg) for wp in g.weights]
 
 
@@ -91,8 +94,8 @@ def _mla_absorbed_quantize(w: torch.Tensor, cfg: ModelConfig,
     }
 
 
-def _report_key(wp: Tuple[Any, ...]) -> str:
-    return "/".join(map(str, SM.BLOCK + wp))
+def _report_key(block: str, wp: Tuple[Any, ...]) -> str:
+    return "/".join(map(str, (block,) + wp))
 
 
 def derive_a8_eligibility(col: C.StatsCollector, cfg: ModelConfig,
@@ -103,34 +106,36 @@ def derive_a8_eligibility(col: C.StatsCollector, cfg: ModelConfig,
     weight of a smoothing group shares one input, so the group's worst
     per-token int8 round-trip error — max over batches and over depth —
     must stay within ``qcfg.a8_threshold``.  A group with no stats is
-    ineligible.  Returns ``(per-layer path → bool, report key → error)``."""
+    ineligible.  Returns ``((block,) + per-layer path → bool, report key →
+    error)``."""
     amap: Dict[Tuple[Any, ...], bool] = {}
     errors: Dict[str, float] = {}
     for g in SM.smoothing_groups(cfg):
         errs = [v for (blk, _lidx, sub), v in col.a8_err.items()
-                if blk == SM.BLOCK and sub == g.stats_sub]
+                if blk == (g.block,) and sub == g.stats_sub]
         worst = max(errs) if errs else float("inf")
         ok = bool(worst <= qcfg.a8_threshold)
         for wp in g.weights:
-            amap[wp] = ok
-            errors[_report_key(wp)] = worst
+            amap[(g.block,) + wp] = ok
+            errors[_report_key(g.block, wp)] = worst
     return amap, errors
 
 
 def _tree_a8_flags(qparams, cfg: ModelConfig) -> Dict[str, bool]:
-    """The ``a8`` flags actually stamped on the tree, one per path (set only
-    if it is set on that path in every layer); an MLA absorbed pair moves in
-    step and reports as one flag."""
-    paths = quantizable_paths(cfg) + ([ABSORBED] if cfg.mla else [])
+    """The ``a8`` flags actually stamped on the tree, one per path of a
+    block (set only if it is set on that path in every layer of the
+    block); an MLA absorbed pair moves in step and reports as one flag."""
+    paths = SM.block_paths(cfg) + ([("layers", ABSORBED)] if cfg.mla else [])
 
     def flag(node) -> bool:
         if isinstance(node, dict):
             return all(bool(v.a8) for v in node.values())
         return bool(node.a8)
 
-    return {_report_key(wp): all(flag(SM.tget(lp, wp))
-                                 for lp in qparams["layers"])
-            for wp in paths}
+    return {_report_key(blk, wp): all(
+                flag(SM.tget(lp, wp))
+                for _, lp in SM.block_layers(qparams, blk))
+            for blk, wp in paths if SM.block_layers(qparams, blk)}
 
 
 @torch.no_grad()
@@ -148,29 +153,34 @@ def quantize_params(params, cfg: ModelConfig, qcfg: QuantConfig, *,
             "is a row compensation of smoothing)")
     fp_bytes = quant_bytes = 0
     done = []
-    for i, layer in enumerate(params["layers"]):
-        for wp in quantizable_paths(cfg):
-            parent = SM.tget(layer, wp[:-1])
-            w = parent[wp[-1]]
-            qt = quantize(w, group_size=_fit_group(w.shape[-2],
-                                                   qcfg.group_size),
-                          dtype=cfg.tdtype)
-            if a8_map is not None:
-                qt = dataclasses.replace(qt, a8=bool(a8_map.get(wp, False)))
-            parent[wp[-1]] = qt
-            fp_bytes += w.numel() * 2
-            quant_bytes += qt.nbytes_quant()
-            done.append(("layers", i) + wp)
-            if cfg.mla is not None and wp[-2:] == ("wkv_b", "w"):
-                ab = _mla_absorbed_quantize(w, cfg, qcfg)
+    paths = SM.block_paths(cfg)
+    for block in dict.fromkeys(blk for blk, _ in paths):
+        for lidx, layer in SM.block_layers(params, block):
+            for blk, wp in paths:
+                if blk != block:
+                    continue
+                parent = SM.tget(layer, wp[:-1])
+                w = parent[wp[-1]]
+                qt = quantize(w, group_size=_fit_group(w.shape[-2],
+                                                       qcfg.group_size),
+                              dtype=cfg.tdtype)
                 if a8_map is not None:
-                    ab = {k: dataclasses.replace(
-                        v, a8=bool(a8_map.get(ABSORBED, False)))
-                        for k, v in ab.items()}
-                SM.tget(layer, ABSORBED[:-1])[ABSORBED[-1]] = ab
-                quant_bytes += sum(v.nbytes_quant() for v in ab.values())
-                done.append(("layers", i) + ABSORBED)
-            del w
+                    qt = dataclasses.replace(
+                        qt, a8=bool(a8_map.get((block,) + wp, False)))
+                parent[wp[-1]] = qt
+                fp_bytes += w.numel() * 2
+                quant_bytes += qt.nbytes_quant()
+                done.append((block,) + lidx + wp)
+                if cfg.mla is not None and wp[-2:] == ("wkv_b", "w"):
+                    ab = _mla_absorbed_quantize(w, cfg, qcfg)
+                    if a8_map is not None:
+                        ab = {k: dataclasses.replace(
+                            v, a8=bool(a8_map.get(ABSORBED, False)))
+                            for k, v in ab.items()}
+                    SM.tget(layer, ABSORBED[:-1])[ABSORBED[-1]] = ab
+                    quant_bytes += sum(v.nbytes_quant() for v in ab.values())
+                    done.append((block,) + lidx + ABSORBED)
+                del w
     return params, done, fp_bytes, quant_bytes
 
 
@@ -219,12 +229,7 @@ class StalePTQArtifactError(ValueError):
 # The reference's config fields the port does not carry, at their defaults
 # (``ModelConfig.check`` refuses every config where they would differ),
 # each after the field it follows in the reference's field order.
-_REF_MODEL_EXTRA = {
-    "mla": (("hybrid", None), ("ssm_state", 0), ("ssm_head_dim", 64),
-            ("ssm_expand", 2), ("conv_kernel", 4), ("encdec", False),
-            ("enc_layers", 0)),
-    "dtype": (("subquadratic", False),),
-}
+_REF_MODEL_EXTRA = {"conv_kernel": (("encdec", False), ("enc_layers", 0))}
 _REF_QUANT_EXTRA = {"alpha": (("backend", "auto"),)}
 
 
@@ -265,12 +270,17 @@ def ptq_matches(directory, cfg: ModelConfig, qcfg: QuantConfig) -> bool:
     return meta.get("config_hash") == ptq_fingerprint(cfg, qcfg)
 
 
+# leading layer indices of a per-layer path, per block
+_LAYER_AXES = {"layers": 1, "tail": 1, "groups": 2, "shared": 0}
+
+
 def _reference_paths(paths) -> List[Tuple[str, ...]]:
-    """The port's per-layer paths ``("layers", i, ...)`` → the reference's
-    stacked ones ``("layers", ...)``, in first-layer order."""
+    """The port's per-layer paths (``("layers", i, ...)``, ``("groups", gi,
+    ki, ...)``, ``("shared", ...)``) → the reference's stacked ones
+    (``("layers", ...)``), in first-layer order."""
     out: List[Tuple[str, ...]] = []
     for p in paths:
-        rp = (p[0],) + tuple(map(str, p[2:]))
+        rp = (p[0],) + tuple(map(str, p[1 + _LAYER_AXES[p[0]]:]))
         if rp not in out:
             out.append(rp)
     return out
@@ -331,9 +341,11 @@ def load_ptq(directory, cfg: ModelConfig, qcfg: QuantConfig,
     report = PTQReport(
         alpha=r["alpha"], search_loss=r["search_loss"],
         loss_curve={float(k): v for k, v in r["loss_curve"].items()},
-        quantized_paths=[(p[0], i) + p[1:]
-                         for i in range(len(params["layers"]))
-                         for p in paths],
+        quantized_paths=[
+            (block,) + lidx + p[1:]
+            for block in dict.fromkeys(p[0] for p in paths)
+            for lidx, _ in SM.block_layers(params, block)
+            for p in paths if p[0] == block],
         fp_bytes=r["fp_bytes"], quant_bytes=r["quant_bytes"],
         a8_eligibility=flags,
         a8_errors={k: float(v) for k, v in r.get("a8_errors", {}).items()},

@@ -71,12 +71,12 @@ def _layer_loss(layer, cfg, group, alpha, group_size, act_mean
     return total, s
 
 
-def _mean_stats(col: StatsCollector, i: int, sub) -> np.ndarray:
-    """Layer ``i``'s mean |x| for the group's input, or its max where the
-    input was tapped without sums (the MoE experts)."""
-    key = (SM.BLOCK, (i,), sub)
+def _mean_stats(col: StatsCollector, block: str, lidx, sub) -> np.ndarray:
+    """A layer's mean |x| for the group's input, or its max where the input
+    was tapped without sums (the MoE experts)."""
+    key = ((block,), lidx, sub)
     return col.mean_stats(key) if key in col.sums else SM.layer_stats(
-        col, i, sub)
+        col, block, lidx, sub)
 
 
 @torch.no_grad()
@@ -90,13 +90,16 @@ def awq_quantize(params, cfg: ModelConfig,
     col = collect_stats(params, cfg, calibration_batches)
     alphas: Dict[str, float] = {}
     grid = np.round(np.arange(0.0, 1.0 + 1e-9, step), 10)
-    layers = params["layers"]
     for g in SM.smoothing_groups(cfg):
         if g.provider.kind == "none":      # nothing to smooth (s = 1)
             continue
+        blk = SM.block_layers(params, g.block)
+        if not blk:
+            continue        # block absent (no hybrid tail in this layout)
+        layers = [lp for _, lp in blk]
         try:
-            acts = [_mean_stats(col, i, g.stats_sub)
-                    for i in range(len(layers))]
+            acts = [_mean_stats(col, g.block, lidx, g.stats_sub)
+                    for lidx, _ in blk]
         except KeyError:
             continue
         best, best_s = None, None

@@ -5,7 +5,10 @@ The calibration batches run through the fp model layer by layer; each layer's
 weight tensors are registered (by ``id``) with a context collector, and
 :func:`repro_torch.models.layers.apply_linear` reports its input when it sees
 a registered weight.  Stats keys are the reference's:
-``(("layers",), (layer_idx,), weight_subpath)``.  Beside the channel max
+``(("layers",), (layer_idx,), weight_subpath)``; the hybrid stack's Mamba2
+layers are keyed ``(("groups",), (gi, ki), ...)`` and ``(("tail",), (ti,),
+...)``, and its weight-shared attention block one key ``(("shared",), (),
+...)`` across its call sites, so its stats take the channel max over them.  Beside the channel max
 |X| the collector keeps, per key, the channel sums of |X| and their row
 count (:meth:`StatsCollector.mean_stats`, AWQ's importance) and the worst
 per-token int8 round-trip error of the input
@@ -136,11 +139,25 @@ def _lm_pass(col: StatsCollector, params, cfg: ModelConfig, batch) -> None:
     embeds = batch.get("embeds")
     x = LM.embed_in(params, tokens,
                     None if embeds is None else embeds.to(device))
-    for i, lp in enumerate(params["layers"]):
-        col.register_tree(("layers",), (i,), lp)
-        col.moe_key = (("layers",), (i,))
-        x = LM._block_forward(lp, x, pos, cfg)
+
+    def run_block(block, lidx, lp, x, c=cfg, mixer=None):
+        col.register_tree((block,), lidx, lp)
+        col.moe_key = ((block,), lidx)
+        x = LM._block_forward(lp, x, pos, c, mixer=mixer)
         col.moe_key = None
+        return x
+
+    if cfg.family == "hybrid":
+        for gi, group in enumerate(params["groups"]):
+            for ki, lp in enumerate(group):
+                x = run_block("groups", (gi, ki), lp, x)
+            x = run_block("shared", (), params["shared"], x,
+                          cfg.with_(moe=None), "attention")
+        for ti, lp in enumerate(params.get("tail", ())):
+            x = run_block("tail", (ti,), lp, x)
+    else:
+        for i, lp in enumerate(params["layers"]):
+            x = run_block("layers", (i,), lp, x)
 
 
 def synthetic_calibration_set(cfg: ModelConfig, *, n_seqs: int = 8,

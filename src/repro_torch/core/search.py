@@ -26,8 +26,9 @@ class SearchResult:
     losses: Dict[float, float]
 
 
-def _group_quant_loss(layer, i, cfg, col, group, alpha, group_size) -> float:
-    act = SM.layer_stats(col, i, group.stats_sub)
+def _group_quant_loss(layer, lidx, cfg, col, group, alpha,
+                      group_size) -> float:
+    act = SM.layer_stats(col, group.block, lidx, group.stats_sub)
     s = SM.compute_group_s(layer, cfg, act, group, alpha)
     dev = SM.tget(layer, group.weights[0]).device
     st = torch.from_numpy(s).to(dev)
@@ -44,9 +45,9 @@ def _group_quant_loss(layer, i, cfg, col, group, alpha, group_size) -> float:
 @torch.no_grad()
 def model_quant_loss(params, cfg: ModelConfig, col: StatsCollector,
                      alpha: float, group_size: int = 128) -> float:
-    return sum(_group_quant_loss(layer, i, cfg, col, g, alpha, group_size)
+    return sum(_group_quant_loss(layer, lidx, cfg, col, g, alpha, group_size)
                for g in SM.smoothing_groups(cfg)
-               for i, layer in enumerate(params["layers"]))
+               for lidx, layer in SM.block_layers(params, g.block))
 
 
 def search_alpha(params, cfg: ModelConfig, col: StatsCollector, *,

@@ -1,5 +1,6 @@
 """SmoothQuant+ smoothing with exact fusion (port of
-``repro/core/smoothing.py``: the dense, MoE and MLA decoder groups).
+``repro/core/smoothing.py``: the dense, MoE, MLA, hybrid Mamba2 and RWKV6
+decoder groups).
 
 For every smoothing group — linear weights sharing one input activation —
 ``s_j = max|X_j|^α / max|W_j|^(1-α)`` (paper eq. 6), ``W ← diag(s) W`` and
@@ -12,17 +13,22 @@ values).  The GELU MLP's ``down`` has a non-linear producer
 reference, ``"linear_out"`` scales only ``wv``'s weight columns, not its
 bias, so on a model with a nonzero ``wv`` bias the ``layers.wo`` transform
 is not exact; the port keeps that behaviour.
-``tie="kv"`` reduces the o-proj's ``s`` (max) over each
+RWKV6's channel mix feeds ``wv`` with ``relu(k)²``: its ``1/s`` fuses
+into ``wk``'s columns as ``1/√s`` (``"linear_out_sqrt"``; exact because
+``√s > 0``).  ``tie="kv"`` reduces the o-proj's ``s`` (max) over each
 KV head's query group so it can fuse into ``wv``'s ``Hkv·Dh`` columns.
 ``row_compensations`` are non-quantized consumers of the same activation
-(the MoE router): their rows are scaled by ``s`` so the model stays
-equivalent, but they are not quantized.  Stacked expert weights ``[E, Ci,
+(the MoE router, RWKV6's decay-LoRA ``w_lora_a``): their rows are scaled by
+``s`` so the model stays equivalent, but they are not quantized.  Stacked expert weights ``[E, Ci,
 Co]`` take the group's ``s`` per row: ``moe.in``'s ``s[Ci]`` (keyed by the
 router's input stat) is shared by the experts, ``moe.down``'s ``s[E, F]`` is
 per expert.  DeepSeek-V2's shared expert joins ``moe.in`` (the same
 normed input) and has its own ``moe.shared.down`` group.
 
-Paths are relative to one layer's param dict; ``s`` is computed per layer
+Paths are relative to one layer's param dict of the group's ``block``
+(``"layers"``; for the hybrid stack ``"groups"``, ``"tail"`` and the
+weight-shared ``"shared"``, whose one stats key spans its call sites, so its
+statistics are the channel max over them); ``s`` is computed per layer
 with the reference's numpy arithmetic, so it matches it bit for bit given
 the same statistics.  The port scales weights *in place* so the f32 7B model
 is never held twice.
@@ -39,13 +45,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.calibration import StatsCollector
 
 Path = Tuple[Any, ...]
-BLOCK = ("layers",)
 
 
 @dataclasses.dataclass(frozen=True)
 class Provider:
-    kind: str               # norm | linear_out | linear_out_mla_v | none
-    path: Path = ()
+    kind: str       # norm | linear_out | linear_out_sqrt | linear_out_mla_v
+    path: Path = ()                 # | none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +61,7 @@ class Group:
     stats_sub: Tuple[str, ...]      # collector weight subpath
     row_compensations: Tuple[Path, ...] = ()
     tie: Optional[str] = None       # None | "kv"
+    block: str = "layers"           # layers | groups | tail | shared
 
 
 def tget(tree, path: Path):
@@ -64,14 +70,31 @@ def tget(tree, path: Path):
     return tree
 
 
-def _attn_groups() -> List[Group]:
+def block_layers(params, block: str) -> List[Tuple[Tuple[int, ...], Any]]:
+    """``(layer index, layer dict)`` of every layer of ``block`` (none when
+    the layout has no such block): ``(i,)`` for ``"layers"`` and
+    ``"tail"``, ``(gi, ki)`` for the hybrid's ``"groups"``, ``()`` for its
+    one ``"shared"`` block."""
+    node = params.get(block)
+    if node is None:
+        return []
+    if block == "shared":
+        return [((), node)]
+    if block == "groups":
+        return [((gi, ki), lp) for gi, group in enumerate(node)
+                for ki, lp in enumerate(group)]
+    return [((i,), lp) for i, lp in enumerate(node)]
+
+
+def _attn_groups(block: str = "layers") -> List[Group]:
     m = ("mixer",)
     return [
-        Group("layers.qkv", (m + ("wq", "w"), m + ("wk", "w"), m + ("wv", "w")),
-              Provider("norm", ("norm1",)), m + ("wq", "w")),
-        Group("layers.wo", (m + ("wo", "w"),),
+        Group(f"{block}.qkv",
+              (m + ("wq", "w"), m + ("wk", "w"), m + ("wv", "w")),
+              Provider("norm", ("norm1",)), m + ("wq", "w"), block=block),
+        Group(f"{block}.wo", (m + ("wo", "w"),),
               Provider("linear_out", m + ("wv", "w")), m + ("wo", "w"),
-              tie="kv"),
+              tie="kv", block=block),
     ]
 
 
@@ -90,7 +113,7 @@ def _mla_groups() -> List[Group]:
     ]
 
 
-def _mlp_groups(cfg: ModelConfig) -> List[Group]:
+def _mlp_groups(cfg: ModelConfig, block: str = "layers") -> List[Group]:
     mlp = ("mlp",)
     if cfg.moe is not None:
         ex = mlp + ("experts",)
@@ -112,27 +135,73 @@ def _mlp_groups(cfg: ModelConfig) -> List[Group]:
     if cfg.mlp == "gelu":   # up smoothable; down's producer is non-linear
         return [
             Group("mlp.in", (mlp + ("up", "w"),),
-                  Provider("norm", ("norm2",)), mlp + ("up", "w")),
+                  Provider("norm", ("norm2",)), mlp + ("up", "w"),
+                  block=block),
             Group("mlp.down", (mlp + ("down", "w"),), Provider("none"),
-                  mlp + ("down", "w")),
+                  mlp + ("down", "w"), block=block),
         ]
     return [
         Group("mlp.in", (mlp + ("gate", "w"), mlp + ("up", "w")),
-              Provider("norm", ("norm2",)), mlp + ("gate", "w")),
+              Provider("norm", ("norm2",)), mlp + ("gate", "w"), block=block),
         Group("mlp.down", (mlp + ("down", "w"),),
-              Provider("linear_out", mlp + ("up", "w")), mlp + ("down", "w")),
+              Provider("linear_out", mlp + ("up", "w")), mlp + ("down", "w"),
+              block=block),
+    ]
+
+
+def _mamba_groups(block: str) -> List[Group]:
+    m = ("mixer",)
+    return [
+        Group("mamba.in", tuple(m + (k, "w") for k in ("in_z", "in_x",
+                                                        "in_bc", "in_dt")),
+              Provider("norm", ("norm1",)), m + ("in_z", "w"), block=block),
+        Group("mamba.out", (m + ("out_proj", "w"),),
+              Provider("norm", m + ("norm",)), m + ("out_proj", "w"),
+              block=block),
+    ]
+
+
+def _rwkv_groups() -> List[Group]:
+    m, mlp = ("mixer",), ("mlp",)
+    return [
+        Group("rwkv.in", tuple(m + (k, "w") for k in ("wr", "wk", "wv", "wg")),
+              Provider("norm", ("norm1",)), m + ("wr", "w"),
+              row_compensations=(m + ("w_lora_a",),)),
+        Group("rwkv.wo", (m + ("wo", "w"),), Provider("norm", m + ("ln_x",)),
+              m + ("wo", "w")),
+        Group("rwkv.cm.in", (mlp + ("wk", "w"), mlp + ("wr", "w")),
+              Provider("norm", ("norm2",)), mlp + ("wk", "w")),
+        Group("rwkv.cm.v", (mlp + ("wv", "w"),),
+              Provider("linear_out_sqrt", mlp + ("wk", "w")),
+              mlp + ("wv", "w")),
     ]
 
 
 def smoothing_groups(cfg: ModelConfig) -> List[Group]:
+    """The reference's group table, in its order (the hybrid stack: the
+    grouped and tail Mamba2 layers, then the shared attention and MLP)."""
     cfg.check()
+    if cfg.family == "hybrid":
+        return (_mamba_groups("groups") + _mamba_groups("tail")
+                + _attn_groups("shared")
+                + _mlp_groups(cfg.with_(moe=None), "shared"))
+    if cfg.mixer == "rwkv6":
+        return _rwkv_groups()
     mixer = _mla_groups() if cfg.mixer == "mla" else _attn_groups()
     return mixer + _mlp_groups(cfg)
 
 
-def layer_stats(col: StatsCollector, i: int, sub: Tuple[str, ...]
-                ) -> np.ndarray:
-    key = (BLOCK, (i,), sub)
+def block_paths(cfg: ModelConfig) -> List[Tuple[str, Path]]:
+    """Every ``(block, per-layer weight path)`` the groups name, once."""
+    out: List[Tuple[str, Path]] = []
+    for g in smoothing_groups(cfg):
+        out += [(g.block, wp) for wp in g.weights if (g.block, wp) not in out]
+    return out
+
+
+def layer_stats(col: StatsCollector, block: str, lidx: Tuple[int, ...],
+                sub: Tuple[str, ...]) -> np.ndarray:
+    key = ((block,), lidx, sub)
     if key not in col.stats:
         raise KeyError(f"no calibration stats for {key}")
     return col.stats[key]
@@ -212,8 +281,12 @@ def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
         for leaf in ("scale", "bias"):
             if leaf in nrm:
                 _scale_(nrm[leaf], sp, divide=True)
-    elif group.provider.kind == "linear_out":
-        # columns of [*lead, Ci, Co] (per expert for stacked weights)
+    elif group.provider.kind in ("linear_out", "linear_out_sqrt"):
+        # columns of [*lead, Ci, Co] (per expert for stacked weights); the
+        # sqrt form: relu(k / √s)² = relu(k)² / s needs √s > 0
+        if group.provider.kind == "linear_out_sqrt":
+            assert (s > 0).all(), "linear_out_sqrt needs s > 0"
+            sp = torch.from_numpy(np.sqrt(s_prov)).to(dev)
         w = tget(layer, group.provider.path)
         _scale_(w, sp.reshape(*sp.shape[:-1], *([1] * (w.ndim - 1 - sp.ndim)),
                               1, sp.shape[-1]), divide=True)
@@ -229,16 +302,38 @@ def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
         raise ValueError(group.provider.kind)
 
 
+def stack_block(params, block: str, per_layer: List[np.ndarray]
+                ) -> np.ndarray:
+    """Per-layer arrays of ``block`` stacked as the reference stacks them:
+    ``[L, ...]``, ``[g, k, ...]`` for the hybrid's groups, unstacked for the
+    shared block."""
+    if block == "shared":
+        return per_layer[0]
+    a = np.stack(per_layer)
+    if block == "groups":
+        g = len(params["groups"])
+        a = a.reshape(g, -1, *a.shape[1:])
+    return a
+
+
 @torch.no_grad()
 def smooth_model(params, cfg: ModelConfig, col: StatsCollector, alpha: float
                  ) -> Tuple[Any, Dict[str, np.ndarray]]:
     """Apply smoothing at strength α in place.  Returns (params,
-    {group name: s stacked [L, Ci]})."""
-    s_map: Dict[str, List[np.ndarray]] = {}
+    {group name: s stacked as its block (``[L, Ci]``)}); a name two blocks
+    share (the hybrid's ``mamba.*``) keeps the later block's, as in the
+    reference."""
+    s_map: Dict[str, np.ndarray] = {}
     for g in smoothing_groups(cfg):
-        for i, layer in enumerate(params["layers"]):
-            s = compute_group_s(layer, cfg, layer_stats(col, i, g.stats_sub),
-                                g, alpha)
+        layers = block_layers(params, g.block)
+        if not layers:
+            continue        # block absent (no hybrid tail in this layout)
+        ss = []
+        for lidx, layer in layers:
+            s = compute_group_s(
+                layer, cfg, layer_stats(col, g.block, lidx, g.stats_sub), g,
+                alpha)
             apply_group(layer, cfg, g, s)
-            s_map.setdefault(g.name, []).append(s)
-    return params, {k: np.stack(v) for k, v in s_map.items()}
+            ss.append(s)
+        s_map[g.name] = stack_block(params, g.block, ss)
+    return params, s_map

@@ -17,9 +17,14 @@ flag.  ``--arch``
 takes every ported ID (``configs.ARCH_IDS``): the Code Llamas, the dense
 decoders ``llama3.2-3b``, ``mistral-large-123b``, ``chatglm3-6b``
 (RoPE-2d), ``starcoder2-15b`` (LayerNorm, GELU, biases) and
-``qwen2-vl-7b`` (M-RoPE, text prompts), the Granite MoE and DeepSeek-V2
-(MLA, shared experts); each serves on the CPU with ``--arch ID --smoke
---device cpu``.  ``--num-pages`` below the default
+``qwen2-vl-7b`` (M-RoPE, text prompts), the Granite MoE, DeepSeek-V2
+(MLA, shared experts) and ``zamba2-7b`` (Mamba2 + weight-shared attention:
+its slots carry fixed-rows SSM state, so the token prefix cache is off, as
+the ``[note]`` line says, and the pager line counts the fixed-rows bytes
+swapped); each serves on the CPU with ``--arch ID --smoke --device cpu``.
+``rwkv6-7b`` has no paged serving path: the engine's constructor refuses
+it with ``UnsupportedModelError`` (run it through
+``models/api.py``'s ``prefill_fn`` / ``decode_fn``).  ``--num-pages`` below the default
 ``batch·pages + 1`` serves under pool pressure: the engine preempts and
 swaps (the pager line counts both).  On a card the decode step runs as one
 CUDA graph.  ``--ptq-artifact DIR`` quantizes and saves the result to DIR
@@ -61,7 +66,8 @@ from repro_torch.device import resolve_device, strict_fp32_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.w4a16_matmul import GROUP_MULTIPLE
 from repro_torch.models import api
-from repro_torch.serving.engine import Request, ServingEngine, load_or_quantize
+from repro_torch.serving.engine import (Request, ServingEngine,
+                                        load_or_quantize)
 from repro_torch.serving.faults import FaultPlan, FaultSpec
 from repro_torch.serving.trace import write_chrome_trace
 
@@ -162,13 +168,13 @@ def main(argv=None, *, attn_impl=None) -> dict:
         ap.error(f"--group-size {gs}: the W4 kernels take a positive "
                  f"multiple of {GROUP_MULTIPLE}")
 
+    cfg = get_config(args.arch, smoke=args.smoke).with_(
+        act_quant=args.act_quant)
     device = resolve_device(args.device)
     strict_fp32_matmul()
     if device.type == "cuda":
         # build every kernel now, in parallel, not inside the first request
         print(f"[kernels] built in {_build.build_all():.1f}s")
-    cfg = get_config(args.arch, smoke=args.smoke).with_(
-        act_quant=args.act_quant)
     if attn_impl is not None:
         cfg = cfg.with_(attn_impl=attn_impl)
     if not args.no_quant:
@@ -197,16 +203,22 @@ def main(argv=None, *, attn_impl=None) -> dict:
               f"in {ptq_s:.1f}s")
         flags = rep.a8_eligibility
         groups = smoothing_groups(cfg)
-        n_groups = sum(flags[f"layers/{'/'.join(g.weights[0])}"]
+        n_groups = sum(flags[f"{g.block}/{'/'.join(g.weights[0])}"]
                        for g in groups)
         print(f"[w4a8] act_quant={args.act_quant}; A8-eligible groups "
               f"{n_groups}/{len(groups)}, weight paths "
               f"{sum(flags.values())}/{len(flags)}: "
-              + ", ".join(f"{k.split('/', 1)[1]}={'a8' if v else 'a16'}"
+              + ", ".join(f"{k.removeprefix('layers/')}={'a8' if v else 'a16'}"
                           for k, v in flags.items()))
 
     fault_plan = chaos_plan(args.fault_seed) if args.chaos else None
-    prefix_cache = args.prefix_cache == "on"
+    # the token prefix cache is attention-only: a hybrid slot's fixed rows
+    # cannot be captured by KV pages
+    leaves = api.state_leaves(cfg)
+    prefix_cache = args.prefix_cache == "on" and leaves == (api.KV_PAGES,)
+    if args.prefix_cache == "on" and not prefix_cache:
+        print(f"[note] token prefix cache disabled: {cfg.family} slots carry "
+              f"state leaves {leaves}")
     eng = ServingEngine(params, cfg, batch_size=args.batch_size,
                         max_seq=args.max_seq, page_size=args.page_size,
                         num_pages=args.num_pages,
@@ -269,7 +281,8 @@ def main(argv=None, *, attn_impl=None) -> dict:
           f"{st['grown_pages']} pages grown lazily, "
           f"{st['preemptions']} preemptions "
           f"({st['swapped_out_bytes'] / 1e6:.1f}MB swapped out, "
-          f"{st['swapped_in_bytes'] / 1e6:.1f}MB back in); "
+          f"of which {st['swapped_fixed_bytes'] / 1e6:.1f}MB fixed-rows "
+          f"state, {st['swapped_in_bytes'] / 1e6:.1f}MB back in); "
           f"free={pg['free_pages']}/{pg['total_pages']} "
           f"counts={pg['counts']}")
     if prefix_cache:

@@ -1,24 +1,53 @@
 """Model facade, decoder-only subset (port of ``repro/models/api.py``).
 
 ``init_model`` defaults to the GPU and raises when there is no card; pass
-``device="cpu"`` explicitly to build on the CPU.  The swap helpers
-(:func:`gather_pool_rows`, :func:`scatter_pool_rows`,
-:func:`swap_image_checksum`) move a preempted slot's pool rows, and
-:func:`copy_pool_page` gives a prefix-cache hit its copy-on-write page.
-Still to port from the reference facade: the hybrid SSM and
-encoder-decoder state leaves (``state_leaves``, ``init_fixed_state``,
-``encode_kv_fn``; ROADMAP.md).  Its training loss, dense-cache
-``prefill_fn`` / ``decode_fn`` and shape specs are not ported.
+``device="cpu"`` explicitly to build on the CPU.  ``prefill_fn`` /
+``decode_fn`` run the contiguous decode cache (:func:`init_decode_cache`;
+RWKV6 runs only this way), ``prefill_chunk_fn`` / ``decode_paged_fn`` the
+serving engine's paged pools.  A slot owns the state leaves of
+:func:`state_leaves`: KV pages, and for the hybrid stack fixed rows of
+Mamba2 state (:func:`init_fixed_state`), which the paged entry points take
+and return beside the pools.  The swap helpers (:func:`gather_pool_rows`,
+:func:`scatter_pool_rows`, :func:`gather_fixed_rows`,
+:func:`scatter_fixed_rows`, :func:`swap_image_checksum`) move a preempted
+slot's rows, and :func:`copy_pool_page` gives a prefix-cache hit its
+copy-on-write page.  Still to port from the reference facade: the
+encoder-decoder leaf (``shared_ro``, ``encode_kv_fn``; ROADMAP.md).  Its
+training loss and shape specs are not ported.
 """
 from __future__ import annotations
 
 import zlib
+from typing import Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as LM
+
+
+# State-leaf kinds a slot can own (the reference's names):
+#   kv_pages   read-write paged KV (attention / MLA / hybrid shared attention)
+#   fixed_rows per-layer O(1) SSM state rows, swapped alongside KV pages
+# The reference's third kind, shared_ro (encoder cross-attention pages),
+# comes with the encoder-decoder port.
+KV_PAGES = "kv_pages"
+FIXED_ROWS = "fixed_rows"
+
+
+def state_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Which state-leaf kinds a slot of this config owns."""
+    if cfg.family == "hybrid":
+        return (KV_PAGES, FIXED_ROWS)
+    return (KV_PAGES,)
+
+
+def paged_supported(cfg: ModelConfig) -> Tuple[bool, str]:
+    """Whether the paged serving engine covers this config (and why not).
+    Kept on the facade, as in the reference, so that callers need not
+    reach into ``models/lm.py``."""
+    return LM.paged_supported(cfg)
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
@@ -48,13 +77,57 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     return LM.init_paged_cache(cfg, num_pages, page_size, device)
 
 
+def prefill_fn(params, batch, cfg: ModelConfig, smax: int, *, last_idx=None):
+    """Prefill ``batch["tokens"]`` into a fresh contiguous cache padded to
+    ``smax``: (last-token logits [B, V], cache).  The reference's
+    ``raw_cache`` option is not ported: nothing here scatters a raw prefix
+    cache into pools."""
+    return LM.lm_prefill(params, batch["tokens"], cfg, smax,
+                         last_idx=last_idx, embeds=batch.get("embeds"))
+
+
+def decode_fn(params, batch, cache, cfg: ModelConfig):
+    """One step of ``batch["token"]`` at ``batch["position"]`` against the
+    contiguous cache: (logits [B, V], cache)."""
+    return LM.lm_decode(params, batch["token"], cache, batch["position"],
+                        cfg)
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, smax: int, device="cuda"):
+    """An empty contiguous decode cache (``models/lm.py:init_cache``)."""
+    return LM.init_cache(cfg, batch, smax, resolve_device(device))
+
+
+def init_fixed_state(cfg: ModelConfig, batch: int, device):
+    """Fixed-rows state ``{"h", "conv_x", "conv_bc": [M, B, ...]}`` (slot
+    axis second) for configs whose :func:`state_leaves` hold
+    ``FIXED_ROWS``."""
+    return LM.init_fixed_state(cfg, batch, device)
+
+
 def prefill_chunk_fn(params, batch, cache, table_rows, start_len, chunk_len,
-                     cfg: ModelConfig, *, last_idx=None):
+                     cfg: ModelConfig, *, last_idx=None, fixed=None,
+                     slots=None):
+    """One prompt chunk per slot into the paged pools: (logits, pools); a
+    hybrid config also takes the fixed-rows tree and the bucket's
+    ``slots`` and returns (logits, pools, fixed)."""
+    if cfg.family == "hybrid":
+        return LM.hybrid_prefill_chunk(
+            params, batch["tokens"], cache, fixed, slots, start_len,
+            chunk_len, table_rows, cfg, last_idx=last_idx)
     return LM.lm_prefill_chunk(params, batch["tokens"], cache, start_len,
                                chunk_len, table_rows, cfg, last_idx=last_idx)
 
 
-def decode_paged_fn(params, batch, cache, table_rows, cfg: ModelConfig):
+def decode_paged_fn(params, batch, cache, table_rows, cfg: ModelConfig, *,
+                    fixed=None, active=None):
+    """One decode step against the paged pools: (logits, pools); a hybrid
+    config also takes the fixed-rows tree and ``active[B]`` (rows not
+    decoding keep their state) and returns (logits, pools, fixed)."""
+    if cfg.family == "hybrid":
+        return LM.hybrid_decode_paged(
+            params, batch["token"], cache, fixed, batch["position"],
+            table_rows, active, cfg)
     return LM.lm_decode_paged(params, batch["token"], cache,
                               batch["position"], table_rows, cfg)
 
@@ -93,22 +166,50 @@ def copy_pool_page(pools, src: torch.Tensor, dst: torch.Tensor):
     return pools
 
 
-def swap_image_checksum(rows) -> int:
-    """CRC-32 of a host swap image (:func:`gather_pool_rows`' tree on the
-    CPU), folded leaf by leaf in sorted leaf-name order and, within a leaf,
-    layer by layer: the bytes of the reference's ``[L, n, page_size, ...]``
-    stacks, so that it equals ``repro.models.api.swap_image_checksum`` on
+def gather_fixed_rows(fixed, slots: torch.Tensor):
+    """A slot's fixed-rows state for swap-out: ``slots[n]`` (int64) →
+    ``{leaf: [M, n, ...]}``, a copy."""
+    return {k: v.index_select(1, slots) for k, v in fixed.items()}
+
+
+def scatter_fixed_rows(fixed, rows, slots: torch.Tensor):
+    """Inverse of :func:`gather_fixed_rows` (swap-in), bit for bit and in
+    place (the decode CUDA graph holds the fixed tensors)."""
+    for k, v in fixed.items():
+        v.index_copy_(1, slots, rows[k].to(v.device, v.dtype,
+                                           non_blocking=True))
+    return fixed
+
+
+def swap_image_checksum(rows, fixed=None) -> int:
+    """CRC-32 of a host swap image: the fixed-rows leaves first, in sorted
+    name order (``conv_bc``, ``conv_x``, ``h``: the bytes of the
+    reference's ``[M, 1, ...]`` rows), then the KV rows (None when the slot
+    had no private page) leaf by leaf in sorted leaf-name order and, within
+    a leaf, layer by layer (the bytes of the reference's ``[L, n,
+    page_size, ...]`` stacks), so that it equals
+    ``repro.models.api.swap_image_checksum({"kv": ..., "fixed": ...})`` on
     the same rows."""
     crc = 0
+    for k in sorted(fixed or ()):
+        crc = zlib.crc32(_bytes(fixed[k]), crc)
+    if rows is None:
+        return crc
     layers = rows["layers"]
     for k in sorted(layers[0]):
         for lr in layers:
-            a = lr[k].contiguous()
-            crc = zlib.crc32(a.view(-1).view(torch.uint8).numpy(), crc)
+            crc = zlib.crc32(_bytes(lr[k]), crc)
     return crc
 
 
+def _bytes(t: torch.Tensor):
+    return t.contiguous().view(-1).view(torch.uint8).numpy()
+
+
 def rows_nbytes(rows) -> int:
-    """Bytes of a swap image (every leaf of every layer)."""
+    """Bytes of a swap image's KV rows (every leaf of every layer) or of its
+    fixed rows (every leaf)."""
+    if "layers" not in rows:
+        return sum(t.numel() * t.element_size() for t in rows.values())
     return sum(t.numel() * t.element_size()
                for lr in rows["layers"] for t in lr.values())

@@ -2,7 +2,8 @@
 GQA, and MLA's paged absorbed forms).
 
 Caches: the contiguous decode cache is ``{"k"/"v": [B, S, Hkv, Dh],
-"lens": [B]}``; the paged pools are ``{"k"/"v": [num_pages, page_size, Hkv,
+"lens": [B]}`` (int8 codes plus ``{"k_s"/"v_s": [B, S, Hkv]}`` under
+``kv_quant``); the paged pools are ``{"k"/"v": [num_pages, page_size, Hkv,
 Dh]}`` shared across slots, addressed through ``table_rows[B, P]`` (dead
 entries point at the trash page 0).  Under ``cfg.kv_quant`` the pools hold
 int8 codes plus ``{"k_s"/"v_s": [num_pages, page_size, Hkv]}`` f32 scales
@@ -136,18 +137,21 @@ def _attend_rows(qh, k_rows, v_rows, valid, scale, k_s=None, v_s=None):
 
 def gqa_decode(p, x, positions, cache, cfg: ModelConfig):
     """One-token decode against a contiguous [B, Smax] cache (updated in
-    place).  x: [B, 1, D]."""
+    place): under ``kv_quant`` the new row is stored as int8 codes + its
+    scales and the scores and probabilities read the scales.  x: [B, 1,
+    D]."""
     b = x.shape[0]
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.hdim
     q, k, v = _qkv(p, x, positions, cfg)
     slot = cache["lens"].long()
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    idx = (torch.arange(b, device=x.device), slot)
+    _store_rows(cache, "k", idx, k[:, 0], cfg.kv_quant)
+    _store_rows(cache, "v", idx, v[:, 0], cfg.kv_quant)
     kpos = torch.arange(cache["k"].shape[1], device=x.device)
     valid = kpos[None, :] <= slot[:, None]
     out = _attend_rows(q.reshape(b, hkv, h // hkv, dh), cache["k"],
-                       cache["v"], valid, dh ** -0.5)
+                       cache["v"], valid, dh ** -0.5, cache.get("k_s"),
+                       cache.get("v_s"))
     cache["lens"] += 1
     y = L.apply_linear(p["wo"], out.reshape(b, 1, h * dh).to(x.dtype),
                        act=cfg.act_kernel)
@@ -155,10 +159,18 @@ def gqa_decode(p, x, positions, cache, cfg: ModelConfig):
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, smax: int, device):
+    """The contiguous cache: ``cfg.tdtype`` slabs, or int8 codes with f32
+    ``[B, Smax, Hkv]`` row scales under ``kv_quant`` (the pools' rows)."""
     shp = (batch, smax, cfg.num_kv_heads, cfg.hdim)
-    return {"k": torch.zeros(shp, dtype=cfg.tdtype, device=device),
-            "v": torch.zeros(shp, dtype=cfg.tdtype, device=device),
-            "lens": torch.zeros(batch, dtype=torch.int32, device=device)}
+    dt = torch.int8 if cfg.kv_quant else cfg.tdtype
+    cache = {"k": torch.zeros(shp, dtype=dt, device=device),
+             "v": torch.zeros(shp, dtype=dt, device=device),
+             "lens": torch.zeros(batch, dtype=torch.int32, device=device)}
+    if cfg.kv_quant:
+        for name in ("k_s", "v_s"):
+            cache[name] = torch.zeros(shp[:3], dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 # ------------------------------------------------------------------ paged ---

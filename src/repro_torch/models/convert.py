@@ -4,9 +4,11 @@
 turned into numpy (``jax.tree.map(np.asarray, params)``), or the host
 tensors :func:`to_reference` gives: nested dicts whose leaves are arrays or
 quantized-weight objects with ``packed`` / ``scales`` / ``zeros``.  The
-``[L, ...]`` layer stacks under ``"layers"`` become one dict per layer; a
-quantized weight keeps its ``a8`` flag (one per stack in the reference, so
-the same on every layer).  :func:`to_reference` is its inverse, the layout
+``[L, ...]`` layer stacks under ``"layers"`` (and the hybrid stack's
+``"tail"``) become one dict per layer, the hybrid's ``[g, k, ...]``
+``"groups"`` a list of g lists of k dicts; its weight-shared ``"shared"``
+block stays one dict.  A quantized weight keeps its ``a8`` flag (one per
+stack in the reference, so the same on every layer of the stack).  :func:`to_reference` is its inverse, the layout
 of a PTQ artifact (``repro_torch.checkpoint.manager``).
 bfloat16 arrays go through f32, which loses nothing; packed bytes keep the
 reference layout (no repack).  This module imports neither JAX nor the
@@ -49,15 +51,29 @@ def _convert(node, device, index=None) -> Any:
     return to_tensor(a if index is None else a[index], device).contiguous()
 
 
+# the stacked blocks and how many leading layer axes each has
+STACKS = {"layers": 1, "tail": 1, "groups": 2}
+
+
+def _lead_shape(node, n: int):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return tuple((node.packed if _is_quantized(node) else node).shape[:n])
+
+
 def from_reference(tree, device="cpu"):
     """Reference param tree (numpy leaves) → port params on ``device``."""
-    out = {k: _convert(v, device) for k, v in tree.items() if k != "layers"}
-    first = tree["layers"]
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    n_layers = (first.packed if _is_quantized(first) else first).shape[0]
-    out["layers"] = [_convert(tree["layers"], device, i)
-                     for i in range(n_layers)]
+    out = {}
+    for k, v in tree.items():
+        if k not in STACKS:
+            out[k] = _convert(v, device)
+        elif STACKS[k] == 1:
+            out[k] = [_convert(v, device, i)
+                      for i in range(_lead_shape(v, 1)[0])]
+        else:
+            g, kk = _lead_shape(v, 2)
+            out[k] = [[_convert(v, device, (gi, ki)) for ki in range(kk)]
+                      for gi in range(g)]
     return out
 
 
@@ -85,9 +101,16 @@ def _host(node) -> Any:
 
 def to_reference(params):
     """Port params → the reference's layout as host tensors: the per-layer
-    dicts stacked back into ``[L, ...]`` under ``"layers"`` (a quantized
-    weight's ``a8`` flag set where it is set in every layer, as the
-    reference keeps one per stack); the inverse of :func:`from_reference`."""
-    out = {k: _host(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = _stack(params["layers"])
+    dicts stacked back into ``[L, ...]`` (``[g, k, ...]`` for the hybrid's
+    groups; a quantized weight's ``a8`` flag set where it is set in every
+    layer of the stack, as the reference keeps one per stack); the inverse
+    of :func:`from_reference`."""
+    out = {}
+    for k, v in params.items():
+        if k not in STACKS:
+            out[k] = _host(v)
+        elif STACKS[k] == 1:
+            out[k] = _stack(v)
+        else:
+            out[k] = _stack([_stack(group) for group in v])
     return out

@@ -52,9 +52,20 @@ fixed-slot continuous batcher over a paged KV cache:
   engine clock, read through :meth:`ServingEngine.metrics_snapshot` and
   exported as a Chrome trace.
 
-Still to port (ROADMAP.md): the hybrid SSM and encoder-decoder state leaves
-(with the ``fixed_drain`` and ``enc_evict`` fault sites and the exact-match
-encoder-page cache), and per-bucket prefill graphs.
+**State leaves** (``api.state_leaves``): a slot owns KV pages and, for the
+hybrid SSM stack (Zamba2), fixed rows of per-layer Mamba2 state ``[M, B,
+...]``: O(1) per slot, never paged, zeroed at every fresh admission (a
+previous occupant's rows are stale and, unlike KV pages, cannot be masked
+off), frozen for rows that do not decode (the decode step's ``active``
+mask), and swapped in the same host image as the slot's private KV rows
+(one CRC; the ``fixed_drain`` fault site).  A hybrid engine refuses the
+prefix cache: KV pages cannot capture an SSM boundary state.  A config
+with no paged path (RWKV6) raises :class:`UnsupportedModelError` at
+construction.
+
+Still to port (ROADMAP.md): the encoder-decoder state leaf (with the
+``enc_evict`` fault site and the exact-match encoder-page cache), and
+per-bucket prefill graphs.
 
 The engine runs on the GPU by default and raises when there is no card;
 ``device="cpu"`` runs the kernels' plain versions.
@@ -77,7 +88,7 @@ from repro_torch.models import api
 from repro_torch.serving import kv_cache as KV
 from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.faults import (FaultPlan, TransientFault,
-                                        corrupt_host_image)
+                                        corrupt_swap_image)
 from repro_torch.serving.metrics import MetricsRegistry, format_pending
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import sample_per_slot
@@ -96,6 +107,12 @@ from repro_torch.serving.trace import TraceRecorder
 #:               admission stall)
 FINISH_REASONS = ("completed", "length", "deadline", "cancelled", "rejected",
                   "failed")
+
+
+class UnsupportedModelError(NotImplementedError):
+    """Raised at :class:`ServingEngine` construction for a config with no
+    paged serving path (RWKV6: its state is O(1) per slot); a
+    :class:`NotImplementedError`, as in the reference."""
 
 
 class RejectedRequest(ValueError):
@@ -146,7 +163,9 @@ class _SwapState:
     pos: int                      # next write position
     last_tok: int                 # token feeding the next decode step
     nbytes: int                   # swap-buffer bytes (stats)
-    dev_rows: Any = None          # device gather buffer until drained
+    fbytes: int = 0               # of which fixed-rows (SSM state) bytes
+    fixed_rows: Any = None        # {leaf: [M, 1, ...]} SSM state (host)
+    dev_rows: Any = None          # device gather buffers until drained
     copied: Optional[Any] = None  # CUDA event: the device→host copy is done
     on_host: bool = False         # drained: device buffer freed, CRC taken
     checksum: Optional[int] = None  # CRC-32 of the host image (drain time)
@@ -165,6 +184,8 @@ class EngineStats:
     grown_pages: int = 0          # pages added by lazy decode growth
     swapped_out_bytes: int = 0    # pool bytes copied device -> host
     swapped_in_bytes: int = 0     # pool bytes copied host -> device
+    swapped_fixed_bytes: int = 0  # of swapped_out: fixed-rows state bytes
+    swapped_fixed_in_bytes: int = 0  # of swapped_in: fixed-rows state bytes
     idle_steps: int = 0           # drain iterations with nothing decodable
     max_active: int = 0           # peak concurrent decoding slots
     active_slot_steps: int = 0    # sum of active slots over steps (/steps)
@@ -198,6 +219,9 @@ class ServingEngine:
                  strict: bool = True, fault_plan: Optional[FaultPlan] = None,
                  retry_budget: int = 3, metrics: bool = True,
                  device="cuda"):
+        ok, why = api.paged_supported(cfg)
+        if not ok:
+            raise UnsupportedModelError(f"paged serving: {why}")
         self.device = resolve_device(device)
         if cfg.act_quant not in ("a16", "a8_prefill"):
             raise ValueError(
@@ -217,12 +241,21 @@ class ServingEngine:
                 f"num_pages={num_pages} cannot hold one max_seq request "
                 f"({self.P} pages of {page_size} tokens + trash page)")
         self.pager = KV.PagePool(num_pages, page_size, batch_size, self.P)
+        # which state leaves a slot of this config owns
+        self.leaves = api.state_leaves(cfg)
+        self.has_fixed = api.FIXED_ROWS in self.leaves
+        if prefix_cache and self.has_fixed:
+            raise ValueError(
+                "prefix_cache=True is attention-only: KV pages cannot "
+                "capture an SSM boundary state (hybrid)")
         self.cache: Optional[PrefixCache] = (
             PrefixCache(self.pager, page_size,
                         mode=f"kvq={int(bool(cfg.kv_quant))}")
             if prefix_cache else None)
         self.pools = api.init_paged_cache(cfg, num_pages, page_size,
                                           self.device)
+        self.fixed = (api.init_fixed_state(cfg, batch_size, self.device)
+                      if self.has_fixed else None)
         self.reservation = reservation
         self.sched = Scheduler(page_size=page_size, max_seq=self.S,
                                max_prefill_tokens=max_prefill_tokens,
@@ -288,10 +321,16 @@ class ServingEngine:
         # holds the pool tensors, so nothing may rebind self.pools; the step
         # holds no reference to the engine, so dropping the engine frees
         # the graph and its memory at once.
-        self._decode_step = functools.partial(decode_step, params,
-                                              self.pools, self.cfg)
+        # A hybrid step also holds the fixed-rows tensors (updated in place)
+        # and reads an active[B] mask.
+        self._decode_step = (
+            functools.partial(hybrid_decode_step, params, self.pools,
+                              self.fixed, self.cfg) if self.has_fixed
+            else functools.partial(decode_step, params, self.pools,
+                                   self.cfg))
         self.decode_graph = (
-            DecodeGraph(self._decode_step, batch_size, self.P, self.device)
+            DecodeGraph(self._decode_step, batch_size, self.P, self.device,
+                        active=self.has_fixed)
             if self.device.type == "cuda" else None)
 
     # ----------------------------------------------------- observability ---
@@ -474,39 +513,57 @@ class ServingEngine:
         cached pages stay in the pool under a swap hold."""
         req = self.slots[slot]
         kept, private = self.pager.split_for_swap(slot)
-        rows = dev_rows = copied = None
-        nbytes = 0
+        dev = {}
         if private:
-            dev_rows = api.gather_pool_rows(
+            dev["kv"] = api.gather_pool_rows(
                 self.pools, self._tensor([p for _, p in private],
                                          torch.long))
-            rows, copied = self._to_host(dev_rows)
-            nbytes = api.rows_nbytes(rows)
+        if self.has_fixed:
+            # the slot's SSM state rides the same image and the same copy
+            dev["fixed"] = api.gather_fixed_rows(
+                self.fixed, self._tensor([slot], torch.long))
+        host, copied = self._to_host(dev)
+        rows, frows = host.get("kv"), host.get("fixed")
+        nbytes = api.rows_nbytes(rows) if rows is not None else 0
+        fbytes = api.rows_nbytes(frows) if frows is not None else 0
         self.pager.swap_out(slot, (kept, private))
         self._swapped[req.submit_seq] = _SwapState(
             rows=rows, kept=kept, private_lis=[li for li, _ in private],
             pos=int(self.pos[slot]), last_tok=int(self.last_tok[slot]),
-            nbytes=nbytes, dev_rows=dev_rows, copied=copied)
+            nbytes=nbytes, fbytes=fbytes, fixed_rows=frows,
+            dev_rows=dev or None, copied=copied)
         self.queue.appendleft(req)
         self.slots[slot] = None
         self.pos[slot] = self.last_tok[slot] = self.pref_target[slot] = 0
         self.stats.preemptions += 1
-        self.stats.swapped_out_bytes += nbytes
+        # both sides charge KV + fixed bytes, so a drained engine shows
+        # swapped_out_bytes == swapped_in_bytes
+        self.stats.swapped_out_bytes += nbytes + fbytes
+        self.stats.swapped_fixed_bytes += fbytes
         if self._obs:
-            t = self.trace.event(req.uid, "preempt", slot=slot, bytes=nbytes)
+            t = self.trace.event(req.uid, "preempt", slot=slot,
+                                 bytes=nbytes + fbytes)
             self.trace.timeline(req.uid).preempt_t = t
             self.trace.note_preempt(req.uid, slot)
 
-    def _to_host(self, rows):
-        """``rows`` copied to pinned host buffers without blocking, and the
-        event that marks the copy done (on the CPU: ``rows`` themselves, a
-        fresh gather already)."""
-        if self.device.type != "cuda":
-            return rows, None
-        host = {"layers": [
-            {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                t, non_blocking=True) for k, t in lr.items()}
-            for lr in rows["layers"]]}
+    def _to_host(self, image):
+        """``image`` (``{"kv": rows, "fixed": rows}``, either may be absent)
+        copied to pinned host buffers without blocking, and the event that
+        marks the copy done (on the CPU: the image itself, a fresh gather
+        already; None for an empty image)."""
+        if self.device.type != "cuda" or not image:
+            return image, None
+
+        def pinned(t):
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t, non_blocking=True)
+
+        host = {}
+        if "kv" in image:
+            host["kv"] = {"layers": [{k: pinned(t) for k, t in lr.items()}
+                                     for lr in image["kv"]["layers"]]}
+        if "fixed" in image:
+            host["fixed"] = {k: pinned(t) for k, t in image["fixed"].items()}
         copied = torch.cuda.Event()
         copied.record()
         return host, copied
@@ -521,6 +578,10 @@ class ServingEngine:
         if st.rows is not None:
             api.scatter_pool_rows(self.pools, st.rows,
                                   self._tensor(fresh, torch.long))
+        if st.fixed_rows is not None:
+            # same dtypes both ways: the restored state is bit-identical
+            api.scatter_fixed_rows(self.fixed, st.fixed_rows,
+                                   self._tensor([slot], torch.long))
         self.slots[slot] = req
         self.pos[slot] = st.pos
         self.last_tok[slot] = st.last_tok
@@ -528,10 +589,11 @@ class ServingEngine:
         # (pos) restores below pref_target and chunking picks it back up
         self.pref_target[slot] = len(req.prompt)
         self.stats.resumes += 1
-        self.stats.swapped_in_bytes += st.nbytes
+        self.stats.swapped_in_bytes += st.nbytes + st.fbytes
+        self.stats.swapped_fixed_in_bytes += st.fbytes
         if self._obs:
             t = self.trace.event(req.uid, "swap_in", slot=slot,
-                                 bytes=st.nbytes)
+                                 bytes=st.nbytes + st.fbytes)
             tl = self.trace.timeline(req.uid)
             if tl.preempt_t is not None:
                 self._h_swap.observe(t - tl.preempt_t)
@@ -591,9 +653,13 @@ class ServingEngine:
         mismatch fails it.  Returns False when the request must not resume
         by swap-in."""
         st = self._swapped[req.submit_seq]
-        if (st.rows is None or not st.on_host
-                or api.swap_image_checksum(st.rows) == st.checksum):
+        has_img = st.rows is not None or st.fixed_rows is not None
+        if (not has_img or not st.on_host
+                or api.swap_image_checksum(st.rows, st.fixed_rows)
+                == st.checksum):
             return True
+        # a poisoned image never reaches the pools: KV rows and SSM state
+        # alike re-derive from the token replay
         self._swapped.pop(req.submit_seq)
         for _, p in st.kept:
             self.pager.drop_hold(p)
@@ -668,6 +734,11 @@ class ServingEngine:
                 self.pos[slot] = pfx
                 self.pref_target[slot] = len(req.prompt)
                 self.last_tok[slot] = 0
+                if self.has_fixed:
+                    # the previous occupant's state is stale: zero it
+                    # before the first chunk
+                    for leaf in self.fixed.values():
+                        leaf[:, slot].zero_()
                 self.stats.admitted += 1
                 self.stats.prefix_matched_tokens += pfx
                 self.stats.prefix_hits += int(pfx > 0)
@@ -705,21 +776,27 @@ class ServingEngine:
         image alive in device memory, which is what swap-out exists to
         release) and record the host image's CRC-32.  The ``swap_drain``
         fault leaves an image in flight another step (resume then reads it
-        stream-ordered); ``swap_corrupt`` flips a byte of a drained image
-        after its CRC was taken, caught at swap-in."""
+        stream-ordered); ``fixed_drain`` is its twin for images carrying
+        fixed-rows state (probed instead, so attention-only probe sequences
+        stay as they were); ``swap_corrupt`` flips a byte of a drained
+        image after its CRC was taken, caught at swap-in."""
         for st in self._swapped.values():
-            if st.rows is not None and not st.on_host:
-                if self.faults is not None and self.faults.fires("swap_drain"):
+            has_img = st.rows is not None or st.fixed_rows is not None
+            if has_img and not st.on_host:
+                site = ("fixed_drain" if st.fixed_rows is not None
+                        else "swap_drain")
+                if self.faults is not None and self.faults.fires(site):
                     continue                # the copy is "still in flight"
                 if st.copied is not None:
                     st.copied.synchronize()
                 st.dev_rows = st.copied = None
                 st.on_host = True
-                st.checksum = api.swap_image_checksum(st.rows)
-            if (st.on_host and st.rows is not None and not st.corrupted
+                st.checksum = api.swap_image_checksum(st.rows, st.fixed_rows)
+            if (st.on_host and has_img and not st.corrupted
                     and self.faults is not None
                     and self.faults.fires("swap_corrupt")):
-                st.rows = corrupt_host_image(st.rows)
+                st.rows, st.fixed_rows = corrupt_swap_image(st.rows,
+                                                            st.fixed_rows)
                 st.corrupted = True
 
     @torch.no_grad()
@@ -747,11 +824,14 @@ class ServingEngine:
             for r, slot in enumerate(bkt.slots):
                 prompt = self.slots[slot].prompt
                 toks[r, :lens[r]] = prompt[starts[r]:starts[r] + lens[r]]
+            extra = ({"fixed": self.fixed,
+                      "slots": self._tensor(bkt.slots, torch.long)}
+                     if self.has_fixed else {})
             logits = api.prefill_chunk_fn(
                 self.params, {"tokens": self._tensor(toks)}, self.pools,
                 self._tensor(self.pager.table()[bkt.slots]),
                 self._tensor(starts), self._tensor(lens), self.cfg,
-                last_idx=self._tensor(lens - 1))[0]
+                last_idx=self._tensor(lens - 1), **extra)[0]
             finals = [self.slots[s] if f else None
                       for s, f in zip(bkt.slots, bkt.final)]
             if any(bkt.final):
@@ -882,11 +962,19 @@ class ServingEngine:
             self._charge_retry(oldest, "decode launch faulted")
             return chunked
         tok, pos, tbl = self._decode_inputs(dec)
+        inputs = (tok, pos, tbl)
+        if self.has_fixed:
+            # trash-masking covers the KV write but not the recurrence: the
+            # active mask freezes the state rows of every other slot
+            act = np.zeros(self.B, bool)
+            act[dec] = True
+            inputs += (act,)
         if self.decode_graph is not None:
-            logits = self.decode_graph(tok, pos, tbl)
+            logits = self.decode_graph(*inputs)
         else:
-            logits = self._decode_step(self._tensor(tok), self._tensor(pos),
-                                       self._tensor(tbl))
+            logits = self._decode_step(*(
+                self._tensor(a, torch.bool if a.dtype == bool
+                             else torch.int32) for a in inputs))
         dset = set(dec)
         rows = [self.slots[i] if i in dset else None for i in range(self.B)]
         nxt = self._sample(logits, rows)
@@ -1048,6 +1136,17 @@ def decode_step(params, pools, cfg: ModelConfig, tok: torch.Tensor,
     in place (the step the engine's CUDA graph captures)."""
     return api.decode_paged_fn(params, {"token": tok, "position": pos}, pools,
                                table, cfg)[0]
+
+
+def hybrid_decode_step(params, pools, fixed, cfg: ModelConfig,
+                       tok: torch.Tensor, pos: torch.Tensor,
+                       table: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+    """:func:`decode_step` of a hybrid stack: the fixed-rows state of the
+    ``active`` rows is updated in place, every other row's kept bit for
+    bit."""
+    return api.decode_paged_fn(params, {"token": tok, "position": pos}, pools,
+                               table, cfg, fixed=fixed, active=active)[0]
 
 
 def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,

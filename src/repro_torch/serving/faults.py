@@ -31,9 +31,9 @@ Injection sites (the component that probes each):
 ``enc_evict``       ``prefix_evict`` for read-only encoder pages
 ==================  =========================================================
 
-The port has no fixed-rows or encoder pages yet, so nothing probes
-``fixed_drain`` or ``enc_evict``; both names stay in :data:`SITES` so that a
-plan means the same in either package.  A probe costs one ``is None`` check
+The engine probes ``fixed_drain`` (hybrid slots' images); the port has no
+encoder pages yet, so nothing probes ``enc_evict``, whose name stays in
+:data:`SITES` so that a plan means the same in either package.  A probe costs one ``is None`` check
 when no plan is installed.
 
 A :class:`FaultSpec` fires when all of its set conditions hold (``step``:
@@ -182,3 +182,17 @@ def corrupt_host_image(rows):
     bad = layers[0][name].clone()
     bad.view(-1).view(torch.uint8)[0] ^= 0xFF
     return {"layers": [{**layers[0], name: bad}] + list(layers[1:])}
+
+
+def corrupt_swap_image(rows, fixed):
+    """A whole swap image (KV ``rows``, fixed-rows state ``fixed``, either
+    None) with byte 0 of its first leaf flipped: the reference's first leaf
+    of ``{"kv": rows, "fixed": fixed}``, i.e. the fixed rows' ``conv_bc``
+    when the image has fixed rows, else :func:`corrupt_host_image`'s.
+    Returns ``(rows, fixed)``; the flip goes into a copy."""
+    if fixed is None:
+        return corrupt_host_image(rows), None
+    name = sorted(fixed)[0]
+    bad = fixed[name].clone()
+    bad.view(-1).view(torch.uint8)[0] ^= 0xFF
+    return rows, {**fixed, name: bad}

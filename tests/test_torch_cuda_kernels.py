@@ -87,6 +87,28 @@ def test_w4a16_kernel_matches_plain(dev, t, ci, co, g, xdt, sdt):
     assert _rel_err(y, W4.w4a16_matmul_plain(x, qt)) <= tol
 
 
+# the SSM paths' GEMMs: zamba2-7b's Mamba2 in_dt (3584 -> 112) and in_bc
+# (3584 -> 128), narrower than one K1 tile, the same at Ci 7168, and its
+# out_proj (7168 -> 3584)
+SSM_WIDTHS = [(3584, 112), (3584, 128), (7168, 112), (7168, 128),
+              (7168, 3584)]
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [4, 256])
+@pytest.mark.parametrize("ci,co", SSM_WIDTHS)
+def test_w4a16_kernel_ssm_widths(dev, ci, co, t, xdt):
+    gen = torch.Generator(device=dev).manual_seed(ci + co + t)
+    w = torch.randn(ci, co, generator=gen, device=dev) * ci ** -0.5
+    qt = quantize(w, group_size=128, dtype=xdt)
+    x = torch.randn(t, ci, generator=gen, device=dev).to(xdt)
+    y = ops.w4a16_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (t, co) and y.dtype == xdt
+    tol = 1e-5 if xdt == torch.float32 else 1e-2
+    assert _rel_err(y, W4.w4a16_matmul_plain(x, qt)) <= tol
+
+
 # the dense decoders' GEMM widths: chatglm3-6b, starcoder2-15b,
 # mistral-large-123b
 DENSE_WIDTHS = [(4096, 13696), (13696, 4096), (6144, 24576), (24576, 6144),
@@ -407,6 +429,13 @@ def test_k2_dense_groups_match_plain(dev, hkv, grp, kind):
                                             [216, 150, 90, 33]), grp))
 
 
+@pytest.mark.parametrize("kind", list(_KINDS))
+def test_k2_dh112_matches_plain(dev, kind):
+    """zamba2-7b's shared attention: 32 heads of 112, grp 1."""
+    _k2_check(*_k2_case(dev, _KINDS[kind], (4, 32, 1, 112, 112, 16,
+                                            [216, 150, 90, 33]), 112))
+
+
 # (b, t, hkv, grp, dh, dv, ps, prefix, chunk)
 K3_SHAPES = {
     "path1": (2, 256, 32, 1, 128, 128, 16, [0, 0], [256, 200]),
@@ -467,6 +496,16 @@ def test_k3_dense_groups_match_plain(dev, hkv, grp, kind):
     _k3_check(*_k3_case(dev, _KINDS[pool], _KINDS[suf],
                         (2, 128, hkv, grp, 128, 128, 16, [128, 37],
                          [128, 90]), grp + 1))
+
+
+@pytest.mark.parametrize("kind", list(K3_KINDS))
+def test_k3_dh112_matches_plain(dev, kind):
+    """zamba2-7b's shared attention (Dh 112, grp 1): a fresh chunk and one
+    behind ragged prefixes."""
+    pool, suf = K3_KINDS[kind]
+    for shape in ((2, 256, 32, 1, 112, 112, 16, [0, 0], [256, 200]),
+                  (2, 128, 32, 1, 112, 112, 16, [128, 37], [128, 90])):
+        _k3_check(*_k3_case(dev, _KINDS[pool], _KINDS[suf], shape, 112))
 
 
 @pytest.mark.parametrize("kind", list(K3_KINDS))

@@ -236,9 +236,11 @@ def test_entry_points_raise_without_a_card(models):
 
 def test_unported_features_raise(models):
     _, tcfg, _ = models
-    for kw in (dict(mixer="mamba2"), dict(family="hybrid"),
-               dict(family="audio")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcfg.with_(family="audio").check()
+    # the SSM mixers are ported, but only in their own families
+    for kw in (dict(mixer="mamba2"), dict(family="hybrid")):
+        with pytest.raises(ValueError, match="disagree"):
             tcfg.with_(**kw).check()
     # MLA is ported, but only with its MLAConfig
     with pytest.raises(ValueError, match="disagree"):
@@ -261,21 +263,24 @@ def test_unported_features_raise(models):
     with pytest.raises(NotImplementedError, match="skip_router"):
         quantize_params({"layers": []}, gcfg, QuantConfig(skip_router=False))
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("zamba2-7b")
-    # the registry's other dense decoders are ported, full and smoke
+        get_config("whisper-medium")
+    # the registry's other dense decoders and the SSM stacks are ported,
+    # full and smoke
     from repro_torch.configs import NOT_PORTED
     for arch in ("llama3.2-3b", "mistral-large-123b", "chatglm3-6b",
-                 "starcoder2-15b", "qwen2-vl-7b"):
+                 "starcoder2-15b", "qwen2-vl-7b", "zamba2-7b", "rwkv6-7b"):
         for smoke in (False, True):
             get_config(arch, smoke=smoke).check()
-    assert NOT_PORTED == ("zamba2-7b", "rwkv6-7b", "whisper-medium")
+    assert NOT_PORTED == ("whisper-medium",)
     for arch in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
-    for kw in (dict(family="hybrid"), dict(family="audio"),
-               dict(family="ssm"), dict(mixer="rwkv6")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A "
-                           "item 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A "
+                       "item 1"):
+        tcfg.with_(family="audio").check()
+    for kw in (dict(family="hybrid"), dict(family="ssm"),
+               dict(mixer="rwkv6")):
+        with pytest.raises(ValueError, match="disagree"):
             tcfg.with_(**kw).check()
     # a GELU MoE has no expert kernel layout: refused
     with pytest.raises(NotImplementedError, match="SwiGLU"):
