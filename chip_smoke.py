@@ -159,6 +159,29 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    and the prefill's wall per prompt token (the Python scan).  The kernel
    phase holds K1 at the SSM paths' widths (Co 112 / 128, narrower than a
    tile; 3584 ↔ 7168; 4096 ↔ 14336) and K2 / K3 at Dh 112;
+   path 8 — whisper-medium at full width and depth (24 encoder and 24
+   decoder layers, 16 heads of 64, d_ff 4096, vocab 51865, tied head,
+   LayerNorm, GELU, a bias on every projection filled from a seeded N(0,
+   0.02²)), SmoothQuant+ in f32 (G=128, α searched; calibration sequences
+   of 24 tokens and 24 frames) through the library entry points, page size
+   16, batch 4, max_seq 1536, path 1's 8 prompts, 16 new tokens, every
+   request with 1500 encoder frames (Whisper's 30 s window after the
+   conv stub's stride 2), requests 0, 3 and 6 with the same audio: the
+   encodes and exact-match hits held to the prediction (6 and 2), K1 to
+   192 a decode step, a prefill batch and an encode, K2 / K3 to 24 a step
+   / a batch; an encode, a prefill chunk and a decode step against the
+   dequantized weights; the graph replay (one row idle on the trash page
+   with 0 encoder rows) bitwise against an eager step, the encoder pool
+   unchanged; tok/s, TTFT (the encode included), one encode's wall and
+   device ms, the decode profile, and the decode step's cross-attention
+   gather alone (24 layers of a 1536-row page gather and two einsums at
+   batch 4); path 8b — the same params and requests on a fresh engine, one
+   mid-decode preemption forced white-box: the victim's 94 encoder pages
+   detached under swap holds, its image its private KV rows only, the
+   tokens path 8's; then whisper-medium through the serve entry (its own
+   PTQ, serve's 6-10-row synthetic frames). The kernel phase holds K1 at
+   path 8's widths (1024 → 1024, 1024 ↔ 4096; T=4 and 1500) and K2 / K3
+   at Hkv 16, grp 1, Dh 64;
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -520,6 +543,30 @@ def check_k1_ssm():
     return rows
 
 
+# path 8's GEMMs: whisper-medium's attention projections (1024 -> 1024) and
+# its GELU MLP (1024 -> 4096 -> 1024), at decode (T=4) and over one encode's
+# 1500 frames, the most rows K1 takes on a path
+WHISPER_WIDTHS = ((1024, 1024), (1024, 4096), (4096, 1024))
+
+
+def check_k1_whisper():
+    """K1 at path 8's widths, T=4 (a decode step) and 1500 (an encode),
+    G=128, f32 X."""
+    print("K1 at path 8's widths (whisper-medium; T=1500: one encode)")
+    rows = {}
+    for ci, co in WHISPER_WIDTHS:
+        gen = torch.Generator(device=DEV).manual_seed(ci + co + 8)
+        w = torch.randn(ci, co, generator=gen, device=DEV) * ci ** -0.5
+        qt = quantize(w, group_size=128)
+        del w
+        for t in (4, ENC_FRAMES):
+            x = torch.randn(t, ci, generator=gen, device=DEV)
+            rows[(t, ci, co)] = _gemm_case(
+                "w4a16_matmul", W4.w4a16_matmul_cuda, W4.w4a16_matmul_plain,
+                qt, x, False, "")
+    return rows
+
+
 def check_b5():
     print("B5 w4a8_matmul (replaces repro/kernels/w4a16_matmul.py:"
           "_kernel_a8)")
@@ -623,7 +670,10 @@ K2_CASES = [(f"grp={grp}", 4, 32, grp, 128, [1024, 700, 333, 17], kind)
     for kind in (torch.float32, torch.bfloat16)] + [
     # path 6: zamba2-7b's shared attention, 32 heads of 112, grp 1
     ("path 6, Dh=112", 4, 32, 1, 112, [216, 150, 90, 33], kind)
-    for kind in (torch.float32, torch.bfloat16, torch.int8)]
+    for kind in (torch.float32, torch.bfloat16, torch.int8)] + [
+    # path 8: whisper-medium's decoder self-attention, 16 heads of 64, grp 1
+    ("path 8, Hkv=16 Dh=64", 4, 16, 1, 64, [216, 150, 90, 33], kind)
+    for kind in (torch.float32, torch.bfloat16)]
 
 
 def check_k2():
@@ -710,7 +760,10 @@ K3_CASES = [("table", 4, t, 32, 1, 128, prefix, [t, t - 7, t // 2, 1], kind,
     for prefix in ([0, 0], [128, 64])
     for kind, sdt in ((torch.float32, torch.float32),
                       (torch.bfloat16, torch.bfloat16),
-                      (torch.int8, torch.float32))]
+                      (torch.int8, torch.float32))] + [
+    # path 8: whisper-medium's decoder, 16 heads of 64, grp 1, a fresh chunk
+    ("path 8, Hkv=16 Dh=64", 2, 256, 16, 1, 64, [0, 0], [256, 200], kind,
+     kind) for kind in (torch.float32, torch.bfloat16)]
 
 
 def check_k3():
@@ -1217,7 +1270,7 @@ class _Capture:
 def _graph_fixed(graph):
     """The fixed-rows state a hybrid decode graph's step holds (None for an
     attention stack's)."""
-    return graph.step.args[2] if graph.active is not None else None
+    return graph.step.keywords["fixed"]
 
 
 def _eager_step(graph, fixed_before=None):
@@ -1452,24 +1505,37 @@ def graph_vs_eager(eng, label):
     (``active`` False): the fixed rows the replay wrote must equal the
     eager step's bit for bit, the parked slot's must be unchanged, and the
     state before the replay is restored afterwards (the engine has not
-    advanced, and a recurrence, unlike a KV write, is not idempotent)."""
+    advanced, and a recurrence, unlike a KV write, is not idempotent).  An
+    encoder-decoder's step reads the same encoder pool in both (it is
+    read-only) with the rows' encoder tables and valid rows; the pool must
+    come out of the replay bitwise unchanged."""
     from repro_torch.models import api
 
     dec = [i for i in eng._active_slots()
            if eng.pos[i] >= eng.pref_target[i]]
     require(dec, f"{label}: no decoding slot for the graph check")
-    extra, fixed, act = {}, None, None
+    fixed, enc_before = None, None
     if eng.has_fixed:
         require(len(dec) >= 2, f"{label}: the hybrid graph check needs two "
                 "decoding slots")
         parked, dec = dec[0], dec[1:]
-        act = np.zeros(eng.B, bool)
-        act[dec] = True
         fixed = {k: t.clone() for k, t in eng.fixed.items()}
-        extra = dict(fixed=fixed, active=eng._tensor(act, torch.bool))
-    tok, pos, tbl = eng._decode_inputs(dec)
+    if eng.has_enc and len(dec) >= 2:
+        # an idle row reads the trash page with 0 encoder rows (clamped to
+        # one masked zero row): its logits must stay finite
+        dec = dec[1:]
+    inputs = eng._decode_inputs(dec)
+    tok, pos, tbl = inputs[:3]
+    extra = {n: eng._tensor(a, torch.bool if a.dtype == bool else torch.int32)
+             for n, a in zip(eng.step_extra, inputs[3:], strict=True)}
+    if fixed is not None:
+        extra["fixed"] = fixed
+    if eng.has_enc:
+        enc_before = {k: t.clone() for k, t in eng.pools["enc"].items()}
     pools = {"layers": [{k: t.clone() for k, t in lp.items()}
                         for lp in eng.pools["layers"]]}
+    if eng.has_enc:
+        pools["enc"] = eng.pools["enc"]
     with torch.no_grad():
         eager = api.decode_paged_fn(
             eng.params, {"token": eng._tensor(tok),
@@ -1477,8 +1543,7 @@ def graph_vs_eager(eng, label):
             pools, eng._tensor(tbl), eng.cfg, **extra)[0]
     before = None if fixed is None else {k: t.clone()
                                          for k, t in eng.fixed.items()}
-    graph = eng.decode_graph(tok, pos, tbl,
-                             *(() if act is None else (act,)))
+    graph = eng.decode_graph(*inputs)
     torch.cuda.synchronize()
     same = torch.equal(graph, eager)
     pools_same = all(torch.equal(lp[k], lc[k]) for lp, lc in
@@ -1486,6 +1551,13 @@ def graph_vs_eager(eng, label):
     out = dict(graph_logits_bitwise_equal=same,
                graph_pools_bitwise_equal=pools_same)
     msg = ""
+    if enc_before is not None:
+        out["graph_logits_finite"] = bool(torch.isfinite(graph).all())
+        out["graph_enc_pool_unchanged"] = all(
+            torch.equal(eng.pools["enc"][k], t)
+            for k, t in enc_before.items())
+        msg = (f", encoder pool unchanged {out['graph_enc_pool_unchanged']}"
+               f" ({len(eng._active_slots()) - len(dec)} rows idle)")
     if fixed is not None:
         out["graph_fixed_bitwise_equal"] = all(
             torch.equal(eng.fixed[k], fixed[k]) for k in fixed)
@@ -1507,8 +1579,66 @@ def graph_vs_eager(eng, label):
           f"{pools_same}{msg}")
     require(all(out.values()), f"{label}: the decode graph differs from "
             "the eager step")
-    del pools, fixed, before
+    del pools, fixed, before, enc_before
     return out
+
+
+class _EncWindow:
+    """An encoder-decoder engine's encoder pool over a window of engine
+    steps: a copy of the pool at the start, and the pages each admission
+    that encodes writes (``ServingEngine._admit_enc`` wrapped on the
+    instance).  At :meth:`close` every page no such admission wrote must be
+    bitwise unchanged: decode steps, graph replays and prefill chunks only
+    read the pool.  ``frames`` are the window's requests' audio: how many of
+    them are fully cached at the start is printed beside the window's
+    encodes (an admission's fresh encoder pages are charged before its
+    lookup, so a batch of admissions can evict audio that was cached)."""
+
+    def __init__(self, eng, frames):
+        self.eng = eng
+        npg = eng.pager.pages_needed(len(frames[0]))
+        self.cached = sum(
+            all(h in eng.enc_cache._index
+                for h in eng.enc_cache.data_hashes(f, npg)) for f in frames)
+        self.free = eng.pager.free_pages
+        self.pool = {k: t.clone() for k, t in eng.pools["enc"].items()}
+        self.encodes, self.hits = eng.stats.enc_encodes, eng.stats.enc_hits
+        self.written = set()
+        admit = eng._admit_enc
+
+        def recording(slot, req):
+            n = eng.stats.enc_encodes
+            admit(slot, req)
+            if eng.stats.enc_encodes > n:
+                self.written.update(eng.pager.slot_pages(slot, "enc"))
+        eng._admit_enc = recording
+
+    def close(self, label):
+        eng = self.eng
+        del eng._admit_enc
+        changed = None
+        for k, t in eng.pools["enc"].items():
+            for layer, before in zip(t, self.pool[k]):
+                c = (layer != before).flatten(1).any(1)
+                changed = c if changed is None else changed | c
+        changed = set(changed.nonzero().flatten().tolist())
+        out = dict(window_audio_cached=self.cached,
+                   window_free_pages=self.free,
+                   window_enc_encodes=eng.stats.enc_encodes - self.encodes,
+                   window_enc_hits=eng.stats.enc_hits - self.hits,
+                   window_enc_pages_written=len(self.written),
+                   window_enc_pages_changed=len(changed))
+        print(f"  {label}: {self.cached} of the window's audios fully cached "
+              f"and {self.free} pages free at its start; over the window "
+              f"{out['window_enc_encodes']} encodes and "
+              f"{out['window_enc_hits']} exact-match hits; "
+              f"{len(changed)} encoder pages changed, all among the "
+              f"{len(self.written)} its encoding admissions wrote: "
+              f"{changed <= self.written}", flush=True)
+        require(changed <= self.written, f"{label}: an encoder page no "
+                "admission wrote changed over the profile window")
+        del self.pool
+        return out
 
 
 def profile_decode(eng, reqs, key, steps=8):
@@ -1517,14 +1647,18 @@ def profile_decode(eng, reqs, key, steps=8):
     prefill, the decode graph is held against an eager step
     (:func:`graph_vs_eager`), then ``steps`` pure decode steps (batch 4,
     graph replays) run on the host clock alone, and ``steps`` more under
-    torch.profiler (device time, and the host's busiest ops)."""
+    torch.profiler (device time, and the host's busiest ops).  An
+    encoder-decoder's encoder pool is held over the whole window
+    (:class:`_EncWindow`)."""
     from repro_torch.serving.engine import Request
 
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
+    enc_window = (_EncWindow(eng, [r.frames for r in reqs[:4]])
+                  if eng.has_enc else None)
     for r in reqs[:4]:
         eng.submit(Request(uid=100 + r.uid, prompt=r.prompt,
-                           max_tokens=2 * steps + 8))
+                           max_tokens=2 * steps + 8, frames=r.frames))
     eng.step()
     while any(r is not None and eng.pos[i] < eng.pref_target[i]
               for i, r in enumerate(eng.slots)):
@@ -1545,6 +1679,8 @@ def profile_decode(eng, reqs, key, steps=8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run_until_drained()
+    if enc_window is not None:
+        checked.update(enc_window.close(key))
     kern = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
             and getattr(e, "self_device_time_total", 0) > 0]
@@ -2698,6 +2834,390 @@ def path7():
     return counts
 
 
+# ----------------------------------------------------- paths 8 and 8b ---
+# whisper-medium's cross K/V rows per request: Whisper pads every input to
+# its 30 s window (3000 mel frames), which the stride-2 conv stub turns into
+# 1500 encoder positions
+ENC_FRAMES = 1500
+
+
+def audio(i, t=ENC_FRAMES, d=1024):
+    """Request ``i``'s encoder frames, N(0, 0.1²) from seed 1000 + i; every
+    third request repeats request 0's audio (serve's rule)."""
+    r = np.random.default_rng(1000 + (0 if i % 3 == 0 else i))
+    return (r.standard_normal((t, d)) * 0.1).astype(np.float32)
+
+
+def path8_prediction(st, cfg):
+    """whisper-medium's launches: K1 for the decoder's 8 quantized linears a
+    layer (self q/k/v/o, cross q/o, the MLP's two) on every decode step and
+    prefill batch, and for every encode the encoder's 6 a layer plus the
+    cross k/v of every decoder layer (both 192 at 24 + 24 layers); K2 once
+    a decoder layer a step, K3 once a decoder layer a batch; nothing
+    else."""
+    per = 8 * cfg.num_layers
+    per_enc = 6 * cfg.enc_layers + 2 * cfg.num_layers
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": per * (st.steps + st.prefill_batches)
+                 + per_enc * st.enc_encodes,
+                 "gqa_paged_decode": cfg.num_layers * st.steps,
+                 "gqa_paged_prefill": cfg.num_layers * st.prefill_batches})
+    return pred
+
+
+def _enc_rows(kv, pages, ps):
+    """An encode's ``{"xk"/"xv": [L, 1, T, Hkv, Dh]}`` padded to whole pages:
+    ``[L, pages, ps, Hkv, Dh]``."""
+    t = kv["xk"].shape[2]
+    return {k: torch.nn.functional.pad(v[:, 0], (0, 0, 0, 0, 0,
+                                                 pages * ps - t)).reshape(
+        v.shape[0], pages, ps, *v.shape[3:]) for k, v in kv.items()}
+
+
+@torch.no_grad()
+def check_encdec_step_against_plain(params, cfg, ps, prompt, frames):
+    """One encode, one prefill chunk of the whole prompt and one decode
+    step, through the kernels, against the same on the dequantized weights
+    with the dense-gather oracle (each over its own pools)."""
+    from repro_torch.models import api
+    from repro_torch.models import whisper as W
+
+    plain_params = dequantized_params(params)
+    plain_cfg = cfg.with_(paged_attn_impl="gather")
+    n, te = len(prompt), frames.shape[0]
+    kp, ep = -(-(n + 1) // ps), -(-te // ps)
+    table = torch.arange(1, kp + 1, dtype=torch.int32, device=DEV)[None]
+    etable = torch.arange(kp + 1, kp + ep + 1, dtype=torch.int32,
+                          device=DEV)[None]
+    elen = torch.tensor([te], dtype=torch.int32, device=DEV)
+    fr = torch.from_numpy(frames).to(DEV)[None]
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=DEV)[None]
+    zero = torch.zeros(1, dtype=torch.int32, device=DEV)
+    clen = torch.tensor([n], dtype=torch.int32, device=DEV)
+    nxt = torch.tensor([[int(prompt[-1])]], dtype=torch.int32, device=DEV)
+    out = {}
+    for name, prm, c in (("kernel", params, cfg), ("plain", plain_params,
+                                                   plain_cfg)):
+        kv = api.encode_kv_fn(prm, fr, c)
+        pools = api.init_paged_cache(c, 1 + kp + ep, ps, DEV)
+        for k, rows in _enc_rows(kv, ep, ps).items():
+            pools["enc"][k].index_copy_(1, etable[0].long(), rows)
+        pre = W.whisper_prefill_chunk(prm, toks, pools, zero, clen, table,
+                                      etable, elen, c)[0]
+        dec = W.whisper_decode_paged(prm, nxt, pools, clen, table, etable,
+                                     elen, c)[0]
+        out[name] = (kv["xk"], kv["xv"], pre, dec)
+        del kv, pools
+    errs = {}
+    for i, step in enumerate(("encode xk", "encode xv", "prefill",
+                              "decode")):
+        a, b = out["kernel"][i], out["plain"][i]
+        require(bool(torch.isfinite(a).all()), f"{step} not finite")
+        err = max_err(a, b)
+        tol = 2e-3 * max(1.0, float(b.abs().max()))
+        print(f"  {step} vs plain: max |diff| = {err:.3g} (tol {tol:.3g})"
+              + (f", argmax {int(a.argmax())} vs {int(b.argmax())}"
+                 if i >= 2 else ""))
+        require(err <= tol, f"{step} differs from the plain path")
+        errs[step.replace(" ", "_") + "_err"] = err
+    del plain_params, out
+    return errs
+
+
+@torch.no_grad()
+def cross_gather_ms(eng):
+    """The decode step's cross attention alone, at path 8's shapes: every
+    decoder layer gathers each of the 4 rows' 96 encoder pages (1536 rows of
+    16 heads x 64, f32, K and V) out of the encoder pool and attends over
+    its 1500 valid rows (``whisper.gather_enc`` + ``attention.attend_rows``,
+    plain PyTorch ops).  The device time of one step's 24 layers (a CUDA
+    graph of two steps) beside the eager CUDA-event time, and the bytes:
+    the gather reads and writes the pages, the einsums read them again."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import whisper as W
+
+    cfg, enc = eng.cfg, eng.pools["enc"]
+    b, p, ps = 4, eng.P, eng.PS
+    used = -(-ENC_FRAMES // ps)
+    etbl = torch.zeros(b, p, dtype=torch.int32, device=DEV)
+    etbl[:, :used] = torch.arange(1, 1 + b * used, dtype=torch.int32,
+                                  device=DEV).reshape(b, used)
+    elen = torch.full((b,), ENC_FRAMES, dtype=torch.int32, device=DEV)
+    q = torch.randn(b, cfg.num_kv_heads, 1, cfg.hdim, device=DEV)
+
+    def step():
+        for i in range(cfg.num_layers):
+            xk, xv, valid = W.gather_enc(enc["xk"][i], enc["xv"][i], etbl,
+                                         elen)
+            A.attend_rows(q, xk, xv, valid, cfg.hdim ** -0.5)
+    ms = graph_ms([step], calls=2)
+    eager_ms = time_ms([step])
+    row = b * p * ps * cfg.num_kv_heads * cfg.hdim * 4      # K or V, bytes
+    moved = cfg.num_layers * 2 * row * 3
+    live = cfg.num_layers * 2 * b * ENC_FRAMES * cfg.num_kv_heads \
+        * cfg.hdim * 4
+    out = dict(ms=ms, eager_ms=eager_ms, bytes_moved=moved, gathered_bytes=cfg.num_layers * 2
+               * row, live_bytes=live, bound_ms=live / HBM_BYTES_S * 1e3,
+               achieved_gb_s=moved / ms / 1e6)
+    print(f"  cross-attention gather + einsums alone (batch 4, 96 pages a "
+          f"row, 24 layers): {ms:.3f} ms a step on the device (eager "
+          f"{eager_ms:.3f}); {moved / 1e9:.3f} GB moved "
+          f"({out['achieved_gb_s']:.0f} GB/s), {live / 1e9:.3f} GB of live "
+          f"encoder rows, whose read alone bounds it at "
+          f"{out['bound_ms']:.3f} ms")
+    return out
+
+
+def pool_use(eng):
+    """The bytes of the decoder's KV pools and of the encoder pool, and the
+    share of each that its page group can ever hold: both are sized at
+    ``num_pages``, a page id belongs to one group at a time, and each group
+    holds at most B·P pages (the default doubles ``num_pages`` for the two
+    groups)."""
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    kv = nbytes(t for lp in eng.pools["layers"] for t in lp.values())
+    enc = nbytes(eng.pools["enc"].values())
+    pages = eng.pools["enc"]["xk"].shape[1]
+    cap = eng.B * eng.P
+    out = dict(kv_pool_bytes=kv, enc_pool_bytes=enc, pages=pages,
+               group_cap_pages=cap, usable_share=cap / (pages - 1))
+    print(f"  page pools: decoder KV {kv / 1e9:.3f} GB, encoder "
+          f"{enc / 1e9:.3f} GB, {pages} pages each; each group holds at "
+          f"most {eng.B} x {eng.P} = {cap} pages, {out['usable_share']:.3f} "
+          "of each pool", flush=True)
+    return out
+
+
+def path8():
+    """whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers, d_model 1024, 16 heads of 64, vocab 51865), biases from a seeded
+    N(0, 0.02²), SmoothQuant+ in f32 (G=128, α searched) on 2 calibration
+    sequences of 24 tokens and 24 frames, through the library entry
+    points; f32 serving, page size 16, batch 4, max_seq 1536, path 1's 8
+    prompts with 16 new tokens, every request with 1500 encoder frames
+    (requests 0, 3 and 6 the same audio); then path 8b and the serve
+    entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.calibration import synthetic_calibration_set
+    from repro_torch.models import api
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            load_or_quantize)
+
+    print("path 8: whisper-medium full width and depth (24 + 24 layers), "
+          "SmoothQuant+ W4A16 f32, fp pools, path 1's 8 prompts, 1500 "
+          "encoder frames a request (requests 0, 3, 6 share audio)",
+          flush=True)
+    t_path = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-medium").with_(dtype="float32")
+    params = api.init_model(cfg, seed=0, device=DEV)
+    n_bias = fill_biases(params)
+    calib = synthetic_calibration_set(cfg, n_seqs=2, seq_len=24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, rep = load_or_quantize(params, cfg, calib,
+                                   QuantConfig(group_size=128))
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    ptq_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 201, 8)
+    prompts = [rng.integers(2, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_tokens=16, frames=audio(i))
+                for i, p in enumerate(prompts)]
+
+    def engine():
+        return ServingEngine(params, cfg, batch_size=4, max_seq=1536,
+                             page_size=16, seed=0, device=DEV)
+
+    reqs = requests()
+    eng = engine()
+    torch.cuda.synchronize()
+    with path_operands() as seen:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+    st = eng.stats
+    pred = path8_prediction(st, cfg)
+    print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
+          f"prefill batches {st.prefill_batches}, encodes {st.enc_encodes}, "
+          f"exact-match hits {st.enc_hits} (predicted 6 and 2); "
+          f"{n_bias} bias tensors filled", flush=True)
+    require(all(r.finish_reason in ("completed", "length") for r in reqs),
+            "path 8: a request did not finish")
+    require(all(len(r.output) == 16 or r.finish_reason == "completed"
+                for r in reqs), "path 8: a request stopped early without EOS")
+    require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+            "path 8: token out of range")
+    require(counts == pred, "path 8: launch counts differ from the "
+            "prediction")
+    require((st.enc_encodes, st.enc_hits) == (6, 2),
+            "path 8: encoder encodes / hits differ from the prediction 6 / 2")
+    tok_s = st.decoded_tokens / serve_s
+    ttft = sorted(r.first_token_t - r.arrival_t for r in reqs)
+    print(f"  PTQ alpha={rep.alpha:.2f} in {ptq_s:.1f}s ({rep.fp_bytes / 1e9:.2f}"
+          f" GB -> {rep.quant_bytes / 1e9:.2f} GB, PTQ peak "
+          f"{ptq_peak / 2 ** 30:.2f} GiB); served {st.completed} requests in "
+          f"{serve_s:.2f}s: {tok_s:.1f} decode tok/s, TTFT (encode included) "
+          f"p50 {statistics.median(ttft):.3f}s max {ttft[-1]:.3f}s",
+          flush=True)
+    out = dict(launches=counts, predicted=pred, decode_steps=st.steps,
+               prefill_batches=st.prefill_batches, enc_encodes=st.enc_encodes,
+               enc_hits=st.enc_hits, decoded_tokens=st.decoded_tokens,
+               prefilled_tokens=st.prefilled_tokens, serve_s=serve_s,
+               decode_tok_s=tok_s, ttft_s=ttft, ptq_s=ptq_s,
+               ptq_peak_mem_bytes=ptq_peak, alpha=rep.alpha,
+               fp_bytes=rep.fp_bytes, quant_bytes=rep.quant_bytes,
+               biases_filled=n_bias, **check_decode_graph(eng, "path 8"))
+    out["path_operands"] = check_path_operands(seen, "path 8")
+    del seen
+    out["pool"] = pool_use(eng)
+    out.update(check_encdec_step_against_plain(eng.params, cfg, eng.PS,
+                                               prompts[0], audio(0)))
+    frames = torch.from_numpy(audio(0)).to(DEV)[None]
+    wall_plain, wall, busy = _profile_steps(
+        lambda: api.encode_kv_fn(eng.params, frames, cfg), 2)
+    print(f"  one encode (1500 frames, 24 encoder layers + 48 cross "
+          f"projections): {wall_plain * 1e3:.2f} ms wall, {busy * 1e3:.2f} "
+          "ms device", flush=True)
+    out.update(encode_wall_ms=wall_plain * 1e3, encode_device_ms=busy * 1e3)
+    outputs = [list(r.output) for r in reqs]
+    profile_decode(eng, reqs, "path8_profile")
+    out["cross_gather"] = cross_gather_ms(eng)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path8b"] = path8b(engine, requests, outputs, cfg)
+    out["serve"] = path8_serve()
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"path 8: peak memory {out['peak_mem_bytes'] / 2 ** 30:.2f} GiB; "
+          f"took {out['seconds']:.1f}s", flush=True)
+    RESULTS["path8"] = out
+    return counts
+
+
+def path8b(engine, requests, outputs, cfg):
+    """Path 8's params and requests on a fresh engine, one mid-decode
+    preemption forced white-box (the admission watermark keeps the default
+    pool from preempting): the victim's encoder pages are detached under
+    swap holds and reattached at resume, its image holds its private KV
+    rows only, and the tokens equal path 8's."""
+    print("path 8b: path 8's params and requests, one mid-decode "
+          "preemption (encoder pages detached, KV rows swapped)", flush=True)
+    eng, reqs = engine(), requests()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(64):
+        eng.step()
+        dec = [i for i in eng._active_slots()
+               if eng.pos[i] >= eng.pref_target[i]]
+        if len(dec) >= 2:
+            break
+    require(len(dec) >= 2, "path 8b: fewer than two slots decoding")
+    victim = dec[0]
+    enc_pages = eng.pager.slot_pages(victim, "enc")
+    kv_private = len(eng.pager.split_for_swap(victim)[1])
+    eng._preempt(victim)
+    img = next(iter(eng._swapped.values()))
+    held = eng.pager.held()
+    detached = (img.enc_pages == enc_pages
+                and len(enc_pages) == -(-ENC_FRAMES // eng.PS)
+                and all(held[p] >= 1 for p in enc_pages))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    st = eng.stats
+    pred = path8_prediction(st, cfg)
+    page_bytes = api_kv_page_bytes(eng)
+    same = sum(r.output == o for r, o in zip(reqs, outputs))
+    print(f"  launches {counts}; predicted {pred}; decode steps {st.steps}, "
+          f"prefill batches {st.prefill_batches}, encodes {st.enc_encodes}, "
+          f"hits {st.enc_hits}; {st.preemptions} preemption, {st.resumes} "
+          f"resume; the victim's {len(enc_pages)} encoder pages detached "
+          f"under holds {detached}; {st.swapped_out_bytes / 1e6:.1f} MB swapped out = "
+          f"{kv_private} private KV pages x {page_bytes / 1e6:.2f} MB, "
+          f"fixed rows {st.swapped_fixed_bytes} B; served in {serve_s:.2f}s;"
+          f" outputs equal to path 8's for {same}/{len(reqs)} requests",
+          flush=True)
+    require(counts == pred, "path 8b: launch counts differ from the "
+            "prediction")
+    require(detached, "path 8b: the encoder pages were not detached under "
+            "holds")
+    require(st.preemptions == st.resumes == 1 and st.retries == 0,
+            "path 8b: the preemption did not resume by swap-in")
+    require(st.swapped_fixed_bytes == 0, "path 8b: fixed rows swapped")
+    require(st.swapped_out_bytes == kv_private * page_bytes
+            == st.swapped_in_bytes > 0,
+            "path 8b: the image is not the victim's private KV rows")
+    require((st.enc_encodes, st.enc_hits) == (6, 2),
+            "path 8b: the resume encoded again")
+    require(same == len(reqs), "path 8b: outputs differ from path 8's")
+    eng.pager.check_invariants()
+    require(int(eng.pager.held().sum()) == 0, "path 8b: holds left")
+    return dict(launches=counts, predicted=pred, decode_steps=st.steps,
+                prefill_batches=st.prefill_batches,
+                preemptions=st.preemptions,
+                swapped_out_bytes=st.swapped_out_bytes,
+                swapped_in_bytes=st.swapped_in_bytes,
+                private_kv_pages=kv_private, kv_page_bytes=page_bytes,
+                enc_pages_detached=detached, serve_s=serve_s,
+                same_outputs_as_path8=same,
+                **check_decode_graph(eng, "path 8b"))
+
+
+def api_kv_page_bytes(eng):
+    """Bytes of one KV page across every decoder layer's pools."""
+    return sum(t[0].numel() * t.element_size()
+               for lp in eng.pools["layers"] for t in lp.values())
+
+
+def path8_serve():
+    """whisper-medium through the serve entry at full width (its own
+    PTQ), serve's synthetic frames (6-10 rows, every third request request
+    0's audio): the launch counts held to path 8's prediction, and the
+    encoder-pages line."""
+    from repro_torch.launch import serve
+
+    print("path 8 serve entry: --arch whisper-medium, serve's synthetic "
+          "frames", flush=True)
+    K.reset_launch_counts()
+    res = serve.main(["--arch", "whisper-medium", "--requests", "8",
+                      "--batch-size", "4", "--max-seq", "256",
+                      "--max-tokens", "16", "--min-prompt", "32",
+                      "--max-prompt", "200", "--seed", "0", *SERVE_COLD])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    eng = res["engine"]
+    st = eng.stats
+    pred = path8_prediction(st, eng.cfg)
+    print(f"  launches {counts}; predicted {pred}; encoder pages: "
+          f"{st.enc_encodes} encodes, {st.enc_hits} exact-match hits",
+          flush=True)
+    require(counts == pred, "path 8 serve: launch counts differ from the "
+            "prediction")
+    require((st.enc_encodes, st.enc_hits) == (6, 2),
+            "path 8 serve: encodes / hits differ from 6 / 2")
+    require(all(r.finish_reason in ("completed", "length")
+                for r in res["requests"]), "path 8 serve: unfinished")
+    return dict(launches=counts, enc_encodes=st.enc_encodes,
+                enc_hits=st.enc_hits, serve_s=res["serve_s"],
+                ptq_s=res["ptq_s"], decode_steps=st.steps,
+                **check_decode_graph(eng, "path 8 serve"))
+
+
 def path4c(params, cfg):
     """Path 4's params (deepseek-v2-236b, 2 layers, fp latent pools,
     128-token chunks) with the prefix cache: two waves of 4 behind a
@@ -3289,6 +3809,7 @@ def main():
     k1, b5, k2, k3 = check_k1(), check_b5(), check_k2(), check_k3()
     check_k1_widths()
     check_k1_ssm()
+    check_k1_whisper()
     b67, b4, b89 = check_grouped(), check_flash(), check_mla()
     check_mla_long()
     check_offset_only()
@@ -3329,6 +3850,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     path7()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path8()
 
     # one row per kernel: its path's shape in the paths' f32, and its
     # launches on the path that runs it

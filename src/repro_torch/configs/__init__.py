@@ -4,8 +4,8 @@ The paper's own Code Llama family, the dense decoders (Llama-3.2,
 Mistral-Large, ChatGLM3 with RoPE-2d, StarCoder2 with LayerNorm, GELU and
 biases, Qwen2-VL with M-RoPE and the patch-embedding stub), the Granite MoE,
 DeepSeek-V2 (MLA, shared experts), Zamba2 (Mamba2 plus a weight-shared
-attention block) and RWKV6 are ported; the encoder-decoder architecture
-raises a clear "not ported yet" error.
+attention block), RWKV6 and the Whisper encoder-decoder are ported: every
+architecture of the reference's registry.
 """
 from __future__ import annotations
 
@@ -19,10 +19,10 @@ ARCH_IDS = ("codellama-7b", "codellama-13b", "codellama-34b",
             "llama3.2-3b", "mistral-large-123b", "chatglm3-6b",
             "starcoder2-15b", "qwen2-vl-7b",
             "granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-7b",
-            "rwkv6-7b")
+            "rwkv6-7b", "whisper-medium")
 
-# the reference registry's other architectures (see ROADMAP.md queue A)
-NOT_PORTED = ("whisper-medium",)
+# the reference registry's architectures the port lacks (none left)
+NOT_PORTED = ()
 
 
 def _modname(arch_id: str) -> str:

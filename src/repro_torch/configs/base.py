@@ -1,7 +1,8 @@
 """Model / quantization configuration dataclasses (port of
 ``repro/configs/base.py``: the dense, VLM-stub and MoE decoder families,
 GQA or Multi-head Latent Attention, the Zamba2-style hybrid (Mamba2 plus a
-weight-shared attention block) and the attention-free RWKV6 stack).
+weight-shared attention block), the attention-free RWKV6 stack and the
+Whisper-style encoder-decoder).
 
 The fields keep the reference's names and defaults so a config prints the
 same in both packages.  Features the port has not covered yet stay as
@@ -45,7 +46,7 @@ class HybridConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | moe | vlm | hybrid | ssm
+    family: str                 # dense | moe | vlm | hybrid | ssm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -65,6 +66,8 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     conv_kernel: int = 4
+    encdec: bool = False               # whisper
+    enc_layers: int = 0
     tie_embeddings: bool = False
     attn_bias: bool = False            # biases on q/k/v/o and the GELU MLP
     dtype: str = "bfloat16"
@@ -111,11 +114,18 @@ class ModelConfig:
         if (self.mixer == "mla") != (self.mla is not None):
             raise ValueError(f"{self.name}: mixer={self.mixer!r} and "
                              f"mla={self.mla!r} disagree")
-        if self.family not in ("dense", "moe", "vlm", "hybrid", "ssm"):
+        if self.family not in ("dense", "moe", "vlm", "hybrid", "ssm",
+                               "audio"):
             raise NotImplementedError(
-                f"family={self.family!r}: the dense, VLM-stub, MoE, hybrid "
-                "and SSM decoders are ported (encoder-decoder: ROADMAP.md "
-                "queue A item 1)")
+                f"family={self.family!r}: the port has the dense, VLM-stub, "
+                "MoE, hybrid and SSM decoders and the audio encoder-decoder")
+        if (self.family == "audio") != self.encdec or (
+                self.encdec and (self.mixer != "attention"
+                                 or self.enc_layers < 1)):
+            raise ValueError(f"{self.name}: family={self.family!r}, encdec="
+                             f"{self.encdec!r}, mixer={self.mixer!r} and "
+                             f"enc_layers={self.enc_layers} disagree (an "
+                             "audio config is a GQA encoder-decoder)")
         if (self.family == "moe") != (self.moe is not None):
             raise ValueError(f"{self.name}: family={self.family!r} and "
                              f"moe={self.moe!r} disagree")
@@ -144,9 +154,10 @@ class ModelConfig:
             raise ValueError(
                 f"paged_attn_impl={self.paged_attn_impl!r}: expected 'auto' "
                 "or 'gather'")
-        # RWKV6 has no attention, so no rotary embedding to pick
+        # RWKV6 has no attention, so no rotary embedding to pick; the
+        # encoder-decoder adds sinusoidal positions to its inputs instead
         ropes = ("standard", "2d", "mrope") + (
-            ("none",) if self.mixer == "rwkv6" else ())
+            ("none",) if self.mixer == "rwkv6" or self.encdec else ())
         for field, ported in (("rope", ropes),
                               ("norm", ("rmsnorm", "layernorm")),
                               ("mlp", ("swiglu", "gelu"))):

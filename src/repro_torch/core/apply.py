@@ -94,8 +94,10 @@ def _mla_absorbed_quantize(w: torch.Tensor, cfg: ModelConfig,
     }
 
 
-def _report_key(block: str, wp: Tuple[Any, ...]) -> str:
-    return "/".join(map(str, (block,) + wp))
+def report_key(block: str, wp: Tuple[Any, ...]) -> str:
+    """The reference's name of a weight path: its stacked path joined by
+    ``/`` (``layers/mixer/wq/w``, ``enc/layers/self_attn/wq/w``)."""
+    return "/".join(map(str, SM.block_prefix(block) + wp))
 
 
 def derive_a8_eligibility(col: C.StatsCollector, cfg: ModelConfig,
@@ -117,7 +119,7 @@ def derive_a8_eligibility(col: C.StatsCollector, cfg: ModelConfig,
         ok = bool(worst <= qcfg.a8_threshold)
         for wp in g.weights:
             amap[(g.block,) + wp] = ok
-            errors[_report_key(g.block, wp)] = worst
+            errors[report_key(g.block, wp)] = worst
     return amap, errors
 
 
@@ -132,7 +134,7 @@ def _tree_a8_flags(qparams, cfg: ModelConfig) -> Dict[str, bool]:
             return all(bool(v.a8) for v in node.values())
         return bool(node.a8)
 
-    return {_report_key(blk, wp): all(
+    return {report_key(blk, wp): all(
                 flag(SM.tget(lp, wp))
                 for _, lp in SM.block_layers(qparams, blk))
             for blk, wp in paths if SM.block_layers(qparams, blk)}
@@ -226,20 +228,18 @@ class StalePTQArtifactError(ValueError):
     """The artifact was produced under a different (model, quant) config."""
 
 
-# The reference's config fields the port does not carry, at their defaults
-# (``ModelConfig.check`` refuses every config where they would differ),
-# each after the field it follows in the reference's field order.
-_REF_MODEL_EXTRA = {"conv_kernel": (("encdec", False), ("enc_layers", 0))}
+# The reference's quant config field the port does not carry, at its
+# default, after the field it follows in the reference's field order.
 _REF_QUANT_EXTRA = {"alpha": (("backend", "auto"),)}
 
 
-def _ref_repr(obj, extra) -> str:
+def _ref_repr(obj, extra=None) -> str:
     """``repr(obj)`` as the reference's dataclass of the same name prints
     it: its fields in order, the ``extra`` ones inserted."""
     parts = []
     for f in dataclasses.fields(obj):
         parts.append(f"{f.name}={getattr(obj, f.name)!r}")
-        parts += [f"{k}={v!r}" for k, v in extra.get(f.name, ())]
+        parts += [f"{k}={v!r}" for k, v in (extra or {}).get(f.name, ())]
     return f"{type(obj).__qualname__}({', '.join(parts)})"
 
 
@@ -249,7 +249,7 @@ def ptq_fingerprint(cfg: ModelConfig, qcfg: QuantConfig) -> str:
     for byte.  ``act_quant`` is normalized out (the artifact serves A16 and
     A8-prefill engines alike); ``a8_threshold`` changes the stamped flags,
     so it counts."""
-    text = (f"({_ref_repr(cfg.with_(act_quant='a16'), _REF_MODEL_EXTRA)}, "
+    text = (f"({_ref_repr(cfg.with_(act_quant='a16'))}, "
             f"{_ref_repr(qcfg, _REF_QUANT_EXTRA)})")
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
@@ -271,26 +271,41 @@ def ptq_matches(directory, cfg: ModelConfig, qcfg: QuantConfig) -> bool:
 
 
 # leading layer indices of a per-layer path, per block
-_LAYER_AXES = {"layers": 1, "tail": 1, "groups": 2, "shared": 0}
+_LAYER_AXES = {"layers": 1, "tail": 1, "groups": 2, "shared": 0, "enc": 1,
+               "dec": 1}
 
 
 def _reference_paths(paths) -> List[Tuple[str, ...]]:
     """The port's per-layer paths (``("layers", i, ...)``, ``("groups", gi,
-    ki, ...)``, ``("shared", ...)``) → the reference's stacked ones
-    (``("layers", ...)``), in first-layer order."""
+    ki, ...)``, ``("shared", ...)``, ``("enc", i, ...)``) → the
+    reference's stacked ones (``("layers", ...)``, ``("enc", "layers",
+    ...)``), in first-layer order."""
     out: List[Tuple[str, ...]] = []
     for p in paths:
-        rp = (p[0],) + tuple(map(str, p[1 + _LAYER_AXES[p[0]]:]))
+        rp = SM.block_prefix(p[0]) + tuple(map(str, p[1 + _LAYER_AXES[p[0]]:]))
         if rp not in out:
             out.append(rp)
     return out
 
 
+def _split_reference_path(p: Tuple[str, ...]) -> Tuple[str, Tuple[str, ...]]:
+    """A reference stacked path → (block, per-layer path)."""
+    n = len(SM.block_prefix(p[0]))
+    return p[0], tuple(p[n:])
+
+
 def save_ptq(directory, qparams, report: PTQReport, cfg: ModelConfig,
              qcfg: QuantConfig) -> Path:
     """Write the quantized params and the report as an artifact in the
-    reference's layout (its stacked quantized paths in the report)."""
-    paths = _reference_paths(report.quantized_paths)
+    reference's layout (its stacked quantized paths in the report, in the
+    order its ``quantize_params`` takes them: the group table's)."""
+    order = []
+    for blk, wp in SM.block_paths(cfg):
+        order.append(SM.block_prefix(blk) + wp)
+        if cfg.mla is not None and wp[-2:] == ("wkv_b", "w"):
+            order.append(SM.block_prefix(blk) + ABSORBED)
+    paths = sorted(_reference_paths(report.quantized_paths),
+                   key=lambda p: order.index(p) if p in order else len(order))
     meta = {
         "config_hash": ptq_fingerprint(cfg, qcfg),
         "model": cfg.name,
@@ -342,10 +357,11 @@ def load_ptq(directory, cfg: ModelConfig, qcfg: QuantConfig,
         alpha=r["alpha"], search_loss=r["search_loss"],
         loss_curve={float(k): v for k, v in r["loss_curve"].items()},
         quantized_paths=[
-            (block,) + lidx + p[1:]
+            (block,) + lidx + wp
             for block in dict.fromkeys(p[0] for p in paths)
             for lidx, _ in SM.block_layers(params, block)
-            for p in paths if p[0] == block],
+            for blk, wp in map(_split_reference_path, paths)
+            if blk == block],
         fp_bytes=r["fp_bytes"], quant_bytes=r["quant_bytes"],
         a8_eligibility=flags,
         a8_errors={k: float(v) for k, v in r.get("a8_errors", {}).items()},

@@ -11,7 +11,9 @@ The differences from SmoothQuant+ are the paper's three criticisms:
 It reuses SmoothQuant+'s groups and exact fusion, so a comparison isolates
 those deltas.  A group spans every layer, as the reference's groups span
 its stacked ``[L, ...]`` tensors: its one α minimizes the loss summed over
-the layers (``s`` itself stays per layer).  The MoE expert taps record the
+the layers (``s`` itself stays per layer, except in a ``layer_reduce``
+group, whose one ``s`` is the max over its layers' ``s``, as in the
+reference).  The MoE expert taps record the
 max only, so ``moe.down`` falls back to the max statistics, as in the
 reference.  A group with no provider (the GELU MLP's ``down``) is skipped,
 unsmoothed, with no α.  Like :func:`repro_torch.core.apply.smoothquant_plus`
@@ -33,32 +35,16 @@ from repro_torch.core.quantize import fake_quantize
 
 def _awq_s(layer, cfg: ModelConfig, group: SM.Group, alpha: float,
            act_mean: np.ndarray) -> np.ndarray:
-    """AWQ importance for one layer: ``s = mean|X|^α / max|W|^(1-α)``, in
-    the reference's numpy arithmetic."""
-    wmax = None
-    for wp in group.weights:
-        wm = SM._w_absmax_in(SM.tget(layer, wp), act_mean.shape)
-        wmax = wm if wmax is None else np.maximum(wmax, wm)
-    eps = 1e-8
-    s = np.power(np.maximum(act_mean, eps), alpha) / np.power(
-        np.maximum(wmax, eps), 1.0 - alpha)
-    s = np.where((act_mean > eps) & (wmax > eps), s, 1.0)
-    s = np.clip(s, 1e-4, 1e4)
-    if group.tie == "kv":
-        hkv, grp = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-        dh = s.shape[-1] // (hkv * grp)
-        sr = s.reshape(*s.shape[:-1], hkv, grp, dh).max(axis=-2)
-        s = np.broadcast_to(
-            sr[..., :, None, :], (*s.shape[:-1], hkv, grp, dh)
-        ).reshape(s.shape)
-    return s.astype(np.float32)
+    """AWQ importance for one layer: SmoothQuant+'s formula on the mean
+    |X|, ``s = mean|X|^α / max|W|^(1-α)``."""
+    return SM.smoothing_s(act_mean, SM.weight_absmax(layer, group,
+                                                      act_mean.shape),
+                          cfg, group, alpha)
 
 
-def _layer_loss(layer, cfg, group, alpha, group_size, act_mean
-                ) -> Tuple[float, np.ndarray]:
-    """One layer's weighted quantization loss of the group at ``alpha``,
-    and its ``s``."""
-    s = _awq_s(layer, cfg, group, alpha, act_mean)
+def _layer_loss(layer, group, s, group_size, act_mean) -> float:
+    """One layer's weighted quantization loss of the group for its
+    ``s``."""
     dev = SM.tget(layer, group.weights[0]).device
     st = torch.from_numpy(s).to(dev)
     x_hat = torch.from_numpy(act_mean / s).to(dev)
@@ -68,7 +54,7 @@ def _layer_loss(layer, cfg, group, alpha, group_size, act_mean
         ws = w * SM._align(st, w)
         err = ws - fake_quantize(ws, group_size)
         total += float(((err * SM._align(x_hat, w)) ** 2).sum())
-    return total, s
+    return total
 
 
 def _mean_stats(col: StatsCollector, block: str, lidx, sub) -> np.ndarray:
@@ -86,7 +72,7 @@ def awq_quantize(params, cfg: ModelConfig,
                  ) -> Tuple[object, Dict[str, float]]:
     """Per-group α search + smoothing + int4 RTN (AWQ-style), in place.
     Returns ``(qparams, {group name: α})``, e.g. ``layers.qkv``,
-    ``layers.wo``, ``mlp.in``, ``mlp.down``."""
+    ``layers.wo``, ``mlp.in`` (a group with no provider has none)."""
     col = collect_stats(params, cfg, calibration_batches)
     alphas: Dict[str, float] = {}
     grid = np.round(np.arange(0.0, 1.0 + 1e-9, step), 10)
@@ -104,13 +90,15 @@ def awq_quantize(params, cfg: ModelConfig,
             continue
         best, best_s = None, None
         for a in grid:
-            res = [_layer_loss(lp, cfg, g, float(a), qcfg.group_size, act)
-                   for lp, act in zip(layers, acts)]
-            loss = sum(r[0] for r in res)
+            ss = [_awq_s(lp, cfg, g, float(a), act)
+                  for lp, act in zip(layers, acts)]
+            if g.layer_reduce:
+                ss = [np.max(np.stack(ss), axis=0)] * len(ss)
+            loss = sum(_layer_loss(lp, g, s, qcfg.group_size, act)
+                       for lp, act, s in zip(layers, acts, ss))
             if best is None or loss < best[0]:
-                best, best_s = (loss, float(a)), [r[1] for r in res]
+                best, best_s = (loss, float(a)), ss
         alphas[g.name] = best[1]
-        for lp, s in zip(layers, best_s):
-            SM.apply_group(lp, cfg, g, s)
+        SM.apply_block(params, cfg, g, list(zip(layers, best_s)))
     qparams, *_ = quantize_params(params, cfg, qcfg)
     return qparams, alphas

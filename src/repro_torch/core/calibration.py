@@ -1,5 +1,5 @@
 """Calibration: per-input-channel activation max statistics (port of
-``repro/core/calibration.py``, decoder-only pass).
+``repro/core/calibration.py``).
 
 The calibration batches run through the fp model layer by layer; each layer's
 weight tensors are registered (by ``id``) with a context collector, and
@@ -8,7 +8,10 @@ a registered weight.  Stats keys are the reference's:
 ``(("layers",), (layer_idx,), weight_subpath)``; the hybrid stack's Mamba2
 layers are keyed ``(("groups",), (gi, ki), ...)`` and ``(("tail",), (ti,),
 ...)``, and its weight-shared attention block one key ``(("shared",), (),
-...)`` across its call sites, so its stats take the channel max over them.  Beside the channel max
+...)`` across its call sites, so its stats take the channel max over them.
+The encoder-decoder's layers are keyed ``(("enc",), (i,), ...)`` and
+``(("dec",), (i,), ...)``; its batches carry ``frames`` and the encoder
+runs non-causal.  Beside the channel max
 |X| the collector keeps, per key, the channel sums of |X| and their row
 count (:meth:`StatsCollector.mean_stats`, AWQ's importance) and the worst
 per-token int8 round-trip error of the input
@@ -121,7 +124,10 @@ def collect_stats(params, cfg: ModelConfig,
     col = StatsCollector()
     with collecting(col):
         for batch in batches:
-            _lm_pass(col, params, cfg, batch)
+            if cfg.encdec:
+                _whisper_pass(col, params, cfg, batch)
+            else:
+                _lm_pass(col, params, cfg, batch)
             collect_stats.batches += 1
     return col
 
@@ -160,13 +166,38 @@ def _lm_pass(col: StatsCollector, params, cfg: ModelConfig, batch) -> None:
             x = run_block("layers", (i,), lp, x)
 
 
+def _whisper_pass(col: StatsCollector, params, cfg: ModelConfig,
+                  batch) -> None:
+    from repro_torch.models import whisper as W
+
+    device = params["dec"]["embed"]["table"].device
+    frames = batch["frames"].to(device)
+    tokens = batch["tokens"].to(device)
+    b, te, d = frames.shape
+    x = frames + W.sinusoid(te, d, device=device).to(frames.dtype)[None]
+    epos = torch.arange(te, device=device)[None].expand(b, te)
+    for i, lp in enumerate(params["enc"]["layers"]):
+        col.register_tree(("enc",), (i,), lp)
+        x = W.enc_block(lp, x, epos, cfg)
+    enc_out = W.L.apply_norm(params["enc"]["final_norm"], x)
+    bt, td = tokens.shape
+    x = W.L.apply_embedding(params["dec"]["embed"], tokens)
+    x = x + W.sinusoid(td, d, device=device).to(x.dtype)[None]
+    dpos = torch.arange(td, device=device)[None].expand(bt, td)
+    for i, lp in enumerate(params["dec"]["layers"]):
+        col.register_tree(("dec",), (i,), lp)
+        x = W._dec_block(lp, x, dpos, enc_out, cfg)[0]
+
+
 def synthetic_calibration_set(cfg: ModelConfig, *, n_seqs: int = 8,
                               seq_len: int = 64, domain: str = "humaneval",
                               seed: int = 0) -> List[Dict[str, torch.Tensor]]:
     """Offline stand-in for the paper's calibration sets: the reference's
     Zipf token draws, number for number (CPU int32 tensors); a VLM config's
     batches also carry the reference's ``embeds`` (4 standard-normal patch
-    rows from seed + 9, the same for every sequence)."""
+    rows from seed + 9, the same for every sequence), an encoder-decoder's
+    its ``frames`` (``seq_len`` standard-normal rows from seed + 7, the
+    same for every sequence)."""
     zipf_a = {"humaneval": 1.3, "pile": 1.1, "c4": 1.05}[domain]
     offset = {"humaneval": 0, "pile": 1, "c4": 2}[domain]
     rng = np.random.default_rng(seed + offset * 1000)
@@ -175,6 +206,10 @@ def synthetic_calibration_set(cfg: ModelConfig, *, n_seqs: int = 8,
         ranks = rng.zipf(zipf_a, size=(1, seq_len)).astype(np.int64)
         toks = (ranks * (offset * 7919 + 31) % cfg.vocab_size).astype(np.int32)
         batch = {"tokens": torch.from_numpy(toks)}
+        if cfg.encdec:
+            emb_rng = np.random.default_rng(seed + 7)
+            batch["frames"] = torch.from_numpy(emb_rng.standard_normal(
+                (1, seq_len, cfg.d_model), np.float32)).to(cfg.tdtype)
         if cfg.family == "vlm":
             emb_rng = np.random.default_rng(seed + 9)
             batch["embeds"] = torch.from_numpy(emb_rng.standard_normal(

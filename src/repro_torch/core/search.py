@@ -26,10 +26,9 @@ class SearchResult:
     losses: Dict[float, float]
 
 
-def _group_quant_loss(layer, lidx, cfg, col, group, alpha,
-                      group_size) -> float:
-    act = SM.layer_stats(col, group.block, lidx, group.stats_sub)
-    s = SM.compute_group_s(layer, cfg, act, group, alpha)
+def _layer_quant_loss(layer, act, s, group, group_size) -> float:
+    """One layer's activation-weighted quantization loss of the group, for
+    its stats ``act`` and factors ``s``."""
     dev = SM.tget(layer, group.weights[0]).device
     st = torch.from_numpy(s).to(dev)
     x_hat = torch.from_numpy(act / s).to(dev)
@@ -45,9 +44,9 @@ def _group_quant_loss(layer, lidx, cfg, col, group, alpha,
 @torch.no_grad()
 def model_quant_loss(params, cfg: ModelConfig, col: StatsCollector,
                      alpha: float, group_size: int = 128) -> float:
-    return sum(_group_quant_loss(layer, lidx, cfg, col, g, alpha, group_size)
+    return sum(_layer_quant_loss(layer, act, s, g, group_size)
                for g in SM.smoothing_groups(cfg)
-               for lidx, layer in SM.block_layers(params, g.block))
+               for layer, act, s in SM.block_s(params, cfg, col, g, alpha))
 
 
 def search_alpha(params, cfg: ModelConfig, col: StatsCollector, *,

@@ -12,7 +12,8 @@ values).  The GELU MLP's ``down`` has a non-linear producer
 (``"none"``): its ``s`` is 1 and it is quantized unsmoothed.  As in the
 reference, ``"linear_out"`` scales only ``wv``'s weight columns, not its
 bias, so on a model with a nonzero ``wv`` bias the ``layers.wo`` transform
-is not exact; the port keeps that behaviour.
+(and the encoder-decoder's ``*.wo`` / ``dec.xo``) is not exact; the port
+keeps that behaviour.
 RWKV6's channel mix feeds ``wv`` with ``relu(k)²``: its ``1/s`` fuses
 into ``wk``'s columns as ``1/√s`` (``"linear_out_sqrt"``; exact because
 ``√s > 0``).  ``tie="kv"`` reduces the o-proj's ``s`` (max) over each
@@ -28,9 +29,14 @@ normed input) and has its own ``moe.shared.down`` group.
 Paths are relative to one layer's param dict of the group's ``block``
 (``"layers"``; for the hybrid stack ``"groups"``, ``"tail"`` and the
 weight-shared ``"shared"``, whose one stats key spans its call sites, so its
-statistics are the channel max over them); ``s`` is computed per layer
-with the reference's numpy arithmetic, so it matches it bit for bit given
-the same statistics.  The port scales weights *in place* so the f32 7B model
+statistics are the channel max over them; for the encoder-decoder ``"enc"``
+and ``"dec"``, the layers of ``params["enc"|"dec"]["layers"]``); ``s`` is
+computed per layer with the reference's numpy arithmetic, so it matches it
+bit for bit given the same statistics.  A ``layer_reduce`` group
+(``dec.xkv``: every decoder layer's cross ``wk``/``wv`` reads the one
+encoder output) takes one ``s`` for all its layers, from the max over
+layers of the activation and of the weight statistics, and its provider
+(``enc.final_norm``, a path from the params' root) takes ``1/s`` once.  The port scales weights *in place* so the f32 7B model
 is never held twice.
 """
 from __future__ import annotations
@@ -61,7 +67,19 @@ class Group:
     stats_sub: Tuple[str, ...]      # collector weight subpath
     row_compensations: Tuple[Path, ...] = ()
     tie: Optional[str] = None       # None | "kv"
-    block: str = "layers"           # layers | groups | tail | shared
+    block: str = "layers"           # layers | groups | tail | shared | enc
+    # one s across the block's layers; the provider path is from the root
+    layer_reduce: bool = False      # | dec
+
+
+# the encoder-decoder's blocks: each side's "layers" list
+ENCDEC_BLOCKS = ("enc", "dec")
+
+
+def block_prefix(block: str) -> Tuple[str, ...]:
+    """The reference's path of a block's stacked layers: ``("enc",
+    "layers")`` for an encoder-decoder side, ``(block,)`` otherwise."""
+    return (block, "layers") if block in ENCDEC_BLOCKS else (block,)
 
 
 def tget(tree, path: Path):
@@ -78,6 +96,8 @@ def block_layers(params, block: str) -> List[Tuple[Tuple[int, ...], Any]]:
     node = params.get(block)
     if node is None:
         return []
+    if block in ENCDEC_BLOCKS:
+        node = node["layers"]
     if block == "shared":
         return [((), node)]
     if block == "groups":
@@ -177,10 +197,46 @@ def _rwkv_groups() -> List[Group]:
     ]
 
 
+def _encdec_groups() -> List[Group]:
+    """Both sides' self-attention, the decoder's cross attention (q fed by
+    ``norm2``, k/v by the shared encoder output) and both GELU MLPs (the
+    encoder's ``norm2``, the decoder's ``norm3``)."""
+    groups = []
+    for side in ENCDEC_BLOCKS:
+        m = ("self_attn",)
+        groups += [
+            Group(f"{side}.qkv", tuple(m + (k, "w") for k in ("wq", "wk",
+                                                              "wv")),
+                  Provider("norm", ("norm1",)), m + ("wq", "w"), block=side),
+            Group(f"{side}.wo", (m + ("wo", "w"),),
+                  Provider("linear_out", m + ("wv", "w")), m + ("wo", "w"),
+                  tie="kv", block=side)]
+    c = ("cross_attn",)
+    groups += [
+        Group("dec.xq", (c + ("wq", "w"),), Provider("norm", ("norm2",)),
+              c + ("wq", "w"), block="dec"),
+        Group("dec.xkv", (c + ("wk", "w"), c + ("wv", "w")),
+              Provider("norm", ("enc", "final_norm")), c + ("wk", "w"),
+              block="dec", layer_reduce=True),
+        Group("dec.xo", (c + ("wo", "w"),),
+              Provider("linear_out", c + ("wv", "w")), c + ("wo", "w"),
+              tie="kv", block="dec")]
+    for side, nrm in (("enc", "norm2"), ("dec", "norm3")):
+        mlp = ("mlp",)
+        groups += [
+            Group(f"{side}.mlp.in", (mlp + ("up", "w"),),
+                  Provider("norm", (nrm,)), mlp + ("up", "w"), block=side),
+            Group(f"{side}.mlp.down", (mlp + ("down", "w"),),
+                  Provider("none"), mlp + ("down", "w"), block=side)]
+    return groups
+
+
 def smoothing_groups(cfg: ModelConfig) -> List[Group]:
     """The reference's group table, in its order (the hybrid stack: the
     grouped and tail Mamba2 layers, then the shared attention and MLP)."""
     cfg.check()
+    if cfg.encdec:
+        return _encdec_groups()
     if cfg.family == "hybrid":
         return (_mamba_groups("groups") + _mamba_groups("tail")
                 + _attn_groups("shared")
@@ -224,17 +280,18 @@ def _align(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return s.reshape(*s.shape[:-1], *([1] * extra), s.shape[-1], 1)
 
 
-def compute_group_s(layer, cfg: ModelConfig, act: np.ndarray, group: Group,
-                    alpha: float) -> np.ndarray:
-    """Smoothing factors ``s[*stat_lead, Ci]`` for one group of one layer
-    (``[Ci]``, or ``[E, F]`` for ``moe.down``); ones for a ``"none"``
-    provider."""
-    if group.provider.kind == "none":
-        return np.ones_like(act)
+def weight_absmax(layer, group: Group, stat_shape) -> np.ndarray:
+    """max |W| per input row over the group's weights of one layer."""
     wmax = None
     for wp in group.weights:
-        wm = _w_absmax_in(tget(layer, wp), act.shape)
+        wm = _w_absmax_in(tget(layer, wp), stat_shape)
         wmax = wm if wmax is None else np.maximum(wmax, wm)
+    return wmax
+
+
+def smoothing_s(act: np.ndarray, wmax: np.ndarray, cfg: ModelConfig,
+                group: Group, alpha: float) -> np.ndarray:
+    """``s = max|X|^α / max|W|^(1-α)``, clipped, with the ``kv`` tie."""
     eps = 1e-8
     s = np.power(np.maximum(act, eps), alpha) / np.power(
         np.maximum(wmax, eps), 1.0 - alpha)
@@ -248,6 +305,35 @@ def compute_group_s(layer, cfg: ModelConfig, act: np.ndarray, group: Group,
     return s.astype(np.float32)
 
 
+def compute_group_s(layer, cfg: ModelConfig, act: np.ndarray, group: Group,
+                    alpha: float) -> np.ndarray:
+    """Smoothing factors ``s[*stat_lead, Ci]`` for one group of one layer
+    (``[Ci]``, or ``[E, F]`` for ``moe.down``); ones for a ``"none"``
+    provider."""
+    if group.provider.kind == "none":
+        return np.ones_like(act)
+    return smoothing_s(act, weight_absmax(layer, group, act.shape), cfg,
+                       group, alpha)
+
+
+def block_s(params, cfg: ModelConfig, col: StatsCollector, group: Group,
+            alpha: float) -> List[Tuple[Any, np.ndarray, np.ndarray]]:
+    """``(layer, its activation stats, its s)`` for every layer of the
+    group's block (none when the layout has no such block).  A
+    ``layer_reduce`` group's one ``s`` comes from the max over layers of
+    both statistics."""
+    layers = [(lp, layer_stats(col, group.block, lidx, group.stats_sub))
+              for lidx, lp in block_layers(params, group.block)]
+    if not group.layer_reduce or group.provider.kind == "none":
+        return [(lp, act, compute_group_s(lp, cfg, act, group, alpha))
+                for lp, act in layers]
+    act = np.max(np.stack([a for _, a in layers]), axis=0)
+    wmax = np.max(np.stack([weight_absmax(lp, group, act.shape)
+                            for lp, _ in layers]), axis=0)
+    s = smoothing_s(act, wmax, cfg, group, alpha)
+    return [(lp, a, s) for lp, a in layers]
+
+
 def _scale_(w: torch.Tensor, factor: torch.Tensor, divide: bool) -> None:
     """``w ← w·factor`` (or ``/``) computed in f32, in place."""
     if w.dtype == torch.float32:
@@ -257,16 +343,20 @@ def _scale_(w: torch.Tensor, factor: torch.Tensor, divide: bool) -> None:
         w.copy_((wf / factor if divide else wf * factor).to(w.dtype))
 
 
-def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
-    """Scale the group's weight rows (and its row compensations) by s and
-    fuse 1/s into the provider (nothing for a ``"none"`` provider)."""
-    if group.provider.kind == "none":
-        return
-    dev = tget(layer, group.weights[0]).device
-    st = torch.from_numpy(s).to(dev)
+def scale_rows(layer, group: Group, s: np.ndarray) -> None:
+    """``W ← diag(s) W`` for the group's weights (and row compensations) of
+    one layer, in place."""
+    st = torch.from_numpy(s).to(tget(layer, group.weights[0]).device)
     for wp in group.weights + group.row_compensations:
         w = tget(layer, wp)
         _scale_(w, _align(st, w), divide=False)
+
+
+def fuse_provider(root, cfg: ModelConfig, group: Group, s: np.ndarray
+                  ) -> None:
+    """Divide the provider at ``group.provider.path`` from ``root`` by s, in
+    place (the layer's dict; the params' root for a ``layer_reduce``
+    group)."""
     s_prov = s
     if group.tie == "kv":
         # s is constant over each KV head's query group; the provider (wv)
@@ -275,31 +365,46 @@ def apply_group(layer, cfg: ModelConfig, group: Group, s: np.ndarray) -> None:
         dh = s.shape[-1] // (hkv * grp)
         s_prov = np.ascontiguousarray(
             s.reshape(hkv, grp, dh)[:, 0, :].reshape(hkv * dh))
+    node = tget(root, group.provider.path)
+    dev = (node["scale"] if group.provider.kind == "norm" else node).device
     sp = torch.from_numpy(s_prov).to(dev)
     if group.provider.kind == "norm":
-        nrm = tget(layer, group.provider.path)
         for leaf in ("scale", "bias"):
-            if leaf in nrm:
-                _scale_(nrm[leaf], sp, divide=True)
+            if leaf in node:
+                _scale_(node[leaf], sp, divide=True)
     elif group.provider.kind in ("linear_out", "linear_out_sqrt"):
         # columns of [*lead, Ci, Co] (per expert for stacked weights); the
         # sqrt form: relu(k / √s)² = relu(k)² / s needs √s > 0
         if group.provider.kind == "linear_out_sqrt":
             assert (s > 0).all(), "linear_out_sqrt needs s > 0"
             sp = torch.from_numpy(np.sqrt(s_prov)).to(dev)
-        w = tget(layer, group.provider.path)
-        _scale_(w, sp.reshape(*sp.shape[:-1], *([1] * (w.ndim - 1 - sp.ndim)),
-                              1, sp.shape[-1]), divide=True)
+        _scale_(node, sp.reshape(*sp.shape[:-1],
+                                 *([1] * (node.ndim - 1 - sp.ndim)), 1,
+                                 sp.shape[-1]), divide=True)
     elif group.provider.kind == "linear_out_mla_v":
         # wkv_b[r, H·(nope+v)]: divide only each head's v columns by
         # s[H·v]; its key columns feed the scores, not wo
         m, h = cfg.mla, cfg.num_heads
-        w = tget(layer, group.provider.path)
-        wv = w.view(w.shape[0], h, m.qk_nope_head_dim + m.v_head_dim)[
-            ..., m.qk_nope_head_dim:]
+        wv = node.view(node.shape[0], h, m.qk_nope_head_dim
+                       + m.v_head_dim)[..., m.qk_nope_head_dim:]
         _scale_(wv, sp.reshape(h, m.v_head_dim), divide=True)
     else:
         raise ValueError(group.provider.kind)
+
+
+def apply_block(params, cfg: ModelConfig, group: Group, layers_s) -> None:
+    """Smooth the group over its block: scale each ``(layer, s)``'s rows and
+    fuse 1/s into the provider, per layer, or once from the root for a
+    ``layer_reduce`` group (one unstacked provider: dividing it per layer
+    would compound s).  Nothing for a ``"none"`` provider."""
+    if group.provider.kind == "none":
+        return
+    for layer, s in layers_s:
+        scale_rows(layer, group, s)
+        if not group.layer_reduce:
+            fuse_provider(layer, cfg, group, s)
+    if group.layer_reduce and layers_s:
+        fuse_provider(params, cfg, group, layers_s[0][1])
 
 
 def stack_block(params, block: str, per_layer: List[np.ndarray]
@@ -325,15 +430,9 @@ def smooth_model(params, cfg: ModelConfig, col: StatsCollector, alpha: float
     reference."""
     s_map: Dict[str, np.ndarray] = {}
     for g in smoothing_groups(cfg):
-        layers = block_layers(params, g.block)
+        layers = block_s(params, cfg, col, g, alpha)
         if not layers:
             continue        # block absent (no hybrid tail in this layout)
-        ss = []
-        for lidx, layer in layers:
-            s = compute_group_s(
-                layer, cfg, layer_stats(col, g.block, lidx, g.stats_sub), g,
-                alpha)
-            apply_group(layer, cfg, g, s)
-            ss.append(s)
-        s_map[g.name] = stack_block(params, g.block, ss)
+        apply_block(params, cfg, g, [(lp, s) for lp, _, s in layers])
+        s_map[g.name] = stack_block(params, g.block, [s for _, _, s in layers])
     return params, s_map

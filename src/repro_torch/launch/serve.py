@@ -21,7 +21,11 @@ decoders ``llama3.2-3b``, ``mistral-large-123b``, ``chatglm3-6b``
 (MLA, shared experts) and ``zamba2-7b`` (Mamba2 + weight-shared attention:
 its slots carry fixed-rows SSM state, so the token prefix cache is off, as
 the ``[note]`` line says, and the pager line counts the fixed-rows bytes
-swapped); each serves on the CPU with ``--arch ID --smoke --device cpu``.
+swapped) and ``whisper-medium`` (the encoder-decoder: each request carries
+the reference's synthetic frames, 6-10 rows, every third repeating
+request 0's audio, so the ``encoder pages`` line counts exact-match hits;
+the token prefix cache is off for it too); each serves on the CPU with
+``--arch ID --smoke --device cpu``.
 ``rwkv6-7b`` has no paged serving path: the engine's constructor refuses
 it with ``UnsupportedModelError`` (run it through
 ``models/api.py``'s ``prefill_fn`` / ``decode_fn``).  ``--num-pages`` below the default
@@ -59,6 +63,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import QuantConfig
+from repro_torch.core.apply import report_key
 from repro_torch.core.calibration import (collect_stats,
                                           synthetic_calibration_set)
 from repro_torch.core.smoothing import smoothing_groups
@@ -87,6 +92,15 @@ def chaos_plan(seed: int = 0) -> FaultPlan:
         FaultSpec("fixed_drain", op=0, times=1),
         FaultSpec("enc_evict", op=1, times=1),
     ], seed=seed)
+
+
+def synthetic_frames(i: int, d_model: int) -> np.ndarray:
+    """Request ``i``'s encoder frames, the JAX CLI's: 6-10 rows of N(0,
+    0.1²) from seed 1000 + i; every third request repeats request 0's audio,
+    so the exact-match encoder-page cache has something to share."""
+    r = np.random.default_rng(1000 + (0 if i % 3 == 0 else i))
+    t = 6 + (0 if i % 3 == 0 else i % 5)
+    return (r.standard_normal((t, d_model)) * 0.1).astype(np.float32)
 
 
 def _sync(device) -> None:
@@ -203,7 +217,7 @@ def main(argv=None, *, attn_impl=None) -> dict:
               f"in {ptq_s:.1f}s")
         flags = rep.a8_eligibility
         groups = smoothing_groups(cfg)
-        n_groups = sum(flags[f"{g.block}/{'/'.join(g.weights[0])}"]
+        n_groups = sum(flags[report_key(g.block, g.weights[0])]
                        for g in groups)
         print(f"[w4a8] act_quant={args.act_quant}; A8-eligible groups "
               f"{n_groups}/{len(groups)}, weight paths "
@@ -213,7 +227,8 @@ def main(argv=None, *, attn_impl=None) -> dict:
 
     fault_plan = chaos_plan(args.fault_seed) if args.chaos else None
     # the token prefix cache is attention-only: a hybrid slot's fixed rows
-    # cannot be captured by KV pages
+    # cannot be captured by KV pages, and cross attention depends on the
+    # encoder input
     leaves = api.state_leaves(cfg)
     prefix_cache = args.prefix_cache == "on" and leaves == (api.KV_PAGES,)
     if args.prefix_cache == "on" and not prefix_cache:
@@ -237,7 +252,9 @@ def main(argv=None, *, attn_impl=None) -> dict:
                                              ).astype(np.int32)]),
                     max_tokens=args.max_tokens,
                     deadline_s=args.deadline_s,
-                    ttft_deadline_s=args.ttft_deadline_s)
+                    ttft_deadline_s=args.ttft_deadline_s,
+                    frames=synthetic_frames(i, cfg.d_model)
+                    if eng.has_enc else None)
             for i, n in enumerate(lens)]
     # Poisson arrival offsets, drawn after the prompts, rebased on the
     # engine's clock at submit time: deadlines count from arrival
@@ -285,6 +302,9 @@ def main(argv=None, *, attn_impl=None) -> dict:
           f"state, {st['swapped_in_bytes'] / 1e6:.1f}MB back in); "
           f"free={pg['free_pages']}/{pg['total_pages']} "
           f"counts={pg['counts']}")
+    if eng.has_enc:
+        print(f"encoder pages: {st['enc_encodes']} encodes, "
+              f"{st['enc_hits']} exact-match hits")
     if prefix_cache:
         hit = st["prefix_hits"] / max(st["admitted"], 1)
         print(f"prefix-cache: hit-rate {hit:.0%} "

@@ -1,4 +1,4 @@
-"""Model facade, decoder-only subset (port of ``repro/models/api.py``).
+"""Model facade (port of ``repro/models/api.py``).
 
 ``init_model`` defaults to the GPU and raises when there is no card; pass
 ``device="cpu"`` explicitly to build on the CPU.  ``prefill_fn`` /
@@ -11,9 +11,12 @@ and return beside the pools.  The swap helpers (:func:`gather_pool_rows`,
 :func:`scatter_pool_rows`, :func:`gather_fixed_rows`,
 :func:`scatter_fixed_rows`, :func:`swap_image_checksum`) move a preempted
 slot's rows, and :func:`copy_pool_page` gives a prefix-cache hit its
-copy-on-write page.  Still to port from the reference facade: the
-encoder-decoder leaf (``shared_ro``, ``encode_kv_fn``; ROADMAP.md).  Its
-training loss and shape specs are not ported.
+copy-on-write page.  An encoder-decoder config (``cfg.encdec``: Whisper,
+``models/whisper.py``) takes its frame embeddings as ``batch["frames"]``
+and owns a third leaf, refcounted read-only encoder pages
+(:func:`encode_kv_fn` computes their rows at admission); its paged entry
+points take the slot's encoder page table and valid length.  The
+reference's training loss and shape specs are not ported.
 """
 from __future__ import annotations
 
@@ -25,19 +28,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as LM
+from repro_torch.models import whisper as W
 
 
 # State-leaf kinds a slot can own (the reference's names):
 #   kv_pages   read-write paged KV (attention / MLA / hybrid shared attention)
 #   fixed_rows per-layer O(1) SSM state rows, swapped alongside KV pages
-# The reference's third kind, shared_ro (encoder cross-attention pages),
-# comes with the encoder-decoder port.
+#   shared_ro  refcounted read-only pages (encoder cross-attention K/V)
 KV_PAGES = "kv_pages"
 FIXED_ROWS = "fixed_rows"
+SHARED_RO = "shared_ro"
 
 
 def state_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
     """Which state-leaf kinds a slot of this config owns."""
+    if cfg.encdec:
+        return (KV_PAGES, SHARED_RO)
     if cfg.family == "hybrid":
         return (KV_PAGES, FIXED_ROWS)
     return (KV_PAGES,)
@@ -55,12 +61,18 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return LM.init_lm(gen, cfg.check())
+    if cfg.check().encdec:
+        return W.init_whisper(gen, cfg)
+    return LM.init_lm(gen, cfg)
 
 
 def forward_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """Teacher-forced logits ``[B, T, V]`` f32 of ``batch["tokens"]`` (plus
-    the VLM stub's ``batch["embeds"]`` where given)."""
+    the VLM stub's ``batch["embeds"]``, or the encoder-decoder's
+    ``batch["frames"]``, where given)."""
+    if cfg.encdec:
+        return W.whisper_forward(params, batch["frames"], batch["tokens"],
+                                 cfg)
     return LM.lm_forward(params, batch["tokens"], cfg,
                          embeds=batch.get("embeds"))
 
@@ -73,7 +85,11 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     r], "kpe": [num_pages, page_size, dr]}``; ``cfg.tdtype``, or int8 codes
     under ``cfg.kv_quant`` with f32 row scales ``{"k_s", "v_s"}`` of
     ``[num_pages, page_size, Hkv]`` (GQA) / ``{"ckv_s", "kpe_s"}`` of
-    ``[num_pages, page_size]`` (MLA)."""
+    ``[num_pages, page_size]`` (MLA).  An encoder-decoder's cache also
+    holds the read-only encoder pool ``{"enc": {"xk", "xv": [L,
+    num_pages, page_size, Hkv, Dh]}}``."""
+    if cfg.encdec:
+        return W.init_whisper_paged_cache(cfg, num_pages, page_size, device)
     return LM.init_paged_cache(cfg, num_pages, page_size, device)
 
 
@@ -81,7 +97,13 @@ def prefill_fn(params, batch, cfg: ModelConfig, smax: int, *, last_idx=None):
     """Prefill ``batch["tokens"]`` into a fresh contiguous cache padded to
     ``smax``: (last-token logits [B, V], cache).  The reference's
     ``raw_cache`` option is not ported: nothing here scatters a raw prefix
-    cache into pools."""
+    cache into pools.  An encoder-decoder encodes ``batch["frames"]``
+    first; it takes no ``last_idx``, as in the reference."""
+    if cfg.encdec:
+        if last_idx is not None:
+            raise NotImplementedError("bucketed prefill is decoder-only")
+        return W.whisper_prefill(params, batch["frames"], batch["tokens"],
+                                 cfg, smax)
     return LM.lm_prefill(params, batch["tokens"], cfg, smax,
                          last_idx=last_idx, embeds=batch.get("embeds"))
 
@@ -89,12 +111,20 @@ def prefill_fn(params, batch, cfg: ModelConfig, smax: int, *, last_idx=None):
 def decode_fn(params, batch, cache, cfg: ModelConfig):
     """One step of ``batch["token"]`` at ``batch["position"]`` against the
     contiguous cache: (logits [B, V], cache)."""
+    if cfg.encdec:
+        return W.whisper_decode(params, batch["token"], cache,
+                                batch["position"], cfg)
     return LM.lm_decode(params, batch["token"], cache, batch["position"],
                         cfg)
 
 
-def init_decode_cache(cfg: ModelConfig, batch: int, smax: int, device="cuda"):
-    """An empty contiguous decode cache (``models/lm.py:init_cache``)."""
+def init_decode_cache(cfg: ModelConfig, batch: int, smax: int,
+                      device="cuda"):
+    """An empty contiguous decode cache (``models/lm.py:init_cache``; an
+    encoder-decoder's holds ``smax`` cross K/V rows a layer)."""
+    if cfg.encdec:
+        return W.init_whisper_cache(cfg, batch, smax, smax,
+                                    resolve_device(device))
     return LM.init_cache(cfg, batch, smax, resolve_device(device))
 
 
@@ -105,12 +135,27 @@ def init_fixed_state(cfg: ModelConfig, batch: int, device):
     return LM.init_fixed_state(cfg, batch, device)
 
 
+def encode_kv_fn(params, frames, cfg: ModelConfig):
+    """The encoder pass and every decoder layer's cross K/V rows
+    (``{"xk"/"xv": [L, B, T_enc, Hkv, Dh]}``), for admission into the
+    read-only encoder pool."""
+    if not cfg.encdec:
+        raise NotImplementedError("encoder K/V is enc-dec only")
+    return W.whisper_enc_kv(params, frames, cfg)
+
+
 def prefill_chunk_fn(params, batch, cache, table_rows, start_len, chunk_len,
                      cfg: ModelConfig, *, last_idx=None, fixed=None,
-                     slots=None):
+                     slots=None, enc_table=None, enc_len=None):
     """One prompt chunk per slot into the paged pools: (logits, pools); a
     hybrid config also takes the fixed-rows tree and the bucket's
-    ``slots`` and returns (logits, pools, fixed)."""
+    ``slots`` and returns (logits, pools, fixed); an encoder-decoder takes
+    the rows' encoder page table ``enc_table[B, P]`` and valid encoder
+    rows ``enc_len[B]``."""
+    if cfg.encdec:
+        return W.whisper_prefill_chunk(
+            params, batch["tokens"], cache, start_len, chunk_len, table_rows,
+            enc_table, enc_len, cfg, last_idx=last_idx)
     if cfg.family == "hybrid":
         return LM.hybrid_prefill_chunk(
             params, batch["tokens"], cache, fixed, slots, start_len,
@@ -120,10 +165,16 @@ def prefill_chunk_fn(params, batch, cache, table_rows, start_len, chunk_len,
 
 
 def decode_paged_fn(params, batch, cache, table_rows, cfg: ModelConfig, *,
-                    fixed=None, active=None):
+                    fixed=None, active=None, enc_table=None, enc_len=None):
     """One decode step against the paged pools: (logits, pools); a hybrid
     config also takes the fixed-rows tree and ``active[B]`` (rows not
-    decoding keep their state) and returns (logits, pools, fixed)."""
+    decoding keep their state) and returns (logits, pools, fixed); an
+    encoder-decoder takes ``enc_table`` / ``enc_len`` as
+    :func:`prefill_chunk_fn` does."""
+    if cfg.encdec:
+        return W.whisper_decode_paged(
+            params, batch["token"], cache, batch["position"], table_rows,
+            enc_table, enc_len, cfg)
     if cfg.family == "hybrid":
         return LM.hybrid_decode_paged(
             params, batch["token"], cache, fixed, batch["position"],
@@ -136,7 +187,9 @@ def gather_pool_rows(pools, pages: torch.Tensor):
     """Whole pool pages for a slot swap-out: ``pages[n]`` (int64, on the
     pools' device) → ``{"layers": [{leaf: [n, page_size, ...]}, ...]}``, a
     copy of every leaf of every layer (K/V, MLA latents, int8 codes and
-    their f32 scales alike)."""
+    their f32 scales alike).  This helper, :func:`scatter_pool_rows` and
+    :func:`copy_pool_page` walk ``pools["layers"]`` only: an
+    encoder-decoder's read-only encoder pool never rides a swap image."""
     return {"layers": [{k: leaf.index_select(0, pages)
                         for k, leaf in lp.items()}
                        for lp in pools["layers"]]}

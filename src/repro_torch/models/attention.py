@@ -120,7 +120,7 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, *, causal: bool = True
     return y, {"k": k, "v": v, "lens": lens}
 
 
-def _attend_rows(qh, k_rows, v_rows, valid, scale, k_s=None, v_s=None):
+def attend_rows(qh, k_rows, v_rows, valid, scale, k_s=None, v_s=None):
     """One-token attention of qh[B,Hkv,grp,Dh] against k/v[B,S,Hkv,D*].
     With int8 rows, ``k_s``/``v_s[B,S,Hkv]`` scale the score and the
     probability rows (no dense dequantized copy)."""
@@ -149,7 +149,7 @@ def gqa_decode(p, x, positions, cache, cfg: ModelConfig):
     _store_rows(cache, "v", idx, v[:, 0], cfg.kv_quant)
     kpos = torch.arange(cache["k"].shape[1], device=x.device)
     valid = kpos[None, :] <= slot[:, None]
-    out = _attend_rows(q.reshape(b, hkv, h // hkv, dh), cache["k"],
+    out = attend_rows(q.reshape(b, hkv, h // hkv, dh), cache["k"],
                        cache["v"], valid, dh ** -0.5, cache.get("k_s"),
                        cache.get("v_s"))
     cache["lens"] += 1
@@ -171,6 +171,22 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, smax: int, device):
             cache[name] = torch.zeros(shp[:3], dtype=torch.float32,
                                       device=device)
     return cache
+
+
+def pad_kv(slab, new, cfg: ModelConfig):
+    """Write a prefill's raw KV (``[B, T, Hkv, Dh]``) into the smax slab in
+    place: under ``kv_quant`` as int8 codes + row scales (the codes the
+    paged admission writes)."""
+    t = new["k"].shape[1]
+    for key in ("k", "v"):
+        if cfg.kv_quant:
+            codes, scl = kv_quantize_rows(new[key])
+            slab[key][:, :t] = codes
+            slab[key + "_s"][:, :t] = scl
+        else:
+            slab[key][:, :t] = new[key].to(slab[key].dtype)
+    slab["lens"].copy_(new["lens"])
+    return slab
 
 
 # ------------------------------------------------------------------ paged ---
@@ -294,7 +310,7 @@ def gqa_decode_paged(p, x, positions, pool, table_rows, write_pos,
         v_rows = gather_pages(pool["v"], table_rows)
         valid = torch.arange(k_rows.shape[1], device=x.device)[None, :] \
             <= wp[:, None]
-        out = _attend_rows(
+        out = attend_rows(
             qh, k_rows, v_rows, valid, scale,
             gather_pages(pool["k_s"], table_rows) if cfg.kv_quant else None,
             gather_pages(pool["v_s"], table_rows) if cfg.kv_quant else None)

@@ -7,7 +7,8 @@ quantized-weight objects with ``packed`` / ``scales`` / ``zeros``.  The
 ``[L, ...]`` layer stacks under ``"layers"`` (and the hybrid stack's
 ``"tail"``) become one dict per layer, the hybrid's ``[g, k, ...]``
 ``"groups"`` a list of g lists of k dicts; its weight-shared ``"shared"``
-block stays one dict.  A quantized weight keeps its ``a8`` flag (one per
+block stays one dict.  An encoder-decoder's ``"enc"`` and ``"dec"``
+subtrees are converted the same way, each with its own ``"layers"``.  A quantized weight keeps its ``a8`` flag (one per
 stack in the reference, so the same on every layer of the stack).  :func:`to_reference` is its inverse, the layout
 of a PTQ artifact (``repro_torch.checkpoint.manager``).
 bfloat16 arrays go through f32, which loses nothing; packed bytes keep the
@@ -53,6 +54,8 @@ def _convert(node, device, index=None) -> Any:
 
 # the stacked blocks and how many leading layer axes each has
 STACKS = {"layers": 1, "tail": 1, "groups": 2}
+# subtrees laid out like a whole model (the encoder-decoder's two sides)
+SIDES = ("enc", "dec")
 
 
 def _lead_shape(node, n: int):
@@ -65,7 +68,9 @@ def from_reference(tree, device="cpu"):
     """Reference param tree (numpy leaves) → port params on ``device``."""
     out = {}
     for k, v in tree.items():
-        if k not in STACKS:
+        if k in SIDES:
+            out[k] = from_reference(v, device)
+        elif k not in STACKS:
             out[k] = _convert(v, device)
         elif STACKS[k] == 1:
             out[k] = [_convert(v, device, i)
@@ -107,7 +112,9 @@ def to_reference(params):
     of :func:`from_reference`."""
     out = {}
     for k, v in params.items():
-        if k not in STACKS:
+        if k in SIDES:
+            out[k] = to_reference(v)
+        elif k not in STACKS:
             out[k] = _host(v)
         elif STACKS[k] == 1:
             out[k] = _stack(v)

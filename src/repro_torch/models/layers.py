@@ -6,7 +6,7 @@ QuantizedTensor, ...}``; :func:`apply_linear` dispatches on the leaf type,
 so the same model code serves the fp and W4A16 paths.  A norm is RMSNorm
 ``{"scale"}`` or LayerNorm ``{"scale", "bias"}``; RoPE comes in the
 reference's ``standard``, ``2d`` (ChatGLM) and ``mrope`` (Qwen2-VL)
-variants.  Norms, biases, GELU and RoPE are plain PyTorch ops: the
+variants, and ``none`` (the encoder-decoder adds sinusoids instead).  Norms, biases, GELU and RoPE are plain PyTorch ops: the
 reference computes them outside any Pallas kernel.
 """
 from __future__ import annotations
@@ -122,6 +122,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     Dh/8), each turned by its own stream (text positions: three equal
     streams, which is the standard rotation)."""
     dh = x.shape[-1]
+    if variant == "none":
+        return x
     if variant == "standard":
         inv = rope_freqs(dh, theta, x.device)
         ang = positions.to(torch.float32)[..., None] * inv  # [B, T, Dh/2]

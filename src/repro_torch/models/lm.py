@@ -271,22 +271,6 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device) -> Any:
                        for _ in range(cfg.num_layers)]}
 
 
-def _pad_kv(slab, new, cfg: ModelConfig):
-    """Write a prefill's raw KV (``[B, T, Hkv, Dh]``) into the smax slab in
-    place: under ``kv_quant`` as int8 codes + row scales (the codes the
-    paged admission writes)."""
-    t = new["k"].shape[1]
-    for key in ("k", "v"):
-        if cfg.kv_quant:
-            codes, scl = A.kv_quantize_rows(new[key])
-            slab[key][:, :t] = codes
-            slab[key + "_s"][:, :t] = scl
-        else:
-            slab[key][:, :t] = new[key].to(slab[key].dtype)
-    slab["lens"].copy_(new["lens"])
-    return slab
-
-
 def lm_prefill(p: Params, tokens: torch.Tensor, cfg: ModelConfig, smax: int,
                *, embeds=None, last_idx=None) -> Tuple[torch.Tensor, Any]:
     """Process a prompt and build the contiguous decode cache padded to
@@ -313,7 +297,7 @@ def lm_prefill(p: Params, tokens: torch.Tensor, cfg: ModelConfig, smax: int,
             groups.append(sts)
             x, new = _block_forward(p["shared"], x, positions, scfg,
                                     mixer="attention", state=True)
-            _pad_kv(cache["shared"][gi], new, cfg)
+            A.pad_kv(cache["shared"][gi], new, cfg)
         cache["groups"] = groups
         if "tail" in p:
             cache["tail"] = []
@@ -328,7 +312,7 @@ def lm_prefill(p: Params, tokens: torch.Tensor, cfg: ModelConfig, smax: int,
     layers = []
     for i, lp in enumerate(p["layers"]):
         x, new = _block_forward(lp, x, positions, cfg, state=True)
-        layers.append(new if slabs is None else _pad_kv(slabs[i], new, cfg))
+        layers.append(new if slabs is None else A.pad_kv(slabs[i], new, cfg))
     return _head_at(p, x, last_idx, cfg), {"layers": layers}
 
 

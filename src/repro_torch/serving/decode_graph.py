@@ -12,12 +12,18 @@ Capture happens at the first decode step, after one eager warm-up on a side
 stream that fills the lazy state the step reads (the built kernel libraries,
 the rope tables, the SM count).  During warm-up and capture every row points
 at the trash page (position 0, token 0), so their dummy writes land in page 0
-only.  A hybrid stack's step also reads an ``active[B]`` mask (filled the
-same way before each replay) and updates the fixed-rows state it holds in
+only.  The state leaves add named inputs, filled the same way before each
+replay and all zero during warm-up and capture.  A hybrid stack's step
+reads an ``active[B]`` mask and updates the fixed-rows state it holds in
 place; an SSM recurrence has no trash page, so warm-up and capture run with
-every row inactive and leave every slot's state as it was.  A replay runs no Python, so the wrappers' launch counters see the
-capture only: the graph takes back the warm-up's and the capture's launches
-and adds the launches of one step at every replay.
+every row inactive and leave every slot's state as it was.  An
+encoder-decoder's step reads each row's encoder page table and valid
+encoder rows (``enc_table[B, P]``, ``enc_len[B]``); warm-up and capture
+point them at the trash page with 0 rows, which the model clamps to one
+masked zero row, so the softmax stays finite.  A replay runs no Python, so
+the wrappers' launch counters see the capture only: the graph takes back
+the warm-up's and the capture's launches and adds the launches of one step
+at every replay.
 """
 from __future__ import annotations
 
@@ -41,19 +47,20 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 class DecodeGraph:
     """One captured decode step: ``step(token[B, 1], position[B],
-    table[B, P][, active[B]])`` → logits ``[B, V]``, writing the pools (and
-    a hybrid stack's fixed rows) in place."""
+    table[B, P], *extra)`` → logits ``[B, V]``, writing the pools (and a
+    hybrid stack's fixed rows) in place.  ``extra`` maps each further input's
+    name to its (shape, dtype), in the step's argument order."""
 
     def __init__(self, step: Callable, batch: int, pages: int,
-                 device: torch.device, active: bool = False):
+                 device: torch.device, extra: dict):
         self.step = step
         self.device = device
         self.token = torch.zeros(batch, 1, dtype=torch.int32, device=device)
         self.position = torch.zeros(batch, dtype=torch.int32, device=device)
         self.table = torch.zeros(batch, pages, dtype=torch.int32,
                                  device=device)
-        self.active = (torch.zeros(batch, dtype=torch.bool, device=device)
-                       if active else None)
+        self.extra = {n: torch.zeros(shape, dtype=dt, device=device)
+                      for n, (shape, dt) in extra.items()}
         self._host = [torch.zeros(t.shape, dtype=t.dtype, pin_memory=True)
                       for t in self.inputs]
         self._copied: Optional[torch.cuda.Event] = None  # host copies read
@@ -65,16 +72,16 @@ class DecodeGraph:
     @property
     def inputs(self) -> tuple:
         """The graph's input tensors, in the step's argument order."""
-        base = (self.token, self.position, self.table)
-        return base if self.active is None else base + (self.active,)
+        return (self.token, self.position, self.table,
+                *self.extra.values())
 
     def _capture(self) -> None:
         before = K.launch_counts()
         self.token.zero_()
         self.position.zero_()
         self.table.fill_(TRASH_PAGE)
-        if self.active is not None:
-            self.active.zero_()
+        for t in self.extra.values():   # no row active, page 0 (the trash
+            t.zero_()                   # page), 0 encoder rows
         cur = torch.cuda.current_stream(self.device)
         side = _side_stream(self.device)
         side.wait_stream(cur)
@@ -90,18 +97,16 @@ class DecodeGraph:
         K.add_launch_counts({n: before[n] - after[n] for n in after})
         self.graph = graph
 
-    def __call__(self, token: np.ndarray, position: np.ndarray,
-                 table: np.ndarray,
-                 active: Optional[np.ndarray] = None) -> torch.Tensor:
-        """Replay the step on these inputs (capturing it first on the first
-        call); the logits stay valid until the next call."""
+    def __call__(self, *arrays: np.ndarray) -> torch.Tensor:
+        """Replay the step on these host inputs, in :attr:`inputs` order
+        (capturing it first on the first call); the logits stay valid until
+        the next call."""
         if self.graph is None:
             self._capture()
         if self._copied is not None:
             self._copied.synchronize()    # the last step's copies are done
-        arrays = (token, position, table) + (
-            () if self.active is None else (active,))
-        for host, dev, a in zip(self._host, self.inputs, arrays):
+        for host, dev, a in zip(self._host, self.inputs, arrays,
+                                strict=True):
             host.numpy()[...] = a
             dev.copy_(host, non_blocking=True)
         self._copied = torch.cuda.Event()

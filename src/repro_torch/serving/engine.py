@@ -58,14 +58,21 @@ hybrid SSM stack (Zamba2), fixed rows of per-layer Mamba2 state ``[M, B,
 previous occupant's rows are stale and, unlike KV pages, cannot be masked
 off), frozen for rows that do not decode (the decode step's ``active``
 mask), and swapped in the same host image as the slot's private KV rows
-(one CRC; the ``fixed_drain`` fault site).  A hybrid engine refuses the
-prefix cache: KV pages cannot capture an SSM boundary state.  A config
-with no paged path (RWKV6) raises :class:`UnsupportedModelError` at
-construction.
+(one CRC; the ``fixed_drain`` fault site).  An encoder-decoder slot
+(Whisper) owns read-only encoder pages (``shared_ro``) in the pager's
+``"enc"`` group: at admission the request's frames are hashed
+(``PrefixCache.data_hashes``, the reference's bytes) and an exact match
+attaches the resident pages of an earlier request with the same audio;
+otherwise the encoder runs once and its cross K/V rows are scattered into
+fresh pages, which are indexed for the next one (the ``enc_evict`` fault
+site).  Those pages never enter a swap image: preemption detaches them
+under swap holds and resume reattaches them.  A hybrid or encoder-decoder
+engine refuses the token prefix cache: KV pages cannot capture an SSM
+boundary state, and cross attention depends on the encoder input.  A
+config with no paged path (RWKV6) raises :class:`UnsupportedModelError`
+at construction.
 
-Still to port (ROADMAP.md): the encoder-decoder state leaf (with the
-``enc_evict`` fault site and the exact-match encoder-page cache), and
-per-bucket prefill graphs.
+Still to port (ROADMAP.md): per-bucket prefill graphs.
 
 The engine runs on the GPU by default and raises when there is no card;
 ``device="cpu"`` runs the kernels' plain versions.
@@ -117,7 +124,8 @@ class UnsupportedModelError(NotImplementedError):
 
 class RejectedRequest(ValueError):
     """Raised by :meth:`ServingEngine.submit` for an invalid request (empty
-    prompt, ``max_tokens <= 0``, over-long prompt), after marking it
+    prompt, ``max_tokens <= 0``, over-long prompt, missing or malformed
+    encoder frames, frames on a decoder-only config), after marking it
     ``finish_reason="rejected"``.  Bounded-queue backpressure does not
     raise: a full queue returns False."""
 
@@ -133,6 +141,7 @@ class Request:
     arrival_t: float = 0.0
     deadline_s: Optional[float] = None       # total wall budget from arrival
     ttft_deadline_s: Optional[float] = None  # first-token budget from arrival
+    frames: Optional[np.ndarray] = None      # [T_enc, d_model] (enc-dec only)
     # filled by the engine:
     output: List[int] = dataclasses.field(default_factory=list)
     first_token_t: Optional[float] = None
@@ -149,6 +158,8 @@ class Request:
     _gen_in_prompt: int = 0
     # the prompt's chain hashes, memoized by the scheduler's first match
     _block_hashes: Optional[List[bytes]] = None
+    # the frames' encoder-page hashes, memoized at the first admission
+    _enc_hashes: Optional[List[bytes]] = None
 
 
 @dataclasses.dataclass
@@ -156,7 +167,9 @@ class _SwapState:
     """Host image of a preempted slot: everything needed to resume it bit
     for bit without re-prefilling.  Shared and cached pages are not part of
     the image: they stay resident under a swap hold and resume re-acquires
-    them (``kept``); only private pages round-trip as rows."""
+    them (``kept``); only private pages round-trip as rows.  An enc-dec
+    slot's encoder pages carry no bytes: they stay detached under swap
+    holds (``enc_pages``) until resume reattaches them."""
     rows: Any                     # {"layers": [{leaf: [n, PS, ...]}]} (host)
     kept: List[Tuple[int, int]]   # (logical_idx, page) left resident
     private_lis: List[int]        # logical idxs of the swapped rows
@@ -170,6 +183,8 @@ class _SwapState:
     on_host: bool = False         # drained: device buffer freed, CRC taken
     checksum: Optional[int] = None  # CRC-32 of the host image (drain time)
     corrupted: bool = False       # injected rot applied (flip once only)
+    enc_pages: Optional[List[int]] = None  # detached read-only encoder pages
+    enc_len: int = 0              # valid encoder rows to restore
 
 
 @dataclasses.dataclass
@@ -197,6 +212,9 @@ class EngineStats:
     pages_inserted: int = 0       # pages newly indexed by the cache
     pages_evicted: int = 0        # unreferenced cached pages reclaimed (LRU)
     cow_copies: int = 0           # copy-on-write page duplications
+    # encoder pages (enc-dec):
+    enc_hits: int = 0             # admissions reusing cached encoder pages
+    enc_encodes: int = 0          # admissions that ran the encoder
     # request lifecycle:
     rejected: int = 0             # refused at submit (validation/backpressure)
     expired: int = 0              # terminal by TTFT/total deadline
@@ -235,27 +253,42 @@ class ServingEngine:
         self.P = -(-max_seq // page_size)          # pages per slot
         self.S = self.P * page_size                # max_seq rounded to pages
         self.eos = eos_id
-        num_pages = num_pages or (batch_size * self.P + 1)
-        if num_pages - 1 < self.P:
-            raise ValueError(
-                f"num_pages={num_pages} cannot hold one max_seq request "
-                f"({self.P} pages of {page_size} tokens + trash page)")
-        self.pager = KV.PagePool(num_pages, page_size, batch_size, self.P)
         # which state leaves a slot of this config owns
         self.leaves = api.state_leaves(cfg)
         self.has_fixed = api.FIXED_ROWS in self.leaves
-        if prefix_cache and self.has_fixed:
+        self.has_enc = api.SHARED_RO in self.leaves
+        # +1: page 0 is the trash page.  An enc-dec slot also pages its
+        # encoder K/V (the "enc" group, at most P pages), so the default
+        # pool and the one-request floor double
+        slot_pages = self.P * (2 if self.has_enc else 1)
+        num_pages = num_pages or (batch_size * slot_pages + 1)
+        if num_pages - 1 < slot_pages:
+            raise ValueError(
+                f"num_pages={num_pages} cannot hold one max_seq request "
+                f"({slot_pages} pages of {page_size} tokens + trash page)")
+        self.pager = KV.PagePool(num_pages, page_size, batch_size, self.P,
+                                 groups=("kv", "enc") if self.has_enc
+                                 else ("kv",))
+        if prefix_cache and (self.has_fixed or self.has_enc):
             raise ValueError(
                 "prefix_cache=True is attention-only: KV pages cannot "
-                "capture an SSM boundary state (hybrid)")
+                "capture an SSM boundary state (hybrid) and cross-attention "
+                "depends on the encoder input (enc-dec); enc-dec engines "
+                "deduplicate encoder pages automatically instead")
         self.cache: Optional[PrefixCache] = (
             PrefixCache(self.pager, page_size,
                         mode=f"kvq={int(bool(cfg.kv_quant))}")
             if prefix_cache else None)
+        # the exact-match index over read-only encoder pages: requests with
+        # identical frames share one resident page set (the pool's evictor)
+        self.enc_cache: Optional[PrefixCache] = (
+            PrefixCache(self.pager, page_size, mode="enc")
+            if self.has_enc else None)
         self.pools = api.init_paged_cache(cfg, num_pages, page_size,
                                           self.device)
         self.fixed = (api.init_fixed_state(cfg, batch_size, self.device)
                       if self.has_fixed else None)
+        self.enc_len = np.zeros(batch_size, np.int32)  # valid encoder rows
         self.reservation = reservation
         self.sched = Scheduler(page_size=page_size, max_seq=self.S,
                                max_prefill_tokens=max_prefill_tokens,
@@ -282,8 +315,9 @@ class ServingEngine:
         self.retry_budget = retry_budget
         self.faults = fault_plan
         self.pager.faults = fault_plan
-        if self.cache is not None:
-            self.cache.faults = fault_plan
+        for c in (self.cache, self.enc_cache):
+            if c is not None:
+                c.faults = fault_plan
         self._clock = time.perf_counter     # swappable in tests (deadlines)
         self._step_idx = 0                  # all engine steps (idle included)
         self._retry_pending = False         # a fault ate the last step's work
@@ -322,15 +356,22 @@ class ServingEngine:
         # holds no reference to the engine, so dropping the engine frees
         # the graph and its memory at once.
         # A hybrid step also holds the fixed-rows tensors (updated in place)
-        # and reads an active[B] mask.
-        self._decode_step = (
-            functools.partial(hybrid_decode_step, params, self.pools,
-                              self.fixed, self.cfg) if self.has_fixed
-            else functools.partial(decode_step, params, self.pools,
-                                   self.cfg))
+        # and reads an active[B] mask; an enc-dec step reads the rows'
+        # encoder page tables and valid lengths.  These extra inputs
+        # follow token, position and table, by name, in this order.
+        extra = {}
+        if self.has_fixed:
+            extra["active"] = ((batch_size,), torch.bool)
+        if self.has_enc:
+            extra["enc_table"] = ((batch_size, self.P), torch.int32)
+            extra["enc_len"] = ((batch_size,), torch.int32)
+        self.step_extra = tuple(extra)
+        self._decode_step = functools.partial(
+            decode_step, params, self.pools, self.cfg, self.step_extra,
+            fixed=self.fixed)
         self.decode_graph = (
             DecodeGraph(self._decode_step, batch_size, self.P, self.device,
-                        active=self.has_fixed)
+                        extra)
             if self.device.type == "cuda" else None)
 
     # ----------------------------------------------------- observability ---
@@ -378,6 +419,25 @@ class ServingEngine:
             return self._reject(
                 req, f"prompt of {len(req.prompt)} tokens exceeds "
                      f"max_seq-1={self.S - 1}", raise_=True)
+        if self.has_enc:
+            if req.frames is None:
+                return self._reject(
+                    req, "enc-dec config: request must carry encoder frames",
+                    raise_=True)
+            fr = np.asarray(req.frames)
+            if fr.ndim != 2 or fr.shape[0] < 1 \
+                    or fr.shape[1] != self.cfg.d_model:
+                return self._reject(
+                    req, f"frames must be [T_enc>=1, {self.cfg.d_model}], "
+                         f"got {fr.shape}", raise_=True)
+            if fr.shape[0] > self.S:
+                return self._reject(
+                    req, f"{fr.shape[0]} encoder frames exceed the "
+                         f"{self.S}-row page budget", raise_=True)
+            req.frames = fr
+        elif req.frames is not None:
+            return self._reject(
+                req, "frames on a decoder-only config", raise_=True)
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             return self._reject(
                 req, f"queue full ({self.max_queue} waiting)", raise_=False)
@@ -418,6 +478,8 @@ class ServingEngine:
         if st is not None:
             for _, p in st.kept:
                 self.pager.drop_hold(p)
+            if st.enc_pages:
+                self.pager.drop_group_holds(st.enc_pages)
         req.finish_reason = reason
         req.error = error
         req.done_t = self._clock()
@@ -434,6 +496,7 @@ class ServingEngine:
         req = self.slots[slot]
         self.slots[slot] = None
         self.pos[slot] = self.last_tok[slot] = self.pref_target[slot] = 0
+        self.enc_len[slot] = 0
         self.pager.free_slot(slot)
         self._finish_abnormal(req, reason, error)
 
@@ -510,7 +573,9 @@ class ServingEngine:
         rows are gathered and the device→host copy into pinned buffers is
         started without waiting; :meth:`_drain_swap_buffers` awaits it after
         the step's decode and frees the device gather buffer.  Shared and
-        cached pages stay in the pool under a swap hold."""
+        cached pages stay in the pool under a swap hold, as do an enc-dec
+        slot's encoder pages (detached, never in the image: the swap
+        helpers walk ``pools["layers"]`` only)."""
         req = self.slots[slot]
         kept, private = self.pager.split_for_swap(slot)
         dev = {}
@@ -526,12 +591,18 @@ class ServingEngine:
         rows, frows = host.get("kv"), host.get("fixed")
         nbytes = api.rows_nbytes(rows) if rows is not None else 0
         fbytes = api.rows_nbytes(frows) if frows is not None else 0
+        enc_pages, enc_len = None, 0
+        if self.has_enc:
+            enc_pages = self.pager.detach_group(slot, "enc")
+            enc_len = int(self.enc_len[slot])
+            self.enc_len[slot] = 0
         self.pager.swap_out(slot, (kept, private))
         self._swapped[req.submit_seq] = _SwapState(
             rows=rows, kept=kept, private_lis=[li for li, _ in private],
             pos=int(self.pos[slot]), last_tok=int(self.last_tok[slot]),
             nbytes=nbytes, fbytes=fbytes, fixed_rows=frows,
-            dev_rows=dev or None, copied=copied)
+            dev_rows=dev or None, copied=copied, enc_pages=enc_pages,
+            enc_len=enc_len)
         self.queue.appendleft(req)
         self.slots[slot] = None
         self.pos[slot] = self.last_tok[slot] = self.pref_target[slot] = 0
@@ -582,6 +653,9 @@ class ServingEngine:
             # same dtypes both ways: the restored state is bit-identical
             api.scatter_fixed_rows(self.fixed, st.fixed_rows,
                                    self._tensor([slot], torch.long))
+        if st.enc_pages is not None:
+            self.pager.reattach_group(slot, "enc", st.enc_pages)
+            self.enc_len[slot] = st.enc_len
         self.slots[slot] = req
         self.pos[slot] = st.pos
         self.last_tok[slot] = st.last_tok
@@ -663,6 +737,11 @@ class ServingEngine:
         self._swapped.pop(req.submit_seq)
         for _, p in st.kept:
             self.pager.drop_hold(p)
+        if st.enc_pages:
+            # the encoder pages never entered the image: dropping the holds
+            # leaves them indexed and evictable, and the re-admission's
+            # exact match normally attaches them again without encoding
+            self.pager.drop_group_holds(st.enc_pages)
         req.reprefills += 1
         self.stats.retries += 1
         self._retry_pending = True
@@ -739,6 +818,8 @@ class ServingEngine:
                     # before the first chunk
                     for leaf in self.fixed.values():
                         leaf[:, slot].zero_()
+                if self.has_enc:
+                    self._admit_enc(slot, req)
                 self.stats.admitted += 1
                 self.stats.prefix_matched_tokens += pfx
                 self.stats.prefix_hits += int(pfx > 0)
@@ -769,6 +850,40 @@ class ServingEngine:
                             key=lambda r: r.submit_seq)
             self.queue.clear()
             self.queue.extend(merged)
+
+    @torch.no_grad()
+    def _admit_enc(self, slot: int, req: Request) -> None:
+        """Fill ``slot``'s encoder pages at admission.  The plan allocated
+        fresh ones (the "enc" group); an exact-match hit frees them and
+        attaches the resident pages of the same frames, a miss runs the
+        encoder once, scatters its K/V rows (padded to whole pages) into
+        the fresh pages and indexes them for the next request with these
+        frames."""
+        fr = req.frames
+        npg = self.pager.pages_needed(len(fr))
+        if req._enc_hashes is None:
+            req._enc_hashes = self.enc_cache.data_hashes(fr, npg)
+        cached = self.enc_cache.match_exact(req._enc_hashes)
+        if cached:
+            self.pager.free_group(slot, "enc")
+            self.pager.attach(slot, cached, group="enc")
+            self.stats.enc_hits += 1
+            self.stats.pages_shared += len(cached)
+        else:
+            pages = self.pager.slot_pages(slot, "enc")
+            frames = torch.as_tensor(fr).to(self.device, self.cfg.tdtype)
+            kv = api.encode_kv_fn(self.params, frames[None], self.cfg)
+            idx = self._tensor(pages, torch.long)
+            pad = npg * self.PS - len(fr)
+            for k, pool in self.pools["enc"].items():
+                rows = torch.nn.functional.pad(kv[k][:, 0],
+                                               (0, 0, 0, 0, 0, pad))
+                pool.index_copy_(1, idx, rows.reshape(
+                    rows.shape[0], npg, self.PS, *rows.shape[2:]).to(
+                        pool.dtype))
+            self.enc_cache.insert_exact(req._enc_hashes, pages)
+            self.stats.enc_encodes += 1
+        self.enc_len[slot] = len(fr)
 
     def _drain_swap_buffers(self) -> None:
         """Finish the swap-out copies started this step: wait for each, free
@@ -824,14 +939,12 @@ class ServingEngine:
             for r, slot in enumerate(bkt.slots):
                 prompt = self.slots[slot].prompt
                 toks[r, :lens[r]] = prompt[starts[r]:starts[r] + lens[r]]
-            extra = ({"fixed": self.fixed,
-                      "slots": self._tensor(bkt.slots, torch.long)}
-                     if self.has_fixed else {})
             logits = api.prefill_chunk_fn(
                 self.params, {"tokens": self._tensor(toks)}, self.pools,
                 self._tensor(self.pager.table()[bkt.slots]),
                 self._tensor(starts), self._tensor(lens), self.cfg,
-                last_idx=self._tensor(lens - 1), **extra)[0]
+                last_idx=self._tensor(lens - 1),
+                **self._leaf_inputs(bkt.slots))[0]
             finals = [self.slots[s] if f else None
                       for s, f in zip(bkt.slots, bkt.final)]
             if any(bkt.final):
@@ -870,17 +983,44 @@ class ServingEngine:
 
     # -------------------------------------------------------------- step ---
     def _decode_inputs(self, dec: List[int]):
-        """The decode step's host inputs (token [B, 1], position [B], table
-        [B, P]) for decoding slots ``dec``: mid-prefill and empty rows ride
-        the launch like idle slots, their table rows pointing at the trash
-        page, which absorbs the dummy write."""
+        """The decode step's host inputs for decoding slots ``dec``: token
+        [B, 1], position [B] and table [B, P], then the leaves' extra
+        inputs.  Mid-prefill and empty rows ride the launch like idle
+        slots, their table rows pointing at the trash page, which absorbs
+        the dummy write.  Trash-masking covers the KV write but not a
+        recurrence: a hybrid's ``active`` mask freezes the state rows of
+        every other slot.  An enc-dec's other rows read the trash encoder
+        page with 0 valid rows, and their logits are discarded."""
         tbl = self.pager.table().copy()
         pos = self.pos.copy()
         tok = self.last_tok.copy()
         idle = np.ones(self.B, bool)
         idle[dec] = False
         tbl[idle], pos[idle], tok[idle] = KV.TRASH_PAGE, 0, 0
-        return tok[:, None], pos, tbl
+        inputs = (tok[:, None], pos, tbl)
+        if self.has_fixed:
+            inputs += (~idle,)
+        if self.has_enc:
+            etbl = self.pager.table("enc").copy()
+            elen = self.enc_len.copy()
+            etbl[idle], elen[idle] = KV.TRASH_PAGE, 0
+            inputs += (etbl, elen)
+        return inputs
+
+    def _leaf_inputs(self, slots: List[int]) -> dict:
+        """A prefill chunk's inputs for the state leaves of bucket rows
+        ``slots`` (keywords of ``api.prefill_chunk_fn``): a hybrid's
+        fixed-rows tree and slot indices, an enc-dec's encoder page table
+        and valid encoder rows."""
+        extra = {}
+        if self.has_fixed:
+            extra.update(fixed=self.fixed,
+                         slots=self._tensor(slots, torch.long))
+        if self.has_enc:
+            extra.update(enc_table=self._tensor(
+                self.pager.table("enc")[slots]),
+                enc_len=self._tensor(self.enc_len[slots]))
+        return extra
 
     @torch.no_grad()
     def step(self) -> int:
@@ -944,7 +1084,9 @@ class ServingEngine:
                 [s is not None and i not in stalled
                  for i, s in enumerate(self.slots)],
                 refs=self.pager.refs(), held=self.pager.held(),
-                cached=self.pager.cached_mask())
+                cached=self.pager.cached_mask(),
+                aux_tables=tuple(self.pager.table(g)
+                                 for g in self.pager.groups if g != "kv"))
         except KV.PagerInvariantError as e:
             if self.strict or e.slot is None:
                 raise
@@ -961,14 +1103,7 @@ class ServingEngine:
             oldest = min(dec, key=lambda j: self.slots[j].submit_seq)
             self._charge_retry(oldest, "decode launch faulted")
             return chunked
-        tok, pos, tbl = self._decode_inputs(dec)
-        inputs = (tok, pos, tbl)
-        if self.has_fixed:
-            # trash-masking covers the KV write but not the recurrence: the
-            # active mask freezes the state rows of every other slot
-            act = np.zeros(self.B, bool)
-            act[dec] = True
-            inputs += (act,)
+        inputs = self._decode_inputs(dec)
         if self.decode_graph is not None:
             logits = self.decode_graph(*inputs)
         else:
@@ -1011,6 +1146,7 @@ class ServingEngine:
                     self._cache_insert_slot(i)
                 self.slots[i] = None
                 self.pos[i] = self.last_tok[i] = self.pref_target[i] = 0
+                self.enc_len[i] = 0
                 self.pager.free_slot(i)
         return len(dec) + chunked
 
@@ -1130,23 +1266,19 @@ class ServingEngine:
         return self.stats
 
 
-def decode_step(params, pools, cfg: ModelConfig, tok: torch.Tensor,
-                pos: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """One decode step over all B rows: logits [B, V]; the pools are written
-    in place (the step the engine's CUDA graph captures)."""
+def decode_step(params, pools, cfg: ModelConfig, names: tuple,
+                tok: torch.Tensor, pos: torch.Tensor, table: torch.Tensor,
+                *extra: torch.Tensor, fixed=None) -> torch.Tensor:
+    """One decode step over all B rows: logits [B, V]; the pools (and a
+    hybrid stack's ``fixed`` rows) are written in place (the step the
+    engine's CUDA graph captures).  ``extra`` are the state leaves' inputs,
+    passed to ``api.decode_paged_fn`` under ``names``: a hybrid's
+    ``active[B]`` (other rows keep their state bit for bit), an enc-dec's
+    ``enc_table[B, P]`` / ``enc_len[B]`` (the encoder pool is only
+    read)."""
     return api.decode_paged_fn(params, {"token": tok, "position": pos}, pools,
-                               table, cfg)[0]
-
-
-def hybrid_decode_step(params, pools, fixed, cfg: ModelConfig,
-                       tok: torch.Tensor, pos: torch.Tensor,
-                       table: torch.Tensor,
-                       active: torch.Tensor) -> torch.Tensor:
-    """:func:`decode_step` of a hybrid stack: the fixed-rows state of the
-    ``active`` rows is updated in place, every other row's kept bit for
-    bit."""
-    return api.decode_paged_fn(params, {"token": tok, "position": pos}, pools,
-                               table, cfg, fixed=fixed, active=active)[0]
+                               table, cfg, fixed=fixed,
+                               **dict(zip(names, extra, strict=True)))[0]
 
 
 def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,
@@ -1170,7 +1302,7 @@ def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,
 
     if artifact_dir is not None and not refresh and AP.has_ptq(artifact_dir):
         dev = (device if params_fp is None
-               else params_fp["embed"]["table"].device)
+               else next(_tensors(params_fp)).device)
         try:
             return AP.load_ptq(artifact_dir, cfg, qcfg, device=dev)
         except (ValueError, KeyError, OSError, zipfile.BadZipFile):
@@ -1180,3 +1312,15 @@ def load_or_quantize(params_fp, cfg: ModelConfig, calibration_batches,
     if artifact_dir is not None:
         AP.save_ptq(artifact_dir, qp, rep, cfg, qcfg)
     return qp, rep
+
+
+def _tensors(node):
+    """The tensor leaves of a param tree, depth first."""
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _tensors(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _tensors(v)
+    elif isinstance(node, torch.Tensor):
+        yield node

@@ -28,13 +28,13 @@ Injection sites (the component that probes each):
                     written; the step retries on a bounded budget)
 ``prefill_launch``  the same for the chunk-prefill launch
 ``fixed_drain``     ``swap_drain`` for images carrying fixed-rows state
-``enc_evict``       ``prefix_evict`` for read-only encoder pages
+``enc_evict``       ``PrefixCache.match_exact`` force-evicts a matched
+                    encoder page set (the admission encodes afresh)
 ==================  =========================================================
 
-The engine probes ``fixed_drain`` (hybrid slots' images); the port has no
-encoder pages yet, so nothing probes ``enc_evict``, whose name stays in
-:data:`SITES` so that a plan means the same in either package.  A probe costs one ``is None`` check
-when no plan is installed.
+The engine probes ``fixed_drain`` on hybrid slots' images and
+``enc_evict`` on an encoder-decoder's exact-match hits.  A probe costs one
+``is None`` check when no plan is installed.
 
 A :class:`FaultSpec` fires when all of its set conditions hold (``step``:
 engine step index, ``op``: the site's N-th probe, ``every``: periodic,

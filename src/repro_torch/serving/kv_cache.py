@@ -22,9 +22,13 @@ Preemption swaps a slot out (:meth:`PagePool.split_for_swap`,
 :meth:`PagePool.swap_out`, :meth:`PagePool.swap_in`): its private pages'
 rows go to the host and the pages return to the free list, while its shared
 or cached pages stay resident under *swap holds* until resume re-acquires
-them (or :meth:`PagePool.drop_hold` abandons them).  The read-only groups'
-detach / reattach of the reference pager come with the encoder-decoder
-state leaves (ROADMAP.md).
+them (or :meth:`PagePool.drop_hold` abandons them).  A read-only group
+(the encoder-decoder's ``"enc"`` pages: written once at admission, shared
+through the exact-match index of ``serving/prefix_cache.py``) never grows
+during decode and never takes a COW; at preemption its pages stay on the
+device under swap holds (:meth:`PagePool.detach_group`) and resume
+reattaches them (:meth:`PagePool.reattach_group`), or
+:meth:`PagePool.drop_group_holds` abandons them.
 
 A :class:`~repro_torch.serving.faults.FaultPlan` on ``PagePool.faults``
 probes ``page_alloc`` and ``pool_pressure`` in :meth:`PagePool.can_alloc`
@@ -286,6 +290,37 @@ class PagePool:
         sp[slot] = []
         tab[slot, :] = TRASH_PAGE
 
+    def detach_group(self, slot: int, group: str) -> List[int]:
+        """Preempt a read-only group: the slot's references on its pages
+        become swap holds (not evictable, not reallocatable) and its table
+        row clears.  The rows never leave the device; resume passes the
+        returned pages to :meth:`reattach_group`."""
+        sp, tab = self._slot_pages_g[group], self._table_g[group]
+        pages = sp[slot]
+        for p in pages:
+            self._held[p] = self._held.get(p, 0) + 1
+        sp[slot] = []
+        tab[slot, :] = TRASH_PAGE
+        return pages
+
+    def reattach_group(self, slot: int, group: str, pages: List[int]) -> None:
+        """Resume a read-only group: each hold of :meth:`detach_group` turns
+        back into a slot reference, in order."""
+        sp, tab = self._slot_pages_g[group], self._table_g[group]
+        if sp[slot]:
+            raise RuntimeError(f"slot {slot} already owns {group} pages")
+        for p in pages:
+            self._unhold(p)
+        sp[slot] = list(pages)
+        tab[slot, :len(pages)] = pages
+
+    def drop_group_holds(self, pages: List[int]) -> None:
+        """Abandon a detached read-only group (its request finished or is
+        admitted from scratch again): each hold drops; cached pages turn
+        evictable, the others free."""
+        for p in pages:
+            self.drop_hold(p)
+
     # ------------------------------------------------------- swap support ---
     def split_for_swap(self, slot: int) -> Tuple[List[Tuple[int, int]],
                                                  List[Tuple[int, int]]]:
@@ -390,16 +425,20 @@ class PagePool:
 
 
 def assert_live_tables(table, write_pos, page_size: int, active, *,
-                       refs=None, held=None, cached=None) -> None:
+                       refs=None, held=None, cached=None,
+                       aux_tables=()) -> None:
     """Pager tripwires, vectorized: an active slot's live table prefix (the
     pages covering positions 0..write_pos) must never reference the trash
     page, and with ``refs`` (+ ``held``, the swap holds, and ``cached``, the
     pool's :meth:`PagePool.cached_mask`) every table listing must be counted
     (``refs == listings + holds``) and the page under each active write
     cursor must be private: one reference, no hold, not cached (shared and
-    cached pages are read-only and take a copy-on-write first).  Raises
-    :class:`PagerInvariantError`, with ``.slot`` where one slot is at
-    fault."""
+    cached pages are read-only and take a copy-on-write first).
+    ``aux_tables`` are the pool's other groups' tables (the read-only
+    encoder pages): their listings join the refcount census, but not the
+    stale-table and write-cursor checks, which are about the KV write path.
+    Raises :class:`PagerInvariantError`, with ``.slot`` where one slot is
+    at fault."""
     table = np.asarray(table)
     write_pos = np.asarray(write_pos)
     active = np.asarray(active, bool)
@@ -419,6 +458,10 @@ def assert_live_tables(table, write_pos, page_size: int, active, *,
     held = np.zeros_like(refs) if held is None else np.asarray(held)
     occ = np.bincount(table[table != TRASH_PAGE].ravel(),
                       minlength=refs.shape[0])
+    for aux in aux_tables:
+        aux = np.asarray(aux)
+        occ += np.bincount(aux[aux != TRASH_PAGE].ravel(),
+                           minlength=refs.shape[0])
     bad = np.nonzero(refs != occ + held)[0]
     bad = bad[bad != TRASH_PAGE]
     if bad.size:

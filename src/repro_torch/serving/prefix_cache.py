@@ -1,5 +1,5 @@
 """Shared-prefix KV cache: block-hash index over pool pages + LRU eviction
-(port of ``repro/serving/prefix_cache.py``, the token half).
+(port of ``repro/serving/prefix_cache.py``).
 
 Many live requests share a long system or few-shot prompt.  Without reuse
 each of them re-prefills it and holds a private copy of identical pages.
@@ -24,9 +24,16 @@ The scheduler calls :meth:`PrefixCache.match` and ``PagePool.attach`` at
 admission (the engine then prefills only the uncached suffix), and the
 engine calls :meth:`PrefixCache.insert` with a slot's full pages after its
 final prefill chunk and again when the slot finishes, so generated tokens
-become matchable too.  The exact-match index over read-only encoder pages
-(``data_hashes`` / ``match_exact`` / ``insert_exact``) comes with the
-encoder-decoder state leaves (ROADMAP.md).
+become matchable too.
+
+An encoder-decoder engine keeps a second instance (``mode="enc"``) as an
+exact-match index over its read-only encoder pages
+(:meth:`PrefixCache.data_hashes`, :meth:`PrefixCache.match_exact`,
+:meth:`PrefixCache.insert_exact`): a bidirectional encoder sees every
+frame, so a page set is reusable only for the whole identical input.  Its
+hashes are the reference's byte for byte: they are taken over the host
+numpy frames (``str`` of the numpy shape, the array's bytes), never over a
+tensor.
 """
 from __future__ import annotations
 
@@ -124,6 +131,59 @@ class PrefixCache:
         if hashes is None:
             hashes = self.block_hashes(tokens)
         for h, p in zip(hashes[:n_full], pages[:n_full]):
+            if h in self._index or p in self._by_page:
+                continue
+            self._index[h] = p
+            self._by_page[p] = h
+            self.pool.mark_cached(p)
+            inserted += 1
+        self.stats.inserted_pages += inserted
+        return inserted
+
+    # ----------------------------------------------- exact-match (read-only) --
+    def data_hashes(self, data, n_pages: int) -> List[bytes]:
+        """Page hashes of a read-only page set keyed by its whole input
+        (a request's encoder frames, a host array): one sha256 over the
+        root, the tag ``"enc"``, the numpy shape's ``str`` and the array's
+        bytes, then one per page index, so :meth:`match_exact` is all or
+        nothing.
+        Chaining prefix hashes would alias the pages of two inputs that
+        share a prefix."""
+        a = np.ascontiguousarray(np.asarray(data))
+        key = hashlib.sha256(
+            self._root + b"enc" + str(a.shape).encode() + a.tobytes()
+        ).digest()
+        return [hashlib.sha256(key + i.to_bytes(4, "little")).digest()
+                for i in range(n_pages)]
+
+    def match_exact(self, hashes: List[bytes]) -> List[int]:
+        """All-or-nothing lookup of a :meth:`data_hashes` page set: the
+        cached pages (for ``pool.attach(..., group="enc")``) or ``[]`` (a
+        partly evicted set is a miss).  Matched evictable pages are
+        LRU-touched.  The ``enc_evict`` fault evicts the matched set
+        between match and attach, so the admission encodes afresh."""
+        self.stats.lookups += 1
+        pages = [self._index.get(h) for h in hashes]
+        if not pages or any(p is None for p in pages):
+            return []
+        if self.faults is not None and self.faults.fires("enc_evict"):
+            for p in pages:
+                if p in self._lru:
+                    self._evict_page(p)
+            return []
+        self._clock += 1
+        for p in pages:
+            if p in self._lru:
+                self._lru[p] = self._clock
+        self.stats.hits += 1
+        self.stats.matched_tokens += len(pages) * self.page_size
+        return pages
+
+    def insert_exact(self, hashes: List[bytes], pages: List[int]) -> int:
+        """Index a slot's read-only pages under :meth:`data_hashes` keys;
+        idempotent like :meth:`insert`.  Returns the pages newly indexed."""
+        inserted = 0
+        for h, p in zip(hashes, pages):
             if h in self._index or p in self._by_page:
                 continue
             self._index[h] = p

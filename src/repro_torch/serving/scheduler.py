@@ -23,6 +23,11 @@ full match the plan takes a copy-on-write of the final matched page and
 re-prefills the last prompt token into the private copy.  An injected
 ``page_grow`` fault mid-admission rolls that admission back
 (``last_plan_aborted``) and ends the plan.
+
+An encoder-decoder request (``req.frames``) is also charged the read-only
+encoder pages its frames cover, allocated fresh in the pager's ``"enc"``
+group; on an encoder-cache hit the engine frees them again and attaches
+the shared pages.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ class _AdmissionCost:
     full_match: bool      # page-aligned whole-prompt match (needs a COW)
     fresh: int            # pages to allocate (incl. the COW destination)
     pinned: int           # matched-but-unreferenced pages the attach pins
+    enc: int = 0          # read-only encoder pages (enc-dec requests only)
 
 
 class Scheduler:
@@ -111,10 +117,13 @@ class Scheduler:
         """The one admission page arithmetic: the cold total, the cached
         prefix's credit, the full match's COW page, and the matched but
         unreferenced pages the attach is about to pin (which must not count
-        as evictable headroom for the fresh allocation)."""
+        as evictable headroom for the fresh allocation), and an enc-dec
+        request's encoder pages, counted as fresh."""
         total = pool.pages_needed(self._tokens_wanted(req))
+        frames = getattr(req, "frames", None)
+        enc = pool.pages_needed(len(frames)) if frames is not None else 0
         if cache is None:
-            return _AdmissionCost(total, [], 0, False, total, 0)
+            return _AdmissionCost(total, [], 0, False, total, 0, enc)
         # chain hashes are pure in the prompt: computed once per request
         hs = getattr(req, "_block_hashes", None)
         if hs is None:
@@ -125,13 +134,13 @@ class Scheduler:
         fresh = total - len(matched) + (1 if full_match else 0)
         pinned = sum(1 for p in matched if pool.page_ref(p) == 0)
         return _AdmissionCost(total, matched, mtok, full_match, fresh,
-                              pinned)
+                              pinned, enc)
 
     def pages_needed(self, req, pool: PagePool, cache=None) -> int:
         """Pages that must be allocatable to admit ``req`` (the diagnostic
         twin of :meth:`plan`: no fault budget spent)."""
         cost = self._admission_cost(req, pool, cache, probe_faults=False)
-        return cost.fresh + cost.pinned
+        return cost.fresh + cost.pinned + cost.enc
 
     def plan(self, queue: Deque, free_slots: List[int], pool: PagePool,
              reserve: int = 0, cache=None) -> List[PrefillBucket]:
@@ -159,7 +168,7 @@ class Scheduler:
             # re-prefills the last prompt token into a COW copy
             suffix = 1 if full_match else t - cost.mtok
             prefix = t - suffix
-            if not pool.can_alloc(fresh + reserve + cost.pinned):
+            if not pool.can_alloc(fresh + reserve + cost.pinned + cost.enc):
                 break                       # FCFS: head blocks the line
             blen = (suffix if self.mode == "slotwise"
                     else self.bucket_len(suffix))
@@ -178,6 +187,10 @@ class Scheduler:
                             if full_match else None)
                 if fresh - (1 if full_match else 0):
                     pool.grow(slot, fresh - (1 if full_match else 0))
+                if cost.enc:
+                    # fresh encoder pages; the engine swaps them for the
+                    # shared ones on an encoder-cache hit
+                    pool.grow(slot, cost.enc, group="enc")
             except TransientFault:
                 # roll the admission back (attached pages, the COW copy and
                 # its hold), requeue at the head and stop planning

@@ -16,7 +16,12 @@ pools), zamba2-7b (the hybrid step: fixed-rows Mamba2 state and an
 - zamba2's hybrid step with a parked slot: the replay's logits, pools and
   fixed rows equal an eager step's on copies, bit for bit, and the parked
   slot's fixed rows are unchanged; its tight pool swaps the fixed rows
-  with the KV rows and gives the roomy pool's tokens.
+  with the KV rows and gives the roomy pool's tokens;
+- whisper-medium's encoder-decoder step: the graph's encoder page tables
+  and valid rows (an idle row on the trash page with 0 rows), the encoder
+  pool untouched by a replay, a mid-decode preemption that swaps KV rows
+  only and gives the unpreempted run's tokens, identical audio encoded
+  once.
 
 Marked ``cuda``: skipped where there is no GPU.  Run on the GPU machine with
 ``python -m pytest -m cuda tests/test_torch_cuda_engine.py``.
@@ -130,9 +135,8 @@ def test_hybrid_graph_replay_with_a_parked_slot(dev):
     dec = [i for i in eng._active_slots() if eng.pos[i] >= eng.pref_target[i]]
     assert len(dec) >= 2
     parked, dec = dec[0], dec[1:]
-    act = np.zeros(eng.B, bool)
-    act[dec] = True
-    tok, pos, tbl = eng._decode_inputs(dec)
+    tok, pos, tbl, act = eng._decode_inputs(dec)
+    assert not act[parked] and act[dec].all()
     pools = _clone(eng.pools)
     fixed = {k: t.clone() for k, t in eng.fixed.items()}
     before = {k: t.clone() for k, t in eng.fixed.items()}
@@ -267,3 +271,73 @@ def test_decode_launch_fault_skips_one_replay(dev):
     assert plan.injected["decode_launch"] == 1
     assert st1.retries == 1 and out1 == out0
     assert st1.steps == st0.steps
+
+
+def _whisper_requests(d_model, n=5, max_tokens=8, seed=5):
+    """serve's synthetic frames (every third request repeats request 0's
+    audio) beside 3-10-token prompts."""
+    from repro_torch.launch.serve import synthetic_frames
+
+    reqs = _requests(256, n, max_tokens, seed)
+    for i, r in enumerate(reqs):
+        r.frames = synthetic_frames(i, d_model)
+    return reqs
+
+
+def test_encdec_graph_replay_and_preemption(dev):
+    """whisper's step: the graph reads each row's encoder page table and
+    valid rows; a replay with one row idle (trash table, 0 rows) equals an
+    eager step on copies of the pools bit for bit and leaves the encoder
+    pool untouched.  A mid-decode preemption (forced white-box) detaches
+    the encoder pages, swaps KV rows only, and the tokens equal the
+    unpreempted run's; identical audio is encoded once."""
+    cfg, params = _quantized("whisper-medium", dev)
+    outs, stats = [], []
+    for preempt in (False, True):
+        eng = ServingEngine(params, cfg, batch_size=3, max_seq=32,
+                            page_size=4, eos_id=-1, device=dev)
+        reqs = _whisper_requests(cfg.d_model)
+        for r in reqs:
+            eng.submit(r)
+        while eng.decode_graph is None or eng.decode_graph.replays < 2:
+            eng.step()
+        dec = [i for i in eng._active_slots()
+               if eng.pos[i] >= eng.pref_target[i]]
+        assert len(dec) >= 2
+        if not preempt:
+            rows = dec[1:]
+            inputs = eng._decode_inputs(rows)
+            assert inputs[4][dec[0]] == 0
+            pools = _clone(eng.pools)
+            enc = {k: t.clone() for k, t in eng.pools["enc"].items()}
+            pools["enc"] = eng.pools["enc"]
+            with torch.no_grad():
+                eager = api.decode_paged_fn(
+                    params, {"token": eng._tensor(inputs[0]),
+                             "position": eng._tensor(inputs[1])},
+                    pools, eng._tensor(inputs[2]), cfg,
+                    enc_table=eng._tensor(inputs[3]),
+                    enc_len=eng._tensor(inputs[4]))[0]
+            logits = eng.decode_graph(*inputs)
+            torch.cuda.synchronize()
+            assert torch.equal(logits[rows], eager[rows])
+            assert bool(torch.isfinite(logits).all())
+            for lp, lc in zip(eng.pools["layers"], pools["layers"]):
+                for k in lp:
+                    assert torch.equal(lp[k], lc[k]), k
+            for k, t in eng.pools["enc"].items():
+                assert torch.equal(t, enc[k]), k
+            extra = 1
+        else:
+            eng._preempt(dec[0])
+            extra = 0
+        st = eng.run_until_drained()
+        eng.pager.check_invariants()
+        assert eng.decode_graph.replays == st.steps + extra
+        stats.append(st)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert stats[1].preemptions == stats[1].resumes == 1
+    assert stats[1].swapped_fixed_bytes == 0
+    for st in stats:
+        assert (st.enc_encodes, st.enc_hits) == (4, 1)

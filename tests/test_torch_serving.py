@@ -236,7 +236,8 @@ def test_entry_points_raise_without_a_card(models):
 
 def test_unported_features_raise(models):
     _, tcfg, _ = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # an audio config is an encoder-decoder: without encdec it raises
+    with pytest.raises(ValueError, match="disagree"):
         tcfg.with_(family="audio").check()
     # the SSM mixers are ported, but only in their own families
     for kw in (dict(mixer="mamba2"), dict(family="hybrid")):
@@ -262,22 +263,23 @@ def test_unported_features_raise(models):
     from repro_torch.core.apply import quantize_params
     with pytest.raises(NotImplementedError, match="skip_router"):
         quantize_params({"layers": []}, gcfg, QuantConfig(skip_router=False))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-medium")
-    # the registry's other dense decoders and the SSM stacks are ported,
-    # full and smoke
+    # every architecture of the reference's registry is ported, full and
+    # smoke, whisper's configs field for field
     from repro_torch.configs import NOT_PORTED
     for arch in ("llama3.2-3b", "mistral-large-123b", "chatglm3-6b",
-                 "starcoder2-15b", "qwen2-vl-7b", "zamba2-7b", "rwkv6-7b"):
+                 "starcoder2-15b", "qwen2-vl-7b", "zamba2-7b", "rwkv6-7b",
+                 "whisper-medium"):
         for smoke in (False, True):
             get_config(arch, smoke=smoke).check()
-    assert NOT_PORTED == ("whisper-medium",)
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A "
-                       "item 1"):
-        tcfg.with_(family="audio").check()
+    assert NOT_PORTED == ()
+    for smoke in (False, True):
+        j = j_get_config("whisper-medium", smoke=smoke)
+        t = get_config("whisper-medium", smoke=smoke)
+        for f in dataclasses.fields(j):
+            assert repr(getattr(t, f.name)) == repr(getattr(j, f.name)), \
+                (smoke, f.name)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-large")
     for kw in (dict(family="hybrid"), dict(family="ssm"),
                dict(mixer="rwkv6")):
         with pytest.raises(ValueError, match="disagree"):

@@ -18,8 +18,8 @@ tokens exact:
 - ``lm_forward`` logits, and ``prefill_fn`` then ``decode_fn`` at each
   step, for zamba2-smoke, rwkv6-smoke and codellama-7b-smoke (its int8
   contiguous slab too, and a ragged ``last_idx`` prefill);
-- the registry: both configs field for field, ``NOT_PORTED``; MLA's
-  contiguous cache is refused.
+- the registry: both configs (and whisper's) field for field, ``NOT_PORTED``
+  empty; MLA's contiguous cache is refused.
 """
 import dataclasses
 
@@ -305,16 +305,16 @@ def test_prefill_fn_last_idx_matches_jax(weights):
 
 # ---------------------------------------------------------------- registry --
 def test_registry_has_the_ssm_configs():
-    assert NOT_PORTED == ("whisper-medium",)
-    for arch in ("zamba2-7b", "rwkv6-7b"):
+    assert NOT_PORTED == ()
+    for arch in ("zamba2-7b", "rwkv6-7b", "whisper-medium"):
         for smoke in (False, True):
             j = j_get_config(arch, smoke=smoke)
             t = get_config(arch, smoke=smoke).check()
-            for f in dataclasses.fields(t):
+            for f in dataclasses.fields(j):
                 assert repr(getattr(t, f.name)) == repr(getattr(j, f.name)), \
                     (arch, f.name)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-medium")
+    with pytest.raises(ValueError, match="disagree"):
+        get_config("whisper-medium").with_(family="dense").check()
     dcfg = get_config("deepseek-v2-236b", smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.init_decode_cache(dcfg, 1, 8, device="cpu")
