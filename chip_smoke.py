@@ -182,6 +182,26 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    PTQ, serve's 6-10-row synthetic frames). The kernel phase holds K1 at
    path 8's widths (1024 → 1024, 1024 ↔ 4096; T=4 and 1500) and K2 / K3
    at Hkv 16, grp 1, Dh 64;
+   path 4d — path 4's quantized params through MLA's contiguous latent
+   cache (``api.prefill_fn`` on 4 prompts of one length, 16 greedy
+   ``api.decode_fn`` steps): K1 and B6 held to the prediction and to
+   their plain versions on the path's operands, the prefill against the
+   dequantized ``wkv_b`` codes, the decode steps against the paged path
+   (B8) from the same latent rows (logits within 1e-4 of the scale,
+   greedy tokens equal), the gap between the two prefill routes printed,
+   a decode step's wall and device ms;
+   path 9 — llama3.2-3b at full width and depth in bf16 trained through
+   ``launch.train.main`` (the JAX CLI's defaults: batch 8, 128 tokens,
+   remat block, lr 3e-4, 20 steps): finite losses and gradient norms,
+   the loss falling, no kernel launched; peak memory printed against the
+   predicted bytes (params, grads, f32 moments), a step's wall and
+   tokens/s; then a step's, its loss + gradients' and its AdamW's wall and
+   busy time on the card (torch.profiler), a step with remat none and
+   one with ``int8_ef`` (their peaks); path 9b — codellama-7b smoke f32
+   train steps (microbatch 2, int8 error feedback) on the card against the
+   CPU, each from the CPU's state (``TRAIN_STEP_TOL``), then 3 steps run
+   free on each (``FREE_RUN_TOL``), and a checkpoint saved at step 2 and restored on the card
+   taking step 3 (bitwise or not, printed);
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -3257,6 +3277,194 @@ def path4c(params, cfg):
     return counts
 
 
+def path4d_prediction(nl, prefills, steps):
+    """Path 4d's launches: the contiguous prefill runs MLA expanded, so K1
+    takes wq_a, wq_b, wkv_a, wkv_b, wo and the shared expert's gate/up/down
+    (8 a layer) and B6 the routed experts' gate/up/down (3); a decode step
+    runs it absorbed: K1 7 a layer (wkv_b unread), B6 5 (the experts and
+    the absorbed wk_t / wv pair).  No attention kernel: the contiguous
+    cache attends with plain ops, as in the reference."""
+    pred = {n: 0 for n in K.WRAPPERS}
+    pred.update({"w4a16_matmul": nl * (8 * prefills + 7 * steps),
+                 "w4a16_grouped": nl * (3 * prefills + 5 * steps)})
+    return pred
+
+
+def _dequantized_expanded(params):
+    """Every int4 weight dequantized to f32, ``wkv_b`` from its own codes
+    and the absorbed pair dropped: the weights expanded MLA reads."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()
+                    if k != "wkv_b_absorbed"}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        if isinstance(node, QuantizedTensor):
+            return dequantize(node, torch.float32)
+        return node
+    return conv(params)
+
+
+def _seed_latent_pool(cfg, cache, n, smax, ps=16):
+    """Paged latent pools holding the contiguous cache's first ``n`` rows of
+    every batch row (row b on pages 1 + b·P ..), and their page table."""
+    b = cache["layers"][0]["ckv"].shape[0]
+    pages = -(-smax // ps)
+    pool = LM.init_paged_cache(cfg, 1 + b * pages, ps, DEV)
+    for lp, lc in zip(pool["layers"], cache["layers"]):
+        for k in ("ckv", "kpe"):
+            rows = lp[k][1:].view(b, pages * ps, -1)
+            rows[:, :n] = lc[k][:, :n]
+    table = (1 + torch.arange(b * pages, dtype=torch.int32, device=DEV)
+             ).view(b, pages)
+    return pool, table
+
+
+def path4d(params, cfg):
+    """deepseek-v2-236b (path 4's quantized params, 2 of 60 layers) through
+    MLA's contiguous latent cache: ``api.prefill_fn`` on 4 prompts of one
+    length, then 16 greedy ``api.decode_fn`` steps.  K1 and B6 held to
+    the prediction; the prefill against the same call on the dequantized
+    weights; the 16 decode steps against the paged path (``lm_decode_paged``:
+    B8, B6, K1) from a latent pool seeded with the contiguous prefill's
+    rows, teacher-forced with the contiguous run's tokens: logits within
+    1e-4 of the logit scale (the absorbed weights are the same int4 in both;
+    the attention sums in another order), greedy tokens equal.  The
+    prefills are not compared with each other: the contiguous one reads
+    ``wkv_b``'s own int4 codes (expanded MLA), the paged one the
+    separately quantized absorbed pair, as in the reference; their gap is
+    printed."""
+    from repro_torch.models import api
+
+    print("path 4d: deepseek-v2-236b, 2 of 60 layers (reduced), path 4's "
+          "SmoothQuant+ W4A16 f32 params, contiguous latent cache: "
+          "prefill_fn on 4 prompts, 16 decode_fn steps", flush=True)
+    t_path = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(4)
+    n = int(rng.integers(32, 201))
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (4, n)).astype(
+        np.int32)).to(DEV)
+    steps, smax = 16, n + 17
+    nl = cfg.num_layers
+    pred = path4d_prediction(nl, 1, steps)
+    out, logits_c = [], []
+    with path_operands() as seen, torch.no_grad():
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = api.prefill_fn(params, {"tokens": toks}, cfg, smax)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_logits = lg.clone()
+        tok = lg.argmax(-1).to(torch.int32)
+        out.append(tok)
+        t0 = time.perf_counter()
+        for s in range(steps):
+            pos = torch.full((4,), n + s, dtype=torch.int32, device=DEV)
+            lg, cache = api.decode_fn(params, {"token": tok[:, None],
+                                               "position": pos}, cache, cfg)
+            logits_c.append(lg.clone())
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+    print(f"  launches {counts}; predicted {pred}; prompt length {n}, "
+          f"{steps} decode steps", flush=True)
+    require(counts == pred, "path 4d: launch counts differ from the "
+            "prediction")
+    require(int(cache["layers"][0]["lens"][0]) == n + steps,
+            "path 4d: cache lengths")
+    operands = check_path_operands(seen, "path 4d")
+    del seen
+    tokens = torch.stack(out, 1)
+    require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            "path 4d: token out of range")
+    res = {}
+    with torch.no_grad():
+        # the prefill against the dequantized weights (plain linears; the
+        # expanded prefill reads wkv_b's own codes, never the absorbed pair)
+        plain = _dequantized_expanded(params)
+        lp = api.prefill_fn(plain, {"tokens": toks}, cfg, smax)[0]
+        del plain
+        err = max_err(pre_logits, lp)
+        tol = 2e-3 * max(1.0, float(lp.abs().max()))
+        print(f"  prefill logits vs the dequantized weights: max |diff| = "
+              f"{err:.3g} (tol {tol:.3g}); argmax equal "
+              f"{int((pre_logits.argmax(-1) == lp.argmax(-1)).sum())}/4")
+        require(err <= tol, "path 4d: prefill logits differ from the "
+                "plain path")
+        res["prefill_vs_plain_err"] = err
+        # the paged path's prefill, for the gap between the two int4 forms
+        pool, table = _seed_latent_pool(cfg, cache, 0, smax)
+        lpp = LM.lm_prefill_chunk(
+            params, toks, pool, torch.zeros(4, dtype=torch.int32, device=DEV),
+            torch.full((4,), n, dtype=torch.int32, device=DEV), table, cfg)[0]
+        gap = max_err(pre_logits, lpp) / float(lpp.abs().max())
+        print(f"  contiguous vs paged prefill (wkv_b's int4 vs the absorbed "
+              f"pair's): max |diff| {gap:.4f} of the logit scale, argmax "
+              f"equal {int((pre_logits.argmax(-1) == lpp.argmax(-1)).sum())}"
+              "/4 (not checked: two quantizations of one weight)")
+        res["prefill_contiguous_vs_paged_rel"] = gap
+        # decode: the paged path from the contiguous prefill's latent rows
+        ccache = api.prefill_fn(params, {"tokens": toks}, cfg, smax)[1]
+        pool, table = _seed_latent_pool(cfg, ccache, n, smax)
+        worst, same = 0.0, 0
+        for s in range(steps):
+            pos = torch.full((4,), n + s, dtype=torch.int32, device=DEV)
+            lgp = LM.lm_decode_paged(params, tokens[:, s:s + 1], pool, pos,
+                                     table, cfg)[0]
+            scale = float(lgp.abs().max())
+            worst = max(worst, max_err(logits_c[s], lgp) / scale)
+            same += int((lgp.argmax(-1) == tokens[:, s + 1]).sum())
+        print(f"  16 decode steps vs the paged path (B8) from the same "
+              f"latent rows: worst max |diff| {worst:.3g} of the logit scale "
+              f"(tol 1e-4); greedy tokens equal {same}/{4 * steps}")
+        require(worst <= 1e-4, "path 4d: contiguous decode logits differ "
+                "from the paged path's")
+        require(same == 4 * steps, "path 4d: greedy tokens differ from the "
+                "paged path's")
+        res.update(decode_vs_paged_rel=worst, greedy_equal=same)
+        del ccache, pool
+        # a steady window: 8 decode steps of batch 4, wall and device
+        box = {"tok": tokens[:, -1:].contiguous(), "n": n + steps,
+               "cache": cache}
+        api_steps = 8
+        ext = api.init_decode_cache(cfg, 4, smax + api_steps, device=DEV)
+        for lc, le in zip(cache["layers"], ext["layers"]):
+            for k in ("ckv", "kpe"):
+                le[k][:, :smax] = lc[k]
+            le["lens"].copy_(lc["lens"])
+        box["cache"] = ext
+
+        def step():
+            pos = torch.full((4,), box["n"], dtype=torch.int32, device=DEV)
+            lg_, box["cache"] = api.decode_fn(
+                params, {"token": box["tok"], "position": pos},
+                box["cache"], cfg)
+            box["tok"] = lg_.argmax(-1).to(torch.int32)[:, None]
+            box["n"] += 1
+
+        dec_wall, dec_wall_prof, dec_dev = _profile_steps(
+            step, api_steps // 2)
+    peak = torch.cuda.max_memory_allocated()
+    took = time.perf_counter() - t_path
+    print(f"  prefill of 4x{n}: {prefill_s * 1e3:.1f} ms wall; 16 decode "
+          f"steps {decode_s:.2f}s; decode step (batch 4): "
+          f"{dec_wall * 1e3:.2f} ms wall, {dec_dev * 1e3:.2f} ms device; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; {took:.1f}s in all",
+          flush=True)
+    RESULTS["path4d"] = dict(
+        launches=counts, predicted=pred, prompt_len=n, decode_steps=steps,
+        prefill_wall_ms=prefill_s * 1e3, decode_s=decode_s,
+        decode_wall_ms=dec_wall * 1e3,
+        decode_wall_profiled_ms=dec_wall_prof * 1e3,
+        decode_device_ms=dec_dev * 1e3, peak_mem_bytes=peak,
+        outputs=tokens.tolist(), path_operands=operands, seconds=took, **res)
+    return counts
+
+
 def _same_params(a, b) -> bool:
     """Two port param trees equal bitwise, ``a8`` flags included."""
     if isinstance(a, dict):
@@ -3781,12 +3989,335 @@ def path4():
           f"{res4['peak_mem_bytes'] / 2 ** 30:.2f} GiB (serving and step "
           "check)", flush=True)
     path4c(params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path4d(params, cfg)
     RESULTS["path4"] = dict(res4, ptq_s=ptq_s, alpha=rep.alpha,
                             ptq_peak_mem_bytes=ptq_peak, fp_bytes=rep.fp_bytes,
                             quant_bytes=rep.quant_bytes,
                             a8_eligibility=rep.a8_eligibility)
     RESULTS["path4b"] = dict(res4b, same_outputs_as_path4=same)
     return counts4, counts4b
+
+
+# ----------------------------------------------------- paths 9 and 9b ---
+def _llama_param_count(cfg) -> int:
+    """llama3.2-3b's parameters from its config: the tied embedding, per
+    layer q/k/v/o, the SwiGLU MLP and two RMSNorms, and the final norm."""
+    d, hd = cfg.d_model, cfg.hdim
+    attn = d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2
+    layer = attn + 3 * d * cfg.d_ff + 2 * d
+    return cfg.vocab_size * d + cfg.num_layers * layer + d
+
+
+def path9():
+    """llama3.2-3b at full width and depth (28 layers, d_model 3072, vocab
+    128256, tied head) in the config's bf16, trained through
+    ``repro_torch.launch.train.main`` with the reference CLI's defaults
+    (batch 8, 128 tokens, remat ``block``, lr 3e-4, warmup 2) for 20 steps,
+    no checkpoint directory; then one step with remat ``none``.  Training
+    runs no kernel (the reference's train step is XLA, with chunked
+    attention), so every launch counter stays 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import train as TR
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+
+    cfg = get_config("llama3.2-3b")
+    n = _llama_param_count(cfg)
+    gb = 1e9
+    pred = {"params": 2 * n, "grads": 2 * n, "moments": 8 * n}
+    print(f"path 9: llama3.2-3b full width and depth, {cfg.dtype}, "
+          f"{n / 1e9:.3f} B parameters, trained through launch.train.main "
+          "(batch 8, 128 tokens, remat block, lr 3e-4, 20 steps); predicted "
+          f"memory: params {pred['params'] / gb:.1f} GB, grads "
+          f"{pred['grads'] / gb:.1f} GB, f32 moments "
+          f"{pred['moments'] / gb:.1f} GB = {sum(pred.values()) / gb:.1f} GB "
+          "plus activations under remat", flush=True)
+    t_path = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times, gnorms = [], []
+    orig = TR.make_train_step
+
+    def timed(cfg_, tc_):
+        """The train step, its host wall (the card synchronized on both
+        sides) and its pre-clip gradient norm recorded."""
+        fn = orig(cfg_, tc_)
+
+        def step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            gnorms.append(float(res[2]["grad_norm"]))
+            return res
+
+        return step
+
+    K.reset_launch_counts()
+    TR.make_train_step = timed
+    try:
+        losses = TR.main(
+            ["--arch", "llama3.2-3b", "--steps", "20", "--batch", "8",
+             "--seq", "128", "--lr", "3e-4", "--log-every", "5",
+             "--device", "cuda"])
+    finally:
+        TR.make_train_step = orig
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    require(len(losses) == 20, "path 9: not 20 steps")
+    require(all(math.isfinite(x) for x in losses), "path 9: a loss is not "
+            "finite")
+    require(all(math.isfinite(g) for g in gnorms), "path 9: a gradient norm "
+            "is not finite")
+    require(losses[-1] < losses[0], "path 9: the loss did not fall")
+    require(not any(counts.values()), "path 9: a kernel ran in training")
+    wall = statistics.median(times[1:])
+    tok_s = 8 * 128 / wall
+    print(f"  loss step 0 {losses[0]:.4f}, step 19 {losses[-1]:.4f}; grad "
+          f"norm step 0 {gnorms[0]:.3f}, step 19 {gnorms[-1]:.3f}; step "
+          f"(median of steps 1-19): {wall * 1e3:.1f} ms wall, "
+          f"{tok_s:.0f} tokens/s; step 0 {times[0] * 1e3:.1f} ms wall; peak "
+          f"memory {peak / gb:.2f} GB (predicted "
+          f"{sum(pred.values()) / gb:.1f} GB before activations)", flush=True)
+    walls_main, gnorms_main = list(times), list(gnorms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one step with remat none, fresh params and state
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tc = TrainConfig(learning_rate=3e-4, total_steps=20, warmup_steps=2,
+                     remat="none")
+    params = api.init_model(cfg, seed=0, device=DEV)
+    opt = adamw.init_opt_state(params, tc)
+    batch = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=128, global_batch=8), cfg,
+                            device=DEV).batch_at(0)
+    step_fn = timed(cfg, tc)
+    times.clear()
+    params, opt, m = step_fn(params, opt, batch)
+    loss0 = float(m["loss"])
+    params, opt, m = step_fn(params, opt, batch)
+    peak_none, wall_none = torch.cuda.max_memory_allocated() - base, times[1]
+    require(math.isfinite(loss0), "path 9: remat none loss not finite")
+    # where a remat-block step's time goes, from the profiler: the card's
+    # kernel time (busy) of the whole step, of loss + gradients and of
+    # AdamW, each beside its host wall
+    from repro_torch import tree as T
+    from repro_torch.train.trainer import make_loss_fn, value_and_grad
+
+    tcb = dataclasses.replace(tc, remat="block")
+    step_b, loss_fn = orig(cfg, tcb), make_loss_fn(cfg, tcb)
+    prof = {"step": _profile_steps(lambda: step_b(params, opt, batch), 2),
+            "loss_and_grads": _profile_steps(
+                lambda: value_and_grad(loss_fn, params, batch), 2)}
+    grads = T.unflatten(params, value_and_grad(loss_fn, params, batch)[1])
+    prof["adamw"] = _profile_steps(
+        lambda: adamw.adamw_update(params, grads, opt, tcb), 2)
+    del grads
+    print("  remat block step (torch.profiler, 2 calls each): " + "; ".join(
+        f"{k} {w * 1e3:.1f} ms wall ({wp * 1e3:.1f} profiled), "
+        f"{busy * 1e3:.1f} ms busy on the card"
+        for k, (w, wp, busy) in prof.items()), flush=True)
+    print(f"  remat none: step 0 loss {loss0:.4f} (the block run's "
+          f"{losses[0]:.4f}); a step {wall_none * 1e3:.1f} ms wall; peak "
+          f"memory {peak_none / gb:.2f} GB against {peak / gb:.2f} GB with "
+          "remat block", flush=True)
+    # one more fresh model with int8 error feedback: its f32 residual (4
+    # bytes a parameter) beside the moments, and the compression's
+    # leaf-by-leaf temporaries
+    del params, opt, m, step_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tce = dataclasses.replace(tcb, grad_compression="int8_ef")
+    pred_ef = sum(pred.values()) + 4 * n
+    params = api.init_model(cfg, seed=0, device=DEV)
+    opt = adamw.init_opt_state(params, tce)
+    step_fn = timed(cfg, tce)
+    times.clear()
+    gnorms.clear()
+    ef_losses = []
+    for _ in range(2):
+        params, opt, m = step_fn(params, opt, batch)
+        ef_losses.append(float(m["loss"]))
+    peak_ef = torch.cuda.max_memory_allocated() - base
+    require(all(math.isfinite(x) for x in ef_losses + gnorms),
+            "path 9: an int8_ef loss or gradient norm is not finite")
+    print(f"  int8_ef: losses {ef_losses[0]:.4f}, {ef_losses[1]:.4f}; a step "
+          f"{times[1] * 1e3:.1f} ms wall; peak memory {peak_ef / gb:.2f} GB "
+          f"(predicted {pred_ef / gb:.1f} GB before activations and "
+          f"temporaries); {time.perf_counter() - t_path:.1f}s in all",
+          flush=True)
+    RESULTS["path9"] = dict(
+        params=n, predicted_bytes=pred, losses=losses,
+        grad_norms=gnorms_main, step_wall_ms=wall * 1e3,
+        step_walls_ms=[w * 1e3 for w in walls_main], tokens_per_s=tok_s,
+        peak_mem_bytes=peak, remat_none_peak_mem_bytes=peak_none,
+        remat_none_step_wall_ms=wall_none * 1e3,
+        remat_none_step0_loss=loss0,
+        block_profile_ms={k: {"wall": w * 1e3, "wall_profiled": wp * 1e3,
+                              "busy": busy * 1e3}
+                          for k, (w, wp, busy) in prof.items()},
+        int8_ef=dict(losses=ef_losses, grad_norms=list(gnorms),
+                     step_wall_ms=times[1] * 1e3, peak_mem_bytes=peak_ef,
+                     predicted_bytes=pred_ef),
+        launches=counts)
+    del params, opt, m
+    return losses
+
+
+# a train step from one state on the card against the CPU.  Losses and
+# pre-clip grad norms rtol 1e-5.  An int8 code flips where a gradient sits
+# within rounding of a half-code tie: the element's first moment moves by
+# a tenth of a code step (~1/127 of the leaf's largest) and Adam's step
+# moves its weight by up to ±lr (~3e-3 of 0.1); f32 noise moves either by
+# ~1e-7 of the largest.  So per leaf (parameters and first moments) at most
+# 1 % of the elements (or 2) may move by more than 1e-3 of the leaf's
+# largest magnitude, and the rest agree within 1e-4 relative L2 (Adam's
+# m̂ / (√v̂ + ε) where a gradient is near ε).  Free-running runs compound
+# the flips (the first card run read 1.2 % moved after 3 steps).
+TRAIN_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "moved_share": 1e-2,
+                  "params": 1e-4}
+# 3 free-running steps, card against CPU: the flips compound, so the bound
+# is the flip model's, not f32 noise's.  A flipped element moves its
+# weight by up to ±lr, and each step's flips (~0.1-1 % of a leaf) seed
+# more in the next; the card read 1.31e-3 relative L2 on the parameters
+# (worst leaf) and 1.15e-5 on the losses.  Limits about four times that,
+# far under a broken step (a sign or scale fault moves every element).
+FREE_RUN_TOL = {"loss": 1e-4, "params": 5e-3}
+
+
+def _moved_and_rest(a, b, moved_at=1e-3):
+    """(elements of ``a`` more than ``moved_at`` of ``b``'s largest
+    magnitude from ``b``; the relative L2 difference of the others)."""
+    d = (a.double() - b.double()).abs()
+    keep = d <= moved_at * float(b.abs().max())
+    rest = float(d[keep].norm() / b.double()[keep].norm().clamp_min(1e-30))
+    return int((~keep).sum()), rest
+
+
+def path9b():
+    """The training route held to its CPU version (no kernel is on it):
+    codellama-7b smoke, f32 with TF32 off, ``microbatch=2`` and
+    ``grad_compression="int8_ef"``, 3 steps.  Each step is checked from one
+    state: the CPU's state before it (params, moments, residual) copied to
+    the card, one step on each device, the results compared; then 3 steps
+    run free on each device and their drift is printed.  Last, a
+    checkpoint of the card's state after step 2, restored into a fresh
+    trainer on the card, takes step 3, held to the uninterrupted run's."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import make_train_step
+
+    tol = TRAIN_STEP_TOL
+    print(f"path 9b: codellama-7b smoke f32, microbatch 2, int8_ef, 3 train "
+          f"steps on the card against the CPU, each from the CPU's state; "
+          f"tolerances {tol}", flush=True)
+    cfg = get_config("codellama-7b", smoke=True).with_(dtype="float32")
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=10,
+                     microbatch=2, grad_compression="int8_ef")
+    p0 = api.init_model(cfg, seed=0, device="cpu")
+    step_fn = make_train_step(cfg, tc)
+    data = {d: SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=32, global_batch=4), cfg,
+                               device=d) for d in ("cpu", DEV)}
+
+    def to(tree, device):
+        return T.map_leaves(lambda t: t.to(device, copy=True), tree)
+
+    def state_to(st, device):
+        return adamw.OptState(st.step.to(device, copy=True),
+                              to(st.mu, device), to(st.nu, device),
+                              to(st.ef, device))
+
+    K.reset_launch_counts()
+    params = to(p0, "cpu")
+    opt = adamw.init_opt_state(params, tc)
+    worst = {"loss": 0.0, "grad_norm": 0.0, "moved_share": 0.0,
+             "params": 0.0}
+    for i in range(3):
+        cparams, copt = to(params, DEV), state_to(opt, DEV)
+        params, opt, m = step_fn(params, opt, data["cpu"].batch_at(i))
+        cparams, copt, cm = step_fn(cparams, copt, data[DEV].batch_at(i))
+        for k in ("loss", "grad_norm"):
+            worst[k] = max(worst[k], abs(float(cm[k]) - float(m[k]))
+                           / abs(float(m[k])))
+        for tree_c, tree_h in ((cparams, params), (copt.mu, opt.mu)):
+            for a, b in zip(T.leaves(tree_c), T.leaves(tree_h)):
+                moved, rel = _moved_and_rest(a.cpu(), b)
+                worst["moved_share"] = max(worst["moved_share"], max(
+                    0, moved - 2) / a.numel())
+                worst["params"] = max(worst["params"], rel)
+    print(f"  worst relative differences a step {worst}", flush=True)
+    for k, t in tol.items():
+        require(worst[k] <= t, f"path 9b: {k} differs from the CPU's")
+
+    def run(device, steps=3, params=None, opt=None, start=0):
+        if params is None:
+            params = to(p0, device)
+            opt = adamw.init_opt_state(params, tc)
+        out = []
+        for i in range(start, start + steps):
+            params, opt, m = step_fn(params, opt, data[device].batch_at(i))
+            out.append((float(m["loss"]), float(m["grad_norm"]),
+                        to(params, "cpu")))
+        return out, params, opt
+
+    cpu, card = run("cpu")[0], run(DEV)[0]
+    drift = max(float((a.double() - b.double()).norm() / b.double().norm())
+                for a, b in zip(T.leaves(card[-1][2]), T.leaves(cpu[-1][2])))
+    loss_drift = max(abs(c[0] - h[0]) / abs(h[0]) for c, h in zip(card, cpu))
+    print(f"  free-running 3 steps: losses card "
+          f"{[round(x[0], 6) for x in card]}, cpu "
+          f"{[round(x[0], 6) for x in cpu]} (within {loss_drift:.3g} "
+          f"relative); parameters after step 3 within {drift:.3g} relative "
+          f"L2, worst leaf; limits {FREE_RUN_TOL}", flush=True)
+    require(all(math.isfinite(x[0]) for x in card) and
+            card[-1][0] < card[0][0], "path 9b: the loss did not fall")
+    require(loss_drift <= FREE_RUN_TOL["loss"] and
+            drift <= FREE_RUN_TOL["params"],
+            "path 9b: the free-running steps drift past the flip model")
+    # save after step 2, restore into a fresh trainer, take step 3
+    _, params, opt = run(DEV, steps=2)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(2, (params, opt))
+        fresh = to(p0, DEV)
+        (params, opt), meta = mgr.restore(
+            (fresh, adamw.init_opt_state(fresh, tc)), device=DEV)
+    resumed = run(DEV, steps=1, params=params, opt=opt, start=2)[0][0]
+    bitwise = resumed[0] == card[2][0] and all(
+        torch.equal(a, b) for a, b in zip(T.leaves(resumed[2]),
+                                          T.leaves(card[2][2])))
+    rel = max(float((a.double() - b.double()).norm() / b.double().norm())
+              for a, b in zip(T.leaves(resumed[2]), T.leaves(card[2][2])))
+    print(f"  restored at step 2, step 3: loss {resumed[0]:.6f} against "
+          f"{card[2][0]:.6f} uninterrupted; parameters "
+          f"{'bitwise equal' if bitwise else f'within {rel:.3g} rel L2'}",
+          flush=True)
+    require(abs(resumed[0] - card[2][0]) <= 1e-6 * abs(card[2][0]) and
+            rel <= 1e-5, "path 9b: the restored step differs")
+    require(not any(K.launch_counts().values()),
+            "path 9b: a kernel ran in training")
+    RESULTS["path9b"] = dict(tolerances=tol, worst_a_step=worst,
+                             free_tolerances=FREE_RUN_TOL, free_drift=drift,
+                             free_loss_drift=loss_drift,
+                             losses_card=[x[0] for x in card],
+                             losses_cpu=[x[0] for x in cpu],
+                             restored_bitwise=bitwise, restored_rel=rel)
 
 
 def main():
@@ -3853,6 +4384,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     path8()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path9()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path9b()
 
     # one row per kernel: its path's shape in the paths' f32, and its
     # launches on the path that runs it

@@ -1,1 +1,1 @@
-"""PTQ artifacts on disk: quantize once, serve many."""
+"""Train checkpoints and PTQ artifacts on disk, in the reference's files."""

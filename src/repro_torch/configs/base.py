@@ -1,4 +1,4 @@
-"""Model / quantization configuration dataclasses (port of
+"""Model / quantization / training configuration dataclasses (port of
 ``repro/configs/base.py``: the dense, VLM-stub and MoE decoder families,
 GQA or Multi-head Latent Attention, the Zamba2-style hybrid (Mamba2 plus a
 weight-shared attention block), the attention-free RWKV6 stack and the
@@ -183,3 +183,19 @@ class QuantConfig:
     # W4A8 eligibility: a smoothing group whose worst post-smoothing
     # per-token int8 round-trip error exceeds this stays A16
     a8_threshold: float = 0.015
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatch: Optional[int] = None   # per-device microbatching (grad accum)
+    remat: str = "block"               # none | block | full
+    zero_sharded_optimizer: bool = True
+    grad_compression: str = "none"     # none | int8_ef

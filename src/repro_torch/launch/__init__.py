@@ -1,1 +1,2 @@
-"""Drivers (serve)."""
+"""Drivers (serve, train, the trace viewer) and the card's measurement
+scripts."""

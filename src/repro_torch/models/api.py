@@ -15,8 +15,10 @@ copy-on-write page.  An encoder-decoder config (``cfg.encdec``: Whisper,
 ``models/whisper.py``) takes its frame embeddings as ``batch["frames"]``
 and owns a third leaf, refcounted read-only encoder pages
 (:func:`encode_kv_fn` computes their rows at admission); its paged entry
-points take the slot's encoder page table and valid length.  The
-reference's training loss and shape specs are not ported.
+points take the slot's encoder page table and valid length.
+:func:`loss_fn` is the training loss.  The reference's shape specs
+(``input_specs``, ``cache_specs``, ``supports_shape``) are not ported: they
+serve its sharding and dry-run tools.
 """
 from __future__ import annotations
 
@@ -75,6 +77,19 @@ def forward_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
                                  cfg)
     return LM.lm_forward(params, batch["tokens"], cfg,
                          embeds=batch.get("embeds"))
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False
+            ) -> torch.Tensor:
+    """The training loss of the reference's batch dict: ``tokens`` and
+    ``labels`` ``[B, T]``, plus ``embeds`` (the VLM stub) or ``frames``
+    (the encoder-decoder); mean cross entropy in f32, plus 0.01 times the
+    MoE aux loss.  ``remat`` recomputes each block in the backward pass."""
+    if cfg.encdec:
+        return W.whisper_loss(params, batch["frames"], batch["tokens"],
+                              batch["labels"], cfg, remat=remat)
+    return LM.lm_loss(params, batch["tokens"], batch["labels"], cfg,
+                      embeds=batch.get("embeds"), remat=remat)
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,

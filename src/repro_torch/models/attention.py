@@ -1,5 +1,6 @@
 """GQA and Multi-head Latent Attention (port of ``repro/models/attention.py``:
-GQA, and MLA's paged absorbed forms).
+GQA, and MLA's expanded full-sequence form and absorbed decode forms,
+contiguous and paged).
 
 Caches: the contiguous decode cache is ``{"k"/"v": [B, S, Hkv, Dh],
 "lens": [B]}`` (int8 codes plus ``{"k_s"/"v_s": [B, S, Hkv]}`` under
@@ -7,7 +8,9 @@ Caches: the contiguous decode cache is ``{"k"/"v": [B, S, Hkv, Dh],
 Dh]}`` shared across slots, addressed through ``table_rows[B, P]`` (dead
 entries point at the trash page 0).  Under ``cfg.kv_quant`` the pools hold
 int8 codes plus ``{"k_s"/"v_s": [num_pages, page_size, Hkv]}`` f32 scales
-(:func:`kv_quantize_rows`).  MLA pages only its compressed latent:
+(:func:`kv_quantize_rows`).  MLA caches only its compressed latent, the
+contiguous ``{"ckv": [B, S, r], "kpe": [B, S, dr], "lens": [B]}`` (never
+quantized, as in the reference) and the paged
 ``{"ckv": [num_pages, page_size, r], "kpe": [num_pages, page_size, dr]}``,
 plus ``{"ckv_s"/"kpe_s": [num_pages, page_size]}`` under ``kv_quant``.
 
@@ -174,17 +177,20 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, smax: int, device):
 
 
 def pad_kv(slab, new, cfg: ModelConfig):
-    """Write a prefill's raw KV (``[B, T, Hkv, Dh]``) into the smax slab in
-    place: under ``kv_quant`` as int8 codes + row scales (the codes the
-    paged admission writes)."""
-    t = new["k"].shape[1]
-    for key in ("k", "v"):
-        if cfg.kv_quant:
-            codes, scl = kv_quantize_rows(new[key])
+    """Write a prefill's raw cache rows (GQA ``k``/``v [B, T, Hkv, Dh]``,
+    MLA ``ckv [B, T, r]`` / ``kpe [B, T, dr]``) into the smax slab in place:
+    into an int8 slab (GQA under ``kv_quant``) as codes + row scales (the
+    codes the paged admission writes)."""
+    t = next(v for k, v in new.items() if k != "lens").shape[1]
+    for key, rows in new.items():
+        if key == "lens":
+            continue
+        if key + "_s" in slab:
+            codes, scl = kv_quantize_rows(rows)
             slab[key][:, :t] = codes
             slab[key + "_s"][:, :t] = scl
         else:
-            slab[key][:, :t] = new[key].to(slab[key].dtype)
+            slab[key][:, :t] = rows.to(slab[key].dtype)
     slab["lens"].copy_(new["lens"])
     return slab
 
@@ -553,6 +559,38 @@ def mla_decode_paged(p, x, positions, pool, table_rows, write_pos,
         out = _mla_absorbed_attend(p, q_nope, q_pe, ckv, kpe, valid, cfg)
     y = L.apply_linear(p["wo"], out.to(x.dtype), act=cfg.act_kernel)
     return y, pool
+
+
+def mla_decode(p, x, positions, cache, cfg: ModelConfig):
+    """Absorbed-form decode against the contiguous latent cache ``{"ckv":
+    [B, Smax, r], "kpe": [B, Smax, dr], "lens": [B]}`` (updated in place):
+    attention runs in the latent space, so the cache stays compressed.  x:
+    [B, 1, D]."""
+    b = x.shape[0]
+    q_nope, q_pe = _mla_q(p, x, positions, cfg)
+    ckv_new, kpe_new = _mla_latent(p, x, positions, cfg)
+    slot = cache["lens"].long()
+    idx = (torch.arange(b, device=x.device), slot)
+    cache["ckv"][idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["kpe"][idx] = kpe_new[:, 0].to(cache["kpe"].dtype)
+    valid = torch.arange(cache["ckv"].shape[1], device=x.device)[None, :] \
+        <= slot[:, None]
+    out = _mla_absorbed_attend(p, q_nope, q_pe, cache["ckv"], cache["kpe"],
+                               valid, cfg)
+    cache["lens"] += 1
+    y = L.apply_linear(p["wo"], out.to(x.dtype), act=cfg.act_kernel)
+    return y, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, smax: int, device):
+    """The contiguous latent cache, ``cfg.tdtype`` slabs (the reference
+    keeps it unquantized under ``kv_quant`` too)."""
+    m = cfg.mla
+    return {"ckv": torch.zeros(batch, smax, m.kv_lora_rank,
+                               dtype=cfg.tdtype, device=device),
+            "kpe": torch.zeros(batch, smax, m.qk_rope_head_dim,
+                               dtype=cfg.tdtype, device=device),
+            "lens": torch.zeros(batch, dtype=torch.int32, device=device)}
 
 
 def init_mla_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,

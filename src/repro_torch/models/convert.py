@@ -9,8 +9,10 @@ quantized-weight objects with ``packed`` / ``scales`` / ``zeros``.  The
 ``"groups"`` a list of g lists of k dicts; its weight-shared ``"shared"``
 block stays one dict.  An encoder-decoder's ``"enc"`` and ``"dec"``
 subtrees are converted the same way, each with its own ``"layers"``.  A quantized weight keeps its ``a8`` flag (one per
-stack in the reference, so the same on every layer of the stack).  :func:`to_reference` is its inverse, the layout
-of a PTQ artifact (``repro_torch.checkpoint.manager``).
+stack in the reference, so the same on every layer of the stack).
+:func:`to_reference` is its inverse, the layout of a PTQ artifact and of a
+train checkpoint (``repro_torch.checkpoint.manager``).  Both map an
+optimizer state too: its moment trees have the params' layout.
 bfloat16 arrays go through f32, which loses nothing; packed bytes keep the
 reference layout (no repack).  This module imports neither JAX nor the
 reference package.
@@ -64,8 +66,24 @@ def _lead_shape(node, n: int):
     return tuple((node.packed if _is_quantized(node) else node).shape[:n])
 
 
+def is_opt_state(node) -> bool:
+    """Whether ``node`` is an optimizer state (either package's)."""
+    return all(hasattr(node, f) for f in ("step", "mu", "nu", "ef"))
+
+
 def from_reference(tree, device="cpu"):
-    """Reference param tree (numpy leaves) → port params on ``device``."""
+    """Reference param tree (numpy leaves) → port params on ``device``.  An
+    optimizer state (the reference's ``OptState`` or the port's, with
+    ``step``, and ``mu`` / ``nu`` / ``ef`` trees in the params' layout, ``ef``
+    possibly None) becomes the port's ``OptState``."""
+    if is_opt_state(tree):
+        from repro_torch.optim.adamw import OptState
+
+        return OptState(
+            step=to_tensor(np.asarray(tree.step), device),
+            **{f: (None if getattr(tree, f) is None
+                   else from_reference(getattr(tree, f), device))
+               for f in ("mu", "nu", "ef")})
     out = {}
     for k, v in tree.items():
         if k in SIDES:
@@ -109,7 +127,15 @@ def to_reference(params):
     dicts stacked back into ``[L, ...]`` (``[g, k, ...]`` for the hybrid's
     groups; a quantized weight's ``a8`` flag set where it is set in every
     layer of the stack, as the reference keeps one per stack); the inverse
-    of :func:`from_reference`."""
+    of :func:`from_reference`.  The port's ``OptState`` maps to one whose
+    trees have this layout (its step a host tensor)."""
+    if is_opt_state(params):
+        from repro_torch.optim.adamw import OptState
+
+        return OptState(step=params.step.cpu(),
+                        **{f: (None if getattr(params, f) is None
+                               else to_reference(getattr(params, f)))
+                           for f in ("mu", "nu", "ef")})
     out = {}
     for k, v in params.items():
         if k in SIDES:

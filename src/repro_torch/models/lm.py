@@ -22,8 +22,12 @@ for GQA, the latent ``{"ckv", "kpe"}`` for MLA, plus their ``*_s`` scales
 under ``kv_quant``.  A hybrid slot's Mamba2 state lives beside them in the
 fixed-rows tree of :func:`init_fixed_state`.  The contiguous decode cache
 (:func:`init_cache`, :func:`lm_prefill`, :func:`lm_decode`) holds GQA slabs,
-hybrid and RWKV6 state; MLA's contiguous cache is not ported.  Every linear
-gets ``act=cfg.act_kernel``.  ``embeds`` (the VLM family's patch-embedding
+MLA's latent slabs, hybrid and RWKV6 state.  Every linear gets
+``act=cfg.act_kernel``.  Training reads :func:`lm_forward_aux` (the logits
+and the MoE aux loss summed over layers) through :func:`lm_loss`; with
+``remat`` each block (the hybrid stack: each Mamba2 block and each group)
+is recomputed in the backward pass, as the reference wraps the same bodies
+in ``jax.checkpoint``.  ``embeds`` (the VLM family's patch-embedding
 stub, ``[B, n, D]``) is added to the token embeddings of the first n
 positions, as in the reference.
 """
@@ -33,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -41,10 +46,6 @@ from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
-
-_MLA_CONTIGUOUS = ("MLA's contiguous decode cache (attention.py mla_decode, "
-                   "init_mla_cache) is not ported (ROADMAP.md queue A); "
-                   "serve MLA through the paged engine")
 
 
 def _init_mixer(gen: torch.Generator, cfg: ModelConfig, mixer: str):
@@ -100,13 +101,19 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def _mlp_aux(p: Params, h: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's MLP and its aux loss: the MoE and its load-balancing
+    loss, or the dense MLP and None."""
+    if cfg.moe is not None:
+        return M.apply_moe(p["mlp"], h, cfg)
+    return M.apply_mlp(p["mlp"], h, act=cfg.act_kernel), None
+
+
 def _channel_mix(p: Params, h: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    """The block's MLP: the MoE (its aux loss dropped: the port does not
-    train) or the dense SwiGLU."""
-    if cfg.moe is not None:
-        return M.apply_moe(p["mlp"], h, cfg)[0]
-    return M.apply_mlp(p["mlp"], h, act=cfg.act_kernel)
+    """The block's MLP in a serving step (the MoE's aux loss dropped)."""
+    return _mlp_aux(p, h, cfg)[0]
 
 
 def _shift(h: torch.Tensor) -> torch.Tensor:
@@ -119,7 +126,16 @@ def _block_forward(p: Params, x, positions, cfg: ModelConfig, *,
     """Full-sequence block (calibration, teacher-forced forward, the
     contiguous prefill).  With ``state`` it also returns the mixer's cache
     or recurrent state for :func:`_block_decode`."""
+    x, st, _ = _block_full(p, x, positions, cfg, mixer)
+    return (x, st) if state else x
+
+
+def _block_full(p: Params, x, positions, cfg: ModelConfig,
+                mixer: Optional[str] = None):
+    """:func:`_block_forward`'s body: (x, the mixer's cache or state, the
+    MoE aux loss or None)."""
     mixer = mixer or cfg.mixer
+    aux = None
     h = L.apply_norm(p["norm1"], x)
     if mixer == "mamba2":
         y, st = S.mamba2_forward(p["mixer"], h, cfg, return_state=True)
@@ -135,8 +151,9 @@ def _block_forward(p: Params, x, positions, cfg: ModelConfig, *,
             x = x + S.rwkv_channel_mix(p["mlp"], h2, _shift(h2), cfg)
             st = dict(st, ffn_prev=h2[:, -1])
         else:
-            x = x + _channel_mix(p, h2, cfg)
-    return (x, st) if state else x
+            y2, aux = _mlp_aux(p, h2, cfg)
+            x = x + y2
+    return x, st, aux
 
 
 def _block_decode(p: Params, x, positions, cache, cfg: ModelConfig, *,
@@ -150,7 +167,7 @@ def _block_decode(p: Params, x, positions, cache, cfg: ModelConfig, *,
         y, tc = S.rwkv6_decode(p["mixer"], h, cache, cfg)
         cache = dict(tc, ffn_prev=cache["ffn_prev"])
     elif mixer == "mla":
-        raise NotImplementedError(_MLA_CONTIGUOUS)
+        y, cache = A.mla_decode(p["mixer"], h, positions, cache, cfg)
     else:
         y, cache = A.gqa_decode(p["mixer"], h, positions, cache, cfg)
     x = x + y
@@ -220,23 +237,79 @@ def lm_forward(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                positions: Optional[torch.Tensor] = None,
                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Teacher-forced forward: tokens[B, T] → logits[B, T, V] f32."""
+    return lm_forward_aux(p, tokens, cfg, positions=positions,
+                          embeds=embeds)[0]
+
+
+def checkpointed(fn, on: bool):
+    """``fn`` recomputed in the backward pass (``jax.checkpoint``'s
+    counterpart) when ``on``."""
+    if not on:
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def lm_forward_aux(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   positions: Optional[torch.Tensor] = None,
+                   embeds: Optional[torch.Tensor] = None,
+                   remat: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward for training: (logits[B, T, V] f32, the MoE
+    aux loss summed over layers, an f32 scalar; 0 without MoE).  ``remat``
+    recomputes each block in the backward pass (the hybrid stack: each
+    Mamba2 block, and each group around them)."""
     b, t = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
     x = embed_in(p, tokens, embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         scfg = cfg.with_(moe=None)
-        for group in p["groups"]:
+        mamba = checkpointed(
+            lambda lp, x: _block_full(lp, x, positions, cfg)[0], remat)
+
+        def group_body(group, x):
             for lp in group:
-                x = _block_forward(lp, x, positions, cfg)
-            x = _block_forward(p["shared"], x, positions, scfg,
-                               mixer="attention")
+                x = mamba(lp, x)
+            return _block_full(p["shared"], x, positions, scfg,
+                               "attention")[0]
+
+        group = checkpointed(group_body, remat)
+        for gp in p["groups"]:
+            x = group(gp, x)
         for lp in p.get("tail", ()):
-            x = _block_forward(lp, x, positions, cfg)
+            x = mamba(lp, x)
     else:
+        def body(lp, x):
+            x, _, a = _block_full(lp, x, positions, cfg)
+            return x, a
+
+        body = checkpointed(body, remat)
         for lp in p["layers"]:
-            x = _block_forward(lp, x, positions, cfg)
-    return _lm_head(p, x, cfg)
+            x, a = body(lp, x)
+            if a is not None:
+                aux = aux + a
+    return _lm_head(p, x, cfg), aux
+
+
+def lm_loss(p: Params, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, *, positions=None, embeds=None,
+            remat: bool = False, aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 plus ``aux_weight`` times the
+    MoE aux loss."""
+    logits, aux = lm_forward_aux(p, tokens, cfg, positions=positions,
+                                 embeds=embeds, remat=remat)
+    return cross_entropy(logits, labels) + aux_weight * aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """``mean(logsumexp − gold)`` in f32.  The gold logit is gathered: the
+    reference reduces a one-hot instead, the same math, chosen there only
+    so that vocab-sharded logits reduce locally."""
+    logits = logits.to(torch.float32)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
 
 
 # ---------------------------------------------------- contiguous cache ---
@@ -251,7 +324,8 @@ def _one_state(cfg: ModelConfig, batch: int, device):
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device) -> Any:
     """The contiguous decode cache: GQA ``[B, smax]`` slabs per layer
-    (int8 codes + scales under ``kv_quant``), recurrent state per RWKV6
+    (int8 codes + scales under ``kv_quant``), MLA's latent ``ckv`` / ``kpe``
+    slabs per layer, recurrent state per RWKV6
     layer, and for the hybrid stack ``{"groups": [g][k] Mamba2 states,
     "shared": [g] GQA slabs, "tail": [tail] states or None}``."""
     if cfg.family == "hybrid":
@@ -263,7 +337,8 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device) -> Any:
                 "tail": ([_one_state(cfg, batch, device)
                           for _ in range(tail)] if tail else None)}
     if cfg.mixer == "mla":
-        raise NotImplementedError(_MLA_CONTIGUOUS)
+        return {"layers": [A.init_mla_cache(cfg, batch, smax, device)
+                           for _ in range(cfg.num_layers)]}
     if cfg.mixer == "attention":
         return {"layers": [A.init_gqa_cache(cfg, batch, smax, device)
                            for _ in range(cfg.num_layers)]}
@@ -305,9 +380,7 @@ def lm_prefill(p: Params, tokens: torch.Tensor, cfg: ModelConfig, smax: int,
                 x, st = _block_forward(lp, x, positions, cfg, state=True)
                 cache["tail"].append(st)
         return _lm_head(p, x[:, t - 1:], cfg)[:, 0], cache
-    if cfg.mixer == "mla":
-        raise NotImplementedError(_MLA_CONTIGUOUS)
-    slabs = (None if cfg.mixer != "attention"
+    slabs = (None if cfg.mixer not in ("attention", "mla")
              else init_cache(cfg, b, smax, dev)["layers"])
     layers = []
     for i, lp in enumerate(p["layers"]):

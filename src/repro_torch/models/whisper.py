@@ -39,6 +39,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import lm as LM
 from repro_torch.models import mlp as M
 
 Params = Dict[str, Any]
@@ -100,14 +101,16 @@ def enc_block(lp: Params, x, pos, cfg: ModelConfig) -> torch.Tensor:
     return x + M.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], x))
 
 
-def encode(p: Params, frames: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
-    """frames ``[B, T_enc, D]`` → the encoder output ``[B, T_enc, D]``."""
+def encode(p: Params, frames: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = False) -> torch.Tensor:
+    """frames ``[B, T_enc, D]`` → the encoder output ``[B, T_enc, D]``;
+    ``remat`` recomputes each block in the backward pass."""
     b, t, d = frames.shape
     x = frames + sinusoid(t, d, device=frames.device).to(frames.dtype)[None]
     pos = _positions(b, t, frames.device)
+    block = LM.checkpointed(lambda lp, x: enc_block(lp, x, pos, cfg), remat)
     for lp in p["enc"]["layers"]:
-        x = enc_block(lp, x, pos, cfg)
+        x = block(lp, x)
     return L.apply_norm(p["enc"]["final_norm"], x)
 
 
@@ -171,15 +174,26 @@ def _head(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def whisper_forward(p: Params, frames: torch.Tensor, tokens: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
-    """Teacher-forced logits ``[B, T_dec, V]`` f32."""
-    enc_out = encode(p, frames, cfg)
+                    cfg: ModelConfig, *, remat: bool = False
+                    ) -> torch.Tensor:
+    """Teacher-forced logits ``[B, T_dec, V]`` f32; ``remat`` recomputes
+    each encoder and decoder block in the backward pass."""
+    enc_out = encode(p, frames, cfg, remat=remat)
     b, t = tokens.shape
     x = _embed(p, tokens, sinusoid(t, cfg.d_model, device=tokens.device)[None])
     pos = _positions(b, t, tokens.device)
+    block = LM.checkpointed(
+        lambda lp, x: _dec_block(lp, x, pos, enc_out, cfg)[0], remat)
     for lp in p["dec"]["layers"]:
-        x, _, _ = _dec_block(lp, x, pos, enc_out, cfg)
+        x = block(lp, x)
     return _head(p, x)
+
+
+def whisper_loss(p: Params, frames, tokens, labels, cfg: ModelConfig, *,
+                 remat: bool = False) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 (no aux term)."""
+    return LM.cross_entropy(whisper_forward(p, frames, tokens, cfg,
+                                            remat=remat), labels)
 
 
 # ---------------------------------------------------- contiguous cache ---

@@ -16,7 +16,15 @@ deepseek-v2-236b smoke config, against the JAX package on the same weights:
 - the port's CPU engine, fp and int8 latent pools, on the reference's
   quantized weights, emits the JAX ``ServingEngine(backend="xla")``'s
   greedy tokens;
-- ``launch/serve.py --arch deepseek-v2-236b --smoke --device cpu`` serves.
+- ``launch/serve.py --arch deepseek-v2-236b --smoke --device cpu`` serves;
+- MLA's contiguous latent cache: ``api.prefill_fn`` and five greedy
+  ``api.decode_fn`` steps, fp and on the reference's quantized weights,
+  against the JAX package's step by step (logits rtol/atol 1e-4, the
+  reference's next tokens fed to both; cache rows rtol/atol 1e-5; the same
+  greedy tokens), and ``init_decode_cache``'s leaves against the
+  reference's ``[L, ...]`` stacks;
+- ``kernels.ops.quantized_linear`` (K1 plus a bias) against the reference's
+  ``backend="xla"`` at rtol/atol 1e-5 (f32, sums in another order).
 """
 import jax
 import jax.numpy as jnp
@@ -38,6 +46,7 @@ from repro_torch.core import apply as TAP
 from repro_torch.core import calibration as TC
 from repro_torch.core import smoothing as TSM
 from repro_torch.core.quantize import QuantizedTensor, unpack_codes
+from repro_torch.models import api as tapi
 from repro_torch.models import convert
 from repro_torch.models import lm as TLM
 from repro_torch.serving import engine as TE
@@ -212,3 +221,77 @@ def test_serve_cli_deepseek_smoke_cpu():
                for r in res["requests"])
     assert res["engine"].stats.completed == 5
     assert "wkv_b_absorbed" in res["engine"].params["layers"][0]["mixer"]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_deepseek_contiguous_cache_steps_match_jax(ref, quant):
+    jcfg, tcfg = ref["jcfg"], _tcfg()
+    jp = ref["jq"] if quant else jax.tree.map(jnp.asarray, ref["np_params"])
+    tp = convert.from_reference(jax.tree.map(np.asarray, jp))
+    toks = np.random.default_rng(3).integers(
+        2, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    smax = 20
+    jl, jc = japi.prefill_fn(jp, {"tokens": jnp.asarray(toks)}, jcfg, smax,
+                             backend="xla")
+    tl, tc = tapi.prefill_fn(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
+                             smax)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    for i, lc in enumerate(tc["layers"]):
+        assert set(lc) == {"ckv", "kpe", "lens"}
+        for k in ("ckv", "kpe"):
+            np.testing.assert_allclose(lc[k].numpy(),
+                                       np.asarray(jc["layers"][k][i]),
+                                       rtol=1e-5, atol=1e-5)
+        assert lc["lens"].tolist() == [12, 12]
+    jdecode = jax.jit(lambda p, b, c: japi.decode_fn(p, b, c, jcfg,
+                                                     backend="xla"))
+    for step in range(5):
+        nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+        assert tl.argmax(-1).tolist() == nxt.tolist(), f"step {step}"
+        pos = np.full(2, 12 + step, np.int32)
+        jl, jc = jdecode(jp, {"token": jnp.asarray(nxt[:, None]),
+                              "position": jnp.asarray(pos)}, jc)
+        tl, tc = tapi.decode_fn(
+            tp, {"token": torch.from_numpy(nxt[:, None]),
+                 "position": torch.from_numpy(pos)}, tc, tcfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4, err_msg=f"decode step {step}")
+    assert tc["layers"][0]["lens"].tolist() == [17, 17]
+
+
+def test_deepseek_init_decode_cache_matches_jax(ref):
+    from repro.models import lm as JLM
+
+    jc = JLM.init_cache(ref["jcfg"], 3, 10)
+    tc = tapi.init_decode_cache(_tcfg(), 3, 10, device="cpu")
+    assert len(tc["layers"]) == ref["jcfg"].num_layers
+    for k, leaf in jc["layers"].items():
+        for lc in tc["layers"]:
+            assert tuple(lc[k].shape) == leaf.shape[1:], k
+            assert str(lc[k].dtype).removeprefix("torch.") == str(leaf.dtype)
+
+
+def test_quantized_linear_matches_jax():
+    from repro.core import quantize as JQ
+    from repro.kernels import ops as JOPS
+    from repro_torch.kernels import ops as TOPS
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 48)) * 0.125).astype(np.float32)
+    bias = rng.standard_normal(48).astype(np.float32)
+    jqt = JQ.quantize(jnp.asarray(w), GROUP)
+    want = JOPS.quantized_linear(jnp.asarray(x), jqt, jnp.asarray(bias),
+                                 backend="xla")
+    tqt = QuantizedTensor(*(torch.from_numpy(np.array(getattr(jqt, f)))
+                            for f in ("packed", "scales", "zeros")))
+    got = TOPS.quantized_linear(torch.from_numpy(x), tqt,
+                                torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        TOPS.quantized_linear(torch.from_numpy(x), tqt).numpy(),
+        np.asarray(JOPS.quantized_linear(jnp.asarray(x), jqt,
+                                         backend="xla")), rtol=1e-5,
+        atol=1e-5)

@@ -316,6 +316,9 @@ def test_registry_has_the_ssm_configs():
     with pytest.raises(ValueError, match="disagree"):
         get_config("whisper-medium").with_(family="dense").check()
     dcfg = get_config("deepseek-v2-236b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_decode_cache(dcfg, 1, 8, device="cpu")
+    # MLA's contiguous latent cache is ported (it raised here before)
+    dc = api.init_decode_cache(dcfg, 1, 8, device="cpu")
+    assert [set(lc) for lc in dc["layers"]] == \
+        [{"ckv", "kpe", "lens"}] * dcfg.num_layers
+    assert dc["layers"][0]["ckv"].shape == (1, 8, dcfg.mla.kv_lora_rank)
     assert api.paged_supported(get_config("rwkv6-7b"))[0] is False
