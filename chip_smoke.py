@@ -202,6 +202,18 @@ Imports neither JAX nor the JAX package.  Phases, each fatal on failure:
    CPU, each from the CPU's state (``TRAIN_STEP_TOL``), then 3 steps run
    free on each (``FREE_RUN_TOL``), and a checkpoint saved at step 2 and restored on the card
    taking step 3 (bitwise or not, printed);
+   path 10a — right after path 1's decode profile, ``launch/op_cost.py``
+   over meta copies of path 1's params and pools (nothing allocated, no
+   kernel launched): the FLOPs and bytes of the decode step its graph
+   replays (batch 4) and of a B=2, T=256 prefill chunk, their compute and
+   memory terms at the H100 SXM's constants (``launch/roofline.py``), and
+   the decode step's share, bound / the device ms path 1's profile read;
+   path 10b — after path 9b, a (1, 1) ``DeviceMesh`` on the card (one
+   NCCL rank from a ``FileStore``): 9b's checkpoint restored with the
+   rules' placements, every leaf bitwise equal to the plain restore, then
+   one train step with params, optimizer state and batch placed as
+   ``DTensor`` s held to the unplaced step (``TEN_B_TOL``); the group is
+   destroyed;
 4. summary — a ``kernels`` JSON line, the card line, and the final ``ok``
    line.  ``--json PATH`` also writes every measurement to PATH.
 
@@ -1787,6 +1799,10 @@ def main_path():
         **check_decode_graph(eng, "path 1"))
     outputs = [list(r.output) for r in reqs]
     profile_decode(eng, reqs, "profile")
+    print("path 10a: path 1's whole-step roofline (op_cost on meta copies of "
+          "its decode step and a B=2, T=256 prefill chunk; H100 SXM "
+          "constants)", flush=True)
+    path10a(eng)
     path1b(eng.params, cfg, reqs, outputs)
     path1c(eng.params, res["report"], cfg, outputs, res["ptq_s"])
     waves, cold_outputs = path1d(eng.params, cfg)
@@ -4204,7 +4220,7 @@ def _moved_and_rest(a, b, moved_at=1e-3):
     return int((~keep).sum()), rest
 
 
-def path9b():
+def path9b(ckpt_dir):
     """The training route held to its CPU version (no kernel is on it):
     codellama-7b smoke, f32 with TF32 off, ``microbatch=2`` and
     ``grad_compression="int8_ef"``, 3 steps.  Each step is checked from one
@@ -4292,12 +4308,11 @@ def path9b():
             "path 9b: the free-running steps drift past the flip model")
     # save after step 2, restore into a fresh trainer, take step 3
     _, params, opt = run(DEV, steps=2)
-    with tempfile.TemporaryDirectory() as d:
-        mgr = CheckpointManager(d)
-        mgr.save(2, (params, opt))
-        fresh = to(p0, DEV)
-        (params, opt), meta = mgr.restore(
-            (fresh, adamw.init_opt_state(fresh, tc)), device=DEV)
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(2, (params, opt))
+    fresh = to(p0, DEV)
+    (params, opt), meta = mgr.restore(
+        (fresh, adamw.init_opt_state(fresh, tc)), device=DEV)
     resumed = run(DEV, steps=1, params=params, opt=opt, start=2)[0][0]
     bitwise = resumed[0] == card[2][0] and all(
         torch.equal(a, b) for a, b in zip(T.leaves(resumed[2]),
@@ -4318,6 +4333,158 @@ def path9b():
                              losses_card=[x[0] for x in card],
                              losses_cpu=[x[0] for x in cpu],
                              restored_bitwise=bitwise, restored_rel=rel)
+    return dict(cfg=cfg, tc=tc, p0=p0, data=data[DEV], ckpt=ckpt_dir)
+
+
+def _to_meta(tree):
+    """``tree`` with every tensor (and quantized weight) as a meta tensor
+    of its shape and dtype: nothing copied."""
+    from repro_torch import tree as T
+
+    return T.map_leaves(lambda t: t.map(lambda u: u.to("meta"))
+                        if isinstance(t, QuantizedTensor) else t.to("meta"),
+                        tree)
+
+
+def path10a(eng):
+    """The whole-step roofline share of path 1: ``launch/op_cost.py`` over
+    meta copies of path 1's decode step (the call its decode graph replays:
+    ``api.decode_paged_fn`` at batch 4 against path 1's pools and page
+    table) and of one prefill chunk (B=2, T=256), the H100 SXM's constants
+    (``launch/roofline.py``) for the bound, and the decode step's device ms
+    from :func:`profile_decode`: share = bound / device ms."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.op_cost import op_cost
+    from repro_torch.models import api
+
+    cfg, b = eng.cfg, 4
+    params, pools = _to_meta(eng.params), _to_meta(eng.pools)
+    i32 = dict(dtype=torch.int32, device="meta")
+    K.reset_launch_counts()
+    dec = op_cost(api.decode_paged_fn, params,
+                  {"token": torch.empty(b, 1, **i32),
+                   "position": torch.empty(b, **i32)}, pools,
+                  torch.empty(b, eng.P, **i32), cfg)
+    pre = op_cost(api.prefill_chunk_fn, params,
+                  {"tokens": torch.empty(2, 256, **i32)}, pools,
+                  torch.empty(2, eng.P, **i32), torch.empty(2, **i32),
+                  torch.empty(2, **i32), cfg,
+                  last_idx=torch.empty(2, **i32))
+    require(not any(K.launch_counts().values()),
+            "path 10a: a kernel launched on meta tensors")
+    prof = RESULTS["profile"]
+    dev_ms = prof["device_busy_s"] / prof["decode_steps"] * 1e3
+    out = {}
+    for name, c in (("decode", dec), ("prefill_chunk", pre)):
+        rl = RL.Roofline(flops=c["flops"], hbm_bytes=c["bytes"],
+                         coll_bytes=0.0, chips=1, model_flops=0.0)
+        bound_ms = max(rl.t_compute, rl.t_memory) * 1e3
+        require(math.isfinite(bound_ms) and bound_ms > 0,
+                f"path 10a: no bound for the {name}")
+        out[name] = dict(flops=c["flops"], bytes=c["bytes"],
+                         t_compute_ms=rl.t_compute * 1e3,
+                         t_memory_ms=rl.t_memory * 1e3, bound_ms=bound_ms,
+                         bytes_by_op=c["bytes_by_op"])
+        top = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sorted(
+            c["bytes_by_op"].items(), key=lambda kv: -kv[1])[:5])
+        print(f"  {name}: {c['flops']:.6g} FLOPs, {c['bytes']:.6g} bytes "
+              f"({top}); t_compute {rl.t_compute * 1e3:.4f} ms, t_memory "
+              f"{rl.t_memory * 1e3:.4f} ms, bound {bound_ms:.4f} ms",
+              flush=True)
+    share = out["decode"]["bound_ms"] / dev_ms
+    require(math.isfinite(share) and share > 0, "path 10a: no share")
+    print(f"  decode step: bound {out['decode']['bound_ms']:.4f} ms against "
+          f"{dev_ms:.4f} device ms (profile_decode): share {share:.4f}",
+          flush=True)
+    RESULTS["path10a"] = dict(out, device_ms=dev_ms, share=share)
+
+
+TEN_B_TOL = {"loss": 1e-6, "params": 1e-6}
+
+
+def path10b(state):
+    """The local mesh on the card: a (1, 1) ``DeviceMesh`` on ``cuda``
+    (one rank, NCCL, a ``FileStore`` group).  Path 9b's train checkpoint
+    restored with placements must equal ``restore(device="cuda")`` bit for
+    bit, leaf by leaf; then one codellama-smoke train step with the params
+    and optimizer state placed as ``DTensor`` s, from that state, held to
+    the unplaced step (``TEN_B_TOL``: relative loss, worst leaf's relative
+    L2); the group is destroyed before the next path."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import mesh as LMESH
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train.trainer import make_train_step
+
+    cfg, tc, p0, data, ckpt = (state[k] for k in ("cfg", "tc", "p0", "data",
+                                                  "ckpt"))
+    print(f"path 10b: a (1, 1) mesh on the card; path 9b's checkpoint "
+          f"restored with placements, one placed train step; tolerances "
+          f"{TEN_B_TOL}", flush=True)
+    mesh = LMESH.make_local_mesh(device_type="cuda")
+    require(tuple(mesh.shape) == (1, 1), "path 10b: not a (1, 1) mesh")
+    K.reset_launch_counts()
+    fresh = T.map_leaves(lambda t: t.to(DEV, copy=True), p0)
+    like = (fresh, adamw.init_opt_state(fresh, tc))
+    pspecs = rules.param_specs(fresh, mesh, cfg)
+    ospecs = rules.opt_specs(like[1], pspecs, mesh)
+    mgr = CheckpointManager(ckpt)
+    (params, opt), _ = mgr.restore(like, device=DEV)
+    (dparams, dopt), _ = mgr.restore(like, mesh=mesh,
+                                     specs=(pspecs, ospecs))
+    n = 0
+
+    def same(t, spec, want):
+        nonlocal n
+        require(isinstance(t, DTensor) and t.placements == tuple(
+            rules.placements(spec, mesh)), "path 10b: a leaf not placed")
+        require(t.to_local().dtype == want.dtype
+                and torch.equal(t.to_local(), want),
+                "path 10b: a placed leaf differs from the plain restore")
+        n += 1
+
+    for placed, plain, specs in ((dparams, params, pspecs),
+                                 (dopt, opt, ospecs)):
+        flat = T.leaves(plain) if not isinstance(plain, adamw.OptState) \
+            else [plain.step, *T.leaves(plain.mu), *T.leaves(plain.nu),
+                  *T.leaves(plain.ef)]
+        it = iter(flat)
+        rules.map_specs(lambda t, sp: same(t, sp, next(it)), placed, specs)
+    print(f"  restore with placements: {n} leaves, every one bitwise equal "
+          "to restore(device='cuda')", flush=True)
+    step = make_train_step(cfg, tc)
+    batch = data.batch_at(3)
+    dbatch = rules.map_specs(lambda t, sp: distribute_tensor(
+        t, mesh, rules.placements(sp, mesh)), batch,
+        rules.batch_specs(batch, mesh))
+    p1, _, m1 = step(params, opt, batch)
+    with implicit_replication():
+        p2, _, m2 = step(dparams, dopt, dbatch)
+    torch.cuda.synchronize()
+    l2 = m2["loss"].full_tensor() if isinstance(m2["loss"], DTensor) \
+        else m2["loss"]
+    loss_rel = abs(float(l2) - float(m1["loss"])) / abs(float(m1["loss"]))
+    rel = max(float((a.full_tensor().double() - b.double()).norm()
+                    / b.double().norm().clamp_min(1e-30))
+              for a, b in zip(T.leaves(p2), T.leaves(p1)))
+    bitwise = all(torch.equal(a.full_tensor(), b)
+                  for a, b in zip(T.leaves(p2), T.leaves(p1)))
+    print(f"  placed step: loss {float(l2):.6f} against {float(m1['loss']):.6f}"
+          f" unplaced (relative {loss_rel:.3g}); parameters "
+          f"{'bitwise equal' if bitwise else f'within {rel:.3g} rel L2'}",
+          flush=True)
+    require(loss_rel <= TEN_B_TOL["loss"] and rel <= TEN_B_TOL["params"],
+            "path 10b: the placed step differs from the unplaced one")
+    require(not any(K.launch_counts().values()),
+            "path 10b: a kernel ran in training")
+    LMESH.close_mesh()
+    RESULTS["path10b"] = dict(tolerances=TEN_B_TOL, leaves=n,
+                              loss_rel=loss_rel, params_rel=rel,
+                              bitwise=bitwise)
 
 
 def main():
@@ -4389,7 +4556,11 @@ def main():
     path9()
     gc.collect()
     torch.cuda.empty_cache()
-    path9b()
+    with tempfile.TemporaryDirectory() as ckpt:
+        state = path9b(ckpt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        path10b(state)
 
     # one row per kernel: its path's shape in the paths' f32, and its
     # launches on the path that runs it

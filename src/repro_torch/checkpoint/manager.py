@@ -177,10 +177,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, step: Optional[int] = None, *,
-                device=None) -> Tuple[Any, Dict]:
+                device=None, mesh=None, specs=None) -> Tuple[Any, Dict]:
         """(the tree saved at ``step`` (the latest when None) in the
         structure and dtypes of ``like``, on ``device`` (``like``'s when
-        None); its metadata)."""
+        None); its metadata).  With a ``DeviceMesh`` and a spec tree of
+        ``like``'s structure (``sharding/rules.py``; a
+        ``(params, OptState)`` pair takes a pair of spec trees), every leaf
+        comes back as a ``DTensor`` with its spec's placements, each rank
+        keeping its own shard of the file's data (the reference's
+        ``restore(shardings=)``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -189,6 +194,15 @@ class CheckpointManager:
             flat = {k: z[k] for k in z.files}
         dev = device if device is not None else T.leaves(like)[0].device
         tree = _port_tree(_fill_ref(_ref_tree(like), flat), dev)
+        if mesh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            from repro_torch.sharding import rules
+
+            tree = rules.map_specs(
+                lambda t, sp: distribute_tensor(
+                    t, mesh, rules.placements(sp, mesh), src_data_rank=None),
+                tree, specs)
         return tree, json.loads((d / "meta.json").read_text())
 
 

@@ -12,7 +12,7 @@ with the ``ROADMAP.md`` item that brings them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -169,6 +169,25 @@ class ModelConfig:
             raise NotImplementedError(
                 f"{self.name}: the MoE experts are SwiGLU only")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run (input-shape) cell, the reference's four."""
+    name: str                          # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4_096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    ShapeConfig("decode_32k", "decode", 32_768, 128),
+    ShapeConfig("long_500k", "decode", 524_288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -131,9 +131,21 @@ def unpack_codes(packed: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE
 
 def quantize(w: torch.Tensor, group_size: int = DEFAULT_GROUP_SIZE,
              dtype: torch.dtype | None = None) -> QuantizedTensor:
-    """Group-wise asymmetric 4-bit RTN quantization of ``W[*lead, Ci, Co]``."""
+    """Group-wise asymmetric 4-bit RTN quantization of ``W[*lead, Ci, Co]``.
+    A meta weight gives empty meta leaves of the same shapes and dtypes
+    (the dry-run's quantized tree; nothing is computed)."""
     _check_nd(w)
     dtype = dtype or w.dtype
+    if w.device.type == "meta":
+        *lead, ci, co = w.shape
+        if ci % group_size != 0:
+            raise ValueError(
+                f"Ci={ci} not divisible by group_size={group_size}")
+        grid = (*lead, ci // group_size, co)
+        return QuantizedTensor(
+            torch.empty(*lead, ci // 2, co, dtype=torch.uint8, device="meta"),
+            torch.empty(grid, dtype=dtype, device="meta"),
+            torch.empty(grid, dtype=dtype, device="meta"))
     scales, zeros = compute_qparams(w, group_size)
     q = quantize_codes(w, scales, zeros, group_size)
     return QuantizedTensor(pack_codes(q, group_size), scales.to(dtype),

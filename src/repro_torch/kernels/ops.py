@@ -3,7 +3,9 @@
 
 There is no backend string: a CPU tensor takes the kernel's plain PyTorch
 version, a CUDA tensor launches the hand-written kernel or raises.  Nothing
-falls back from the kernel to the plain version.
+falls back from the kernel to the plain version.  A meta tensor (the
+dry-run's shapes) takes the plain version too, which there computes
+nothing.
 
 No kernel has a backward, in this package or in the reference (no Pallas
 kernel there has a ``custom_vjp``).  A CUDA launch goes through ``ctypes``,
@@ -60,8 +62,14 @@ def _no_grad(name: str, *operands) -> None:
 
 
 def _route(t: torch.Tensor) -> str:
+    """``"cuda"`` launches the kernel; ``"cpu"`` takes the plain version,
+    and so does a meta tensor, on which the plain version only propagates
+    shapes (the dry-run's op count: the reference's ``backend="xla"``
+    there)."""
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
+    if t.device.type == "meta":
+        return "cpu"
     raise ValueError(f"no kernel route for device {t.device}")
 
 

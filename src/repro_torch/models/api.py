@@ -16,9 +16,12 @@ copy-on-write page.  An encoder-decoder config (``cfg.encdec``: Whisper,
 and owns a third leaf, refcounted read-only encoder pages
 (:func:`encode_kv_fn` computes their rows at admission); its paged entry
 points take the slot's encoder page table and valid length.
-:func:`loss_fn` is the training loss.  The reference's shape specs
-(``input_specs``, ``cache_specs``, ``supports_shape``) are not ported: they
-serve its sharding and dry-run tools.
+:func:`loss_fn` is the training loss.  For the dry-run
+(``launch/dryrun.py``) and the sharding rules, :func:`input_specs` and
+:func:`cache_specs` give one (arch × shape) cell's batch and decode cache as
+meta tensors, the counterpart of the reference's ``ShapeDtypeStruct`` s
+(nothing is allocated), ``init_model(cfg, device="meta")`` the params'
+shapes and dtypes, and :func:`supports_shape` the cells a config skips.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models import whisper as W
 
@@ -37,6 +41,8 @@ from repro_torch.models import whisper as W
 #   kv_pages   read-write paged KV (attention / MLA / hybrid shared attention)
 #   fixed_rows per-layer O(1) SSM state rows, swapped alongside KV pages
 #   shared_ro  refcounted read-only pages (encoder cross-attention K/V)
+VLM_PATCHES = 256  # the reference's stub: fixed vision-prefix length
+
 KV_PAGES = "kv_pages"
 FIXED_ROWS = "fixed_rows"
 SHARED_RO = "shared_ro"
@@ -59,10 +65,15 @@ def paged_supported(cfg: ModelConfig) -> Tuple[bool, str]:
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
-    """Random-weight params for ``cfg`` from a seeded ``torch.Generator``."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    """Random-weight params for ``cfg`` from a seeded ``torch.Generator``;
+    on ``device="meta"`` the full tree of empty meta tensors (shapes and
+    dtypes, nothing allocated: ``jax.eval_shape(init_model)``'s
+    counterpart)."""
+    if torch.device(device).type == "meta":
+        gen = L.MetaGenerator()
+    else:
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(seed)
     if cfg.check().encdec:
         return W.init_whisper(gen, cfg)
     return LM.init_lm(gen, cfg)
@@ -196,6 +207,59 @@ def decode_paged_fn(params, batch, cache, table_rows, cfg: ModelConfig, *,
             table_rows, active, cfg)
     return LM.lm_decode_paged(params, batch["token"], cache,
                               batch["position"], table_rows, cfg)
+
+
+# --------------------------------------------------------------- dry-run ----
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The batch of one (arch × shape) cell as meta tensors (nothing is
+    allocated).  ``decode`` cells: one new token against a ``seq_len``
+    cache (:func:`cache_specs`).  The audio and VLM frontends are stubs, as
+    in the reference: frames and patch embeddings arrive precomputed."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(*sh):
+        return torch.empty(sh, dtype=torch.int32, device="meta")
+
+    def emb(*sh):
+        return torch.empty(sh, dtype=cfg.tdtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.encdec:
+            h = s // 2
+            spec = {"frames": emb(b, h, cfg.d_model), "tokens": tok(b, h)}
+            if shape.kind == "train":
+                spec["labels"] = tok(b, h)
+            return spec
+        spec = {"tokens": tok(b, s)}
+        if shape.kind == "train":
+            spec["labels"] = tok(b, s)
+        if cfg.family == "vlm":
+            spec["embeds"] = emb(b, VLM_PATCHES, cfg.d_model)
+        return spec
+    if shape.kind == "decode":
+        return {"token": tok(b, 1), "position": tok(b)}
+    raise ValueError(shape.kind)
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The contiguous decode cache of a decode cell as meta tensors.  An
+    encoder-decoder holds ``seq_len // 2`` self and cross rows, as the
+    reference's dry-run does (:func:`init_decode_cache` gives it ``smax``
+    of each)."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    if cfg.encdec:
+        return W.init_whisper_cache(cfg, b, s // 2, s // 2, meta)
+    return LM.init_cache(cfg, b, s, meta)
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """The reference's skip rule: ``long_500k`` needs sub-quadratic
+    attention."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("long_500k needs sub-quadratic attention; "
+                       "dense-attention arch skipped per assignment")
+    return True, ""
 
 
 def gather_pool_rows(pools, pages: torch.Tensor):

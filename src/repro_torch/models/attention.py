@@ -32,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantize import QuantizedTensor
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding.hints import shard_hint
 
 NEG_INF = -1e30
 
@@ -55,6 +56,11 @@ def _qkv(p, x, positions, cfg: ModelConfig):
     v = L.apply_linear(p["wv"], x, act=act).reshape(b, t, hkv, dh)
     q = L.apply_rope(q, positions, theta=cfg.rope_theta, variant=cfg.rope)
     k = L.apply_rope(k, positions, theta=cfg.rope_theta, variant=cfg.rope)
+    # anchor layouts: batch on data, heads on model (dropped if indivisible)
+    dp = ("pod", "data")
+    q = shard_hint(q, dp, None, "model", None)
+    k = shard_hint(k, dp, None, "model", None)
+    v = shard_hint(v, dp, None, "model", None)
     return q, k, v
 
 
@@ -411,6 +417,12 @@ def mla_prefill(p, x, positions, cfg: ModelConfig, *, causal: bool = True
     k_nope, v = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand_as(q_pe)], dim=-1)
+    # pin q/k/v to batch-on-data, heads-on-model: the concat of head-sharded
+    # k_nope with the replicated k_pe leaves the head layout open
+    dp = ("pod", "data")
+    q = shard_hint(q, dp, None, "model", None)
+    k = shard_hint(k, dp, None, "model", None)
+    v = shard_hint(v, dp, None, "model", None)
     out = chunked_attention(q, k, v, positions, positions, causal=causal)
     y = L.apply_linear(p["wo"], out.reshape(b, t, -1), act=cfg.act_kernel)
     lens = torch.full((b,), t, dtype=torch.int32, device=x.device)

@@ -24,7 +24,16 @@ from repro_torch.kernels import ops as kops
 Params = Dict[str, Any]
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` when params are built on the
+    meta device: shapes and dtypes only, nothing drawn or allocated (a CPU
+    generator cannot draw meta tensors)."""
+    device = torch.device("meta")
+
+
 def _randn(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32) * scale).to(dtype)
 
@@ -83,7 +92,10 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
 
 
 def apply_embedding(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    """The table's rows at ``tokens`` (``F.embedding``: the same gather as
+    indexing, and the op ``DTensor`` partitions over a vocab-sharded table
+    without gathering it)."""
+    return F.embedding(tokens.long(), p["table"])
 
 
 def logits_from_embedding(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -9,11 +9,16 @@ stacked expert weights with one grouped product per weight, and combined
 back with the router weights; DeepSeek-V2's shared experts are one dense
 SwiGLU (``d_ff = d_expert · num_shared``) added for every token.  After PTQ the stacked ``[E, Ci, Co]``
 weights are int4 :class:`QuantizedTensor` s and contract through
-``kernels.ops.w4a16_grouped_matmul`` (B6, or B7 under A8).  The reference's
-mesh-blocked dispatch is its one-block case here: the port has no mesh.
+``kernels.ops.w4a16_grouped_matmul`` (B6, or B7 under A8).  With a hint
+mesh installed (``sharding/hints.py``), tokens are dispatched in ``nblk =
+data · pod`` blocks, as in the reference: each block fills its own capacity
+slice of every expert, so the sort stays local to a data shard, and the
+``[nblk, E, C, D]`` buffer is hinted to (data, model).  With no mesh it is
+the one-block case.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -23,7 +28,9 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import calibration as _calib
 from repro_torch.core.quantize import QuantizedTensor, a8_roundtrip_error
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import layers as L
+from repro_torch.sharding import hints as H
 
 
 # ------------------------------------------------------------- dense MLP ----
@@ -75,14 +82,31 @@ def moe_capacity(n: int, m: MoEConfig) -> int:
 
 def _expert_matmul(x: torch.Tensor, w, *, act: str = "a16",
                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-expert contraction ``x[E, C, D] @ w[E, D, F] → [E, C, F]`` in f32:
-    a stacked fp tensor, or after PTQ a stacked int4 QuantizedTensor through
-    the grouped kernel (never dequantized model-side), told each expert's
-    filled rows ``rows`` (int32[E]; the rows past them are zero)."""
+    """Per-expert contraction ``x[nblk, E, C, D] @ w[E, D, F] → [nblk, E, C,
+    F]`` in f32: a stacked fp tensor, or after PTQ a stacked int4
+    QuantizedTensor through the grouped kernel (never dequantized
+    model-side), the blocks riding each expert's rows.  ``rows`` (int32[E],
+    one block only) is each expert's filled rows; the rows past them are
+    zero."""
+    nblk, e, c, d = x.shape
+    xe = x.permute(1, 0, 2, 3).reshape(e, nblk * c, d)
     if isinstance(w, QuantizedTensor):
-        return kops.w4a16_grouped_matmul(x.to(torch.float32).contiguous(), w,
-                                         act=act, rows=rows)
-    return torch.bmm(x.to(torch.float32), w.to(torch.float32))
+        y = kops.w4a16_grouped_matmul(xe.to(torch.float32).contiguous(), w,
+                                      act=act, rows=rows)
+    else:
+        y = torch.bmm(xe.to(torch.float32), w.to(torch.float32))
+    return y.reshape(e, nblk, c, -1).permute(1, 0, 2, 3)
+
+
+def dispatch_blocks(n: int) -> int:
+    """Token blocks of the MoE dispatch: ``data · pod`` of the installed
+    hint mesh when it divides the ``n`` tokens, else 1."""
+    mesh = H.current_mesh()
+    if mesh is None or os.environ.get("REPRO_NO_HINTS"):
+        return 1
+    sizes = axis_sizes(mesh)
+    nblk = sizes.get("data", 1) * sizes.get("pod", 1)
+    return nblk if n % nblk == 0 else 1
 
 
 def _dispatch_indices(expert_ids: torch.Tensor, num_experts: int,
@@ -133,13 +157,19 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     gate_w, gate_e = gate_w[:, :m.top_k], gate_e[:, :m.top_k]
     gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
 
-    capacity = moe_capacity(n, m)
+    # blocked dispatch: block b's slots sort among "virtual experts" b·E + e,
+    # which is the reference's per-block dispatch in one sort
+    nblk = dispatch_blocks(n)
+    n_loc = n // nblk
+    capacity = moe_capacity(n_loc, m)
     flat_e = gate_e.reshape(-1)                                 # [N·K]
-    buf_idx, keep, counts = _dispatch_indices(flat_e, m.num_experts,
-                                              capacity)
-    rows = torch.clamp(counts, max=capacity).to(torch.int32)
+    blk = torch.arange(n * m.top_k, device=x.device) // (n_loc * m.top_k)
+    buf_idx, keep, counts = _dispatch_indices(
+        flat_e + blk * m.num_experts, nblk * m.num_experts, capacity)
+    rows = (torch.clamp(counts, max=capacity).to(torch.int32)
+            if nblk == 1 else None)
     # scatter only the slot → token map, then gather the rows
-    n_slots = m.num_experts * capacity
+    n_slots = nblk * m.num_experts * capacity
     slot_tok = torch.full((n_slots + 1,), -1, dtype=torch.long,
                           device=x.device)
     tok_of_src = torch.arange(n * m.top_k, device=x.device) // m.top_k
@@ -147,7 +177,8 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     slot_tok = slot_tok[:n_slots]
     buf = xf[torch.clamp_min(slot_tok, 0)]
     buf = torch.where((slot_tok >= 0)[:, None], buf, torch.zeros_like(buf))
-    buf = buf.reshape(m.num_experts, capacity, d)
+    buf = buf.reshape(nblk, m.num_experts, capacity, d)
+    buf = H.shard_hint(buf, ("pod", "data"), "model", None, None)
 
     act = cfg.act_kernel
     ew = p["experts"]
@@ -157,10 +188,10 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     col = _calib.current_collector()
     if col is not None:   # per-expert input stats (no apply_linear here)
         col.record_explicit(("mlp", "experts", "gate"),
-                            buf.to(torch.float32).abs().amax(dim=1),
+                            buf.to(torch.float32).abs().amax(dim=(0, 2)),
                             a8_err=a8_roundtrip_error(buf))
         col.record_explicit(("mlp", "experts", "down"),
-                            hidden.abs().amax(dim=1),
+                            hidden.abs().amax(dim=(0, 2)),
                             a8_err=a8_roundtrip_error(hidden))
     out = _expert_matmul(hidden, ew["down"], act=act, rows=rows).to(x.dtype)
 

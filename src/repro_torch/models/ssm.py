@@ -27,17 +27,22 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.hints import shard_hint
 
 Params = Dict[str, Any]
 
 
 def _randn(gen: torch.Generator, shape, scale: float, dtype,
            shift: float = 0.0) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32) * scale + shift).to(dtype)
 
 
 def _uniform(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.rand(shape, generator=gen, device=gen.device,
                       dtype=torch.float32).to(dtype)
 
@@ -122,14 +127,19 @@ def ssd_chunked(x: torch.Tensor, la: torch.Tensor, bm: torch.Tensor,
         diff = cum[:, :, None, :] - cum[:, None, :, :]      # [B, i, j, H]
         m = torch.exp(torch.where(mask[None, :, :, None], diff,
                                   torch.full_like(diff, -1e30)))
-        y = torch.einsum("bijh,bjhp->bihp", cb[..., None] * m, xk)
+        # the three-operand products go pairwise in the reference's einsum
+        # order (its contraction path): the same products, the same dots
+        y = torch.einsum("bijh,bjhp->bihp",
+                         torch.einsum("bij,bijh->bijh", cb, m), xk)
         # inter-chunk: y_i += exp(Λ_i) C_i · H_prev
-        y = y + torch.exp(cum)[..., None] * torch.einsum(
-            "bin,bhpn->bihp", ck, hprev)
+        y = y + torch.einsum("binh,bhpn->bihp",
+                             torch.einsum("bin,bih->binh", ck,
+                                          torch.exp(cum)), hprev)
         # state at the chunk's end: exp(total) H_prev + Σ_j exp(Λ_L − Λ_j)
         # x_j B_j
         dte = torch.exp(total[:, None, :] - cum)            # [B, L, H]
-        s_c = torch.einsum("bjhp,bjn->bhpn", dte[..., None] * xk, bk)
+        s_c = torch.einsum("bjhp,bjn->bhpn",
+                           torch.einsum("bjh,bjhp->bjhp", dte, xk), bk)
         hprev = hprev * torch.exp(total)[:, :, None, None] + s_c
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :t]
@@ -233,7 +243,7 @@ def mamba2_decode(p: Params, xin: torch.Tensor, state: Dict[str, torch.Tensor],
                      + p["dt_bias"].to(torch.float32))           # [B, H]
     dec = torch.exp(dt1 * -torch.exp(p["a_log"].to(torch.float32)))
     xh = x1.reshape(b, nh, hp).to(torch.float32)
-    upd = (xh * dt1[..., None])[..., None] * b1[:, None, None, :]
+    upd = torch.einsum("bhp,bn->bhpn", xh * dt1[..., None], b1)
     h = state["h"] * dec[:, :, None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", h, c1)
     y = y + xh * p["d_skip"].to(torch.float32)[None, :, None]
@@ -340,12 +350,19 @@ def rwkv6_forward(p: Params, xin: torch.Tensor, cfg: ModelConfig, *,
     wh = w.reshape(b, t, nh, hk)
     u = p["u_bonus"].to(torch.float32).reshape(nh, hk)[None, :, :, None]
     s = torch.zeros(b, nh, hk, hk, dtype=torch.float32, device=xin.device)
+    # pin the recurrence's operands to (batch → data, heads → model): the
+    # reference anchors its time-major scan operands the same way
+    dp = ("pod", "data")
+    rh, kh, vh, wh = (shard_hint(a, dp, None, "model", None)
+                      for a in (rh, kh, vh, wh))
+    s = shard_hint(s, dp, "model", None, None)
     outs = []
     for i in range(t):
-        kv = kh[:, i, :, :, None] * vh[:, i, :, None, :]
+        kv = torch.einsum("bhk,bhv->bhkv", kh[:, i], vh[:, i])
         outs.append(torch.einsum("bhk,bhkv->bhv", rh[:, i], s + u * kv))
         s = s * wh[:, i, :, :, None] + kv
-    y = torch.stack(outs, dim=1).reshape(b, t, d)
+    y = shard_hint(torch.stack(outs, dim=1), dp, None, "model",
+                   None).reshape(b, t, d)
     out = _rwkv_out(p, y, g, xin, nh, cfg)
     if not return_state:
         return out
@@ -363,7 +380,7 @@ def rwkv6_decode(p: Params, xin: torch.Tensor, state: Dict[str, torch.Tensor],
     wt = w.reshape(b, nh, hk)
     u = p["u_bonus"].to(torch.float32).reshape(nh, hk)[None, :, :, None]
     s = state["wkv"]
-    kv = kt[..., None] * vt[..., None, :]
+    kv = torch.einsum("bhk,bhv->bhkv", kt, vt)
     out = torch.einsum("bhk,bhkv->bhv", rt, s + u * kv)
     y = _rwkv_out(p, out.reshape(b, 1, d), g, xin, nh, cfg)
     return y, {"wkv": s * wt[..., None] + kv, "x_prev": xin[:, 0]}

@@ -50,6 +50,17 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
     return [{k: v[i::n] for k, v in batch.items()} for i in range(n)]
 
 
+def accumulate_microbatch(loss_fn: Callable, params, mb, acc, n: int
+                          ) -> torch.Tensor:
+    """One microbatch of a step over ``n``: its gradients, over ``n``, are
+    added into the f32 leaves ``acc`` in place; returns its loss over
+    ``n`` (the reference's scan body)."""
+    loss, grads = value_and_grad(loss_fn, params, mb)
+    for a, g in zip(acc, grads, strict=True):
+        a.add_(g.to(torch.float32) / n)
+    return loss / n
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, state,
     metrics)``; the params and the state are updated in place
@@ -60,16 +71,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     def train_step(params, opt_state, batch):
         if tc.microbatch and tc.microbatch > 1:
             n = tc.microbatch
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # zeros_like: a placed (DTensor) leaf gets its placements
+            acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in T.leaves(params)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=acc[0].device)
             for mb in _split_microbatches(batch, n):
-                l, grads = value_and_grad(loss_fn, params, mb)
-                for a, g in zip(acc, grads, strict=True):
-                    a.add_(g.to(torch.float32) / n)
-                loss = loss + l / n
-                del grads
+                loss = loss + accumulate_microbatch(loss_fn, params, mb, acc,
+                                                    n)
             grads = acc
         else:
             loss, grads = value_and_grad(loss_fn, params, batch)
