@@ -1,0 +1,9 @@
+"""The benchmark's own CPU tests (run: ``python -m pytest -q
+perfbench/tests`` from the repository root; ``-m cuda`` for the card's)."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
