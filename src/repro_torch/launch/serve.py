@@ -302,6 +302,16 @@ def main(argv=None, *, attn_impl=None) -> dict:
           f"state, {st['swapped_in_bytes'] / 1e6:.1f}MB back in); "
           f"free={pg['free_pages']}/{pg['total_pages']} "
           f"counts={pg['counts']}")
+    # the host phases of step() (EngineStats.host_s / host_n), a step each
+    hs, hn = st["host_s"], st["host_n"]
+    n = max(hn.get("step", 0), 1)
+    syncs = [k for k in hs if k.startswith("sync.")]
+    by_phase = " ".join(f"{k}={v / n * 1e3:.3f}" for k, v in sorted(
+        hs.items(), key=lambda kv: -kv[1]) if k not in syncs)
+    print(f"host: {sum(hs.values()) / n * 1e3:.3f} ms a step over "
+          f"{hn.get('step', 0)} steps, self ms by phase {by_phase}; "
+          f"{sum(hn[k] for k in syncs) / n:.2f} syncs a step "
+          f"({sum(hs[k] for k in syncs) / n * 1e3:.3f} ms)")
     if eng.has_enc:
         print(f"encoder pages: {st['enc_encodes']} encodes, "
               f"{st['enc_hits']} exact-match hits")

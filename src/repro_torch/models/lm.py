@@ -44,6 +44,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
 from repro_torch.models import ssm as S
+from repro_torch.serving.trace import span
 
 Params = Dict[str, Any]
 
@@ -183,13 +184,17 @@ def _block_decode(p: Params, x, positions, cache, cfg: ModelConfig, *,
 
 
 def _block_prefill_chunk(p, x, start_len, chunk_len, pool, table_rows, cfg):
-    h = L.apply_norm(p["norm1"], x)
-    chunk = A.mla_prefill_chunk if cfg.mixer == "mla" \
-        else A.gqa_prefill_chunk
-    y, pool = chunk(p["mixer"], h, pool, table_rows, start_len, chunk_len,
-                    cfg)
-    x = x + y
-    return x + _channel_mix(p, L.apply_norm(p["norm2"], x), cfg), pool
+    # the spans tile the block, so that the device's idle gaps in an eager
+    # chunk fall on a sub-layer of the trace
+    with span("model.attn"):
+        h = L.apply_norm(p["norm1"], x)
+        chunk = A.mla_prefill_chunk if cfg.mixer == "mla" \
+            else A.gqa_prefill_chunk
+        y, pool = chunk(p["mixer"], h, pool, table_rows, start_len,
+                        chunk_len, cfg)
+        x = x + y
+    with span("model.ffn"):
+        return x + _channel_mix(p, L.apply_norm(p["norm2"], x), cfg), pool
 
 
 def _block_decode_paged(p, x, rope_pos, write_pos, pool, table_rows, cfg):
@@ -226,11 +231,13 @@ def _lm_head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _head_at(p: Params, x, last_idx, cfg: ModelConfig) -> torch.Tensor:
     """Logits [B, V] at ``last_idx[b]`` of each row (the last position when
     None)."""
-    b, t = x.shape[:2]
-    if last_idx is None:
-        return _lm_head(p, x[:, t - 1:], cfg)[:, 0]
-    x_last = x[torch.arange(b, device=x.device), last_idx.long()][:, None]
-    return _lm_head(p, x_last, cfg)[:, 0]
+    with span("model.head"):
+        b, t = x.shape[:2]
+        if last_idx is None:
+            return _lm_head(p, x[:, t - 1:], cfg)[:, 0]
+        x_last = x[torch.arange(b, device=x.device),
+                   last_idx.long()][:, None]
+        return _lm_head(p, x_last, cfg)[:, 0]
 
 
 def lm_forward(p: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -490,7 +497,8 @@ def lm_prefill_chunk(p: Params, tokens, cache, start_len, chunk_len,
     """One [B, T] prompt chunk per slot, KV written straight into the paged
     pools; returns the logits at ``last_idx`` per row (meaningful on a
     prompt's final chunk) and the pools."""
-    x = embed_in(p, tokens, embeds)
+    with span("model.embed"):
+        x = embed_in(p, tokens, embeds)
     for lp, pool in zip(p["layers"], cache["layers"]):
         x, _ = _block_prefill_chunk(lp, x, start_len, chunk_len, pool,
                                     table_rows, cfg)

@@ -30,6 +30,7 @@ from repro_torch.core.quantize import QuantizedTensor, a8_roundtrip_error
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import layers as L
+from repro_torch.serving.trace import span
 from repro_torch.sharding import hints as H
 
 
@@ -150,34 +151,38 @@ def apply_moe(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     b, t, d = x.shape
     n = b * t
     xf = x.reshape(n, d)
-    router_logits = L.apply_linear(p["router"], xf).to(torch.float32)
-    probs = torch.softmax(router_logits, dim=-1)                # [N, E]
-    # top-k with lower expert index first on ties, like lax.top_k
-    gate_w, gate_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_w, gate_e = gate_w[:, :m.top_k], gate_e[:, :m.top_k]
-    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+    with span("model.moe.dispatch"):    # router to the rows before B6
+        router_logits = L.apply_linear(p["router"], xf).to(torch.float32)
+        probs = torch.softmax(router_logits, dim=-1)            # [N, E]
+        # top-k with lower expert index first on ties, like lax.top_k
+        gate_w, gate_e = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+        gate_w, gate_e = gate_w[:, :m.top_k], gate_e[:, :m.top_k]
+        gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
 
-    # blocked dispatch: block b's slots sort among "virtual experts" b·E + e,
-    # which is the reference's per-block dispatch in one sort
-    nblk = dispatch_blocks(n)
-    n_loc = n // nblk
-    capacity = moe_capacity(n_loc, m)
-    flat_e = gate_e.reshape(-1)                                 # [N·K]
-    blk = torch.arange(n * m.top_k, device=x.device) // (n_loc * m.top_k)
-    buf_idx, keep, counts = _dispatch_indices(
-        flat_e + blk * m.num_experts, nblk * m.num_experts, capacity)
-    rows = (torch.clamp(counts, max=capacity).to(torch.int32)
-            if nblk == 1 else None)
-    # scatter only the slot → token map, then gather the rows
-    n_slots = nblk * m.num_experts * capacity
-    slot_tok = torch.full((n_slots + 1,), -1, dtype=torch.long,
-                          device=x.device)
-    tok_of_src = torch.arange(n * m.top_k, device=x.device) // m.top_k
-    slot_tok[torch.where(keep, buf_idx, n_slots)] = tok_of_src
-    slot_tok = slot_tok[:n_slots]
-    buf = xf[torch.clamp_min(slot_tok, 0)]
-    buf = torch.where((slot_tok >= 0)[:, None], buf, torch.zeros_like(buf))
-    buf = buf.reshape(nblk, m.num_experts, capacity, d)
+        # blocked dispatch: block b's slots sort among "virtual experts"
+        # b·E + e, which is the reference's per-block dispatch in one sort
+        nblk = dispatch_blocks(n)
+        n_loc = n // nblk
+        capacity = moe_capacity(n_loc, m)
+        flat_e = gate_e.reshape(-1)                             # [N·K]
+        blk = torch.arange(n * m.top_k, device=x.device) \
+            // (n_loc * m.top_k)
+        buf_idx, keep, counts = _dispatch_indices(
+            flat_e + blk * m.num_experts, nblk * m.num_experts, capacity)
+        rows = (torch.clamp(counts, max=capacity).to(torch.int32)
+                if nblk == 1 else None)
+        # scatter only the slot → token map, then gather the rows
+        n_slots = nblk * m.num_experts * capacity
+        slot_tok = torch.full((n_slots + 1,), -1, dtype=torch.long,
+                              device=x.device)
+        tok_of_src = torch.arange(n * m.top_k, device=x.device) // m.top_k
+        slot_tok[torch.where(keep, buf_idx, n_slots)] = tok_of_src
+        slot_tok = slot_tok[:n_slots]
+        buf = xf[torch.clamp_min(slot_tok, 0)]
+        buf = torch.where((slot_tok >= 0)[:, None], buf,
+                          torch.zeros_like(buf))
+        buf = buf.reshape(nblk, m.num_experts, capacity, d)
     buf = H.shard_hint(buf, ("pod", "data"), "model", None, None)
 
     act = cfg.act_kernel

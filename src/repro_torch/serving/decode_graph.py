@@ -23,7 +23,10 @@ point them at the trash page with 0 rows, which the model clamps to one
 masked zero row, so the softmax stays finite.  A replay runs no Python, so
 the wrappers' launch counters see the capture only: the graph takes back
 the warm-up's and the capture's launches and adds the launches of one step
-at every replay.
+at every replay.  A call stages its inputs and replays in the engine's host
+phases ``decode.stage`` and ``decode.launch`` (``serving/trace.py:span``),
+counted into the enclosing engine step; the wait for the last step's input
+copies is the span ``sync.decode.copied``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.serving.kv_cache import TRASH_PAGE
+from repro_torch.serving.trace import ENCLOSING, span
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,16 +106,21 @@ class DecodeGraph:
         (capturing it first on the first call); the logits stay valid until
         the next call."""
         if self.graph is None:
-            self._capture()
-        if self._copied is not None:
-            self._copied.synchronize()    # the last step's copies are done
-        for host, dev, a in zip(self._host, self.inputs, arrays,
-                                strict=True):
-            host.numpy()[...] = a
-            dev.copy_(host, non_blocking=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
-        self.graph.replay()
+            with span("engine.decode.launch", ENCLOSING, key="decode.launch"):
+                self._capture()
+        with span("engine.decode.stage", ENCLOSING, key="decode.stage"):
+            if self._copied is not None:
+                # the last step's copies are done
+                with span("sync.decode.copied", ENCLOSING):
+                    self._copied.synchronize()
+            for host, dev, a in zip(self._host, self.inputs, arrays,
+                                    strict=True):
+                host.numpy()[...] = a
+                dev.copy_(host, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        with span("engine.decode.launch", ENCLOSING, key="decode.launch"):
+            self.graph.replay()
         K.add_launch_counts(self.per_replay)
         self.replays += 1
         return self.logits

@@ -50,7 +50,12 @@ fixed-slot continuous batcher over a paged KV cache:
   swap-stall histograms, a per-step journal and request timelines
   (``serving/metrics.py``, ``serving/trace.py``), all host-side and on one
   engine clock, read through :meth:`ServingEngine.metrics_snapshot` and
-  exported as a Chrome trace.
+  exported as a Chrome trace.  Whether or not ``metrics`` is on, every
+  step is cut into host phases (``serving/trace.py:span``): each phase's
+  self host seconds and calls accumulate in ``EngineStats.host_s`` /
+  ``host_n``, and while ``torch.profiler`` records each phase is a span
+  ``engine.<phase>``, each call that blocks the host on the device a span
+  ``sync.<site>`` (counted too), beside the device's kernels.
 
 **State leaves** (``api.state_leaves``): a slot owns KV pages and, for the
 hybrid SSM stack (Zamba2), fixed rows of per-layer Mamba2 state ``[M, B,
@@ -100,7 +105,7 @@ from repro_torch.serving.metrics import MetricsRegistry, format_pending
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import sample_per_slot
 from repro_torch.serving.scheduler import Scheduler
-from repro_torch.serving.trace import TraceRecorder
+from repro_torch.serving.trace import ENCLOSING, TraceRecorder, span
 
 #: Terminal states every submitted request reaches exactly one of:
 #:   completed — decoded its EOS token
@@ -225,6 +230,10 @@ class EngineStats:
     # per prefill batch: (padded rows of its GEMMs, largest prefix_len)
     chunk_rows: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
+    # host phases of step() (serving/trace.py:span): self seconds and calls
+    # by phase ("step", "admit", ..., "sync.<site>"), on the engine clock
+    host_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    host_n: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class ServingEngine:
@@ -349,6 +358,7 @@ class ServingEngine:
         if fault_plan is not None:
             fault_plan.sink = self._on_fault
         self._last_dec: List[int] = []      # decode slots of the last step
+        self._sample_key = "sample"         # the phase _sample counts into
 
         # the compiled decode step (the reference jits it with the pools
         # donated): one CUDA graph on a card, eager on the CPU.  The graph
@@ -375,6 +385,11 @@ class ServingEngine:
             if self.device.type == "cuda" else None)
 
     # ----------------------------------------------------- observability ---
+    def _phase(self, key: str) -> span:
+        """The host phase ``key`` of a step: the span ``engine.<key>``,
+        counted into ``stats.host_s`` / ``host_n`` on the engine clock."""
+        return span("engine." + key, self.stats, self._clock, key)
+
     def _on_fault(self, site: str) -> None:
         """FaultPlan sink: each fire is a labeled counter increment and a
         journal mark, so a chaos run reconciles the plan's tally with the
@@ -525,21 +540,40 @@ class ServingEngine:
     def _active_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is not None]
 
-    def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+    def _tensor(self, a, dtype=torch.int32,
+                site: Optional[str] = None) -> torch.Tensor:
+        """``a`` on the engine's device.  On a card the copy from pageable
+        host memory waits for the stream to drain: ``site`` names that
+        wait's span, ``sync.<site>``."""
+        t = torch.as_tensor(np.asarray(a), dtype=dtype)
+        if site is None:
+            return t.to(self.device)
+        with span("sync." + site, ENCLOSING):
+            return t.to(self.device)
 
     def _sample(self, logits, reqs) -> np.ndarray:
-        temps = torch.tensor([r.temperature if r else 0.0 for r in reqs],
-                             dtype=torch.float32, device=logits.device)
-        if any(r is not None and (r.top_k or r.top_p < 1.0) for r in reqs):
-            tks = torch.tensor([r.top_k if r else 0 for r in reqs],
-                               device=logits.device)
-            tps = torch.tensor([r.top_p if r else 1.0 for r in reqs],
-                               device=logits.device)
-            out = sample_per_slot(logits, self.gen, temps, tks, tps)
-        else:
-            out = sample_per_slot(logits, self.gen, temps)
-        return out.cpu().numpy()
+        """Tokens for ``reqs`` (None rows ignored), in the phase
+        ``_sample_key`` names: the first tokens of a prefill or a decode
+        step's."""
+        with self._phase(self._sample_key):
+            temps = [r.temperature if r else 0.0 for r in reqs]
+            with span("sync.sample.temps", ENCLOSING):
+                temps = torch.tensor(temps, dtype=torch.float32,
+                                     device=logits.device)
+            if any(r is not None and (r.top_k or r.top_p < 1.0)
+                   for r in reqs):
+                with span("sync.sample.top_k", ENCLOSING):
+                    tks = torch.tensor([r.top_k if r else 0 for r in reqs],
+                                       device=logits.device)
+                with span("sync.sample.top_p", ENCLOSING):
+                    tps = torch.tensor([r.top_p if r else 1.0 for r in reqs],
+                                       device=logits.device)
+                out = sample_per_slot(logits, self.gen, temps, tks, tps)
+            else:
+                out = sample_per_slot(logits, self.gen, temps)
+            with span("sync.sample.cpu", ENCLOSING):
+                out = out.cpu()
+            return out.numpy()
 
     # -------------------------------------------------- prefix-cache glue --
     def _written_tokens(self, slot: int) -> np.ndarray:
@@ -582,11 +616,11 @@ class ServingEngine:
         if private:
             dev["kv"] = api.gather_pool_rows(
                 self.pools, self._tensor([p for _, p in private],
-                                         torch.long))
+                                         torch.long, "preempt.pages"))
         if self.has_fixed:
             # the slot's SSM state rides the same image and the same copy
             dev["fixed"] = api.gather_fixed_rows(
-                self.fixed, self._tensor([slot], torch.long))
+                self.fixed, self._tensor([slot], torch.long, "preempt.slot"))
         host, copied = self._to_host(dev)
         rows, frows = host.get("kv"), host.get("fixed")
         nbytes = api.rows_nbytes(rows) if rows is not None else 0
@@ -648,11 +682,13 @@ class ServingEngine:
         fresh = self.pager.swap_in(slot, st.kept, st.private_lis)
         if st.rows is not None:
             api.scatter_pool_rows(self.pools, st.rows,
-                                  self._tensor(fresh, torch.long))
+                                  self._tensor(fresh, torch.long,
+                                               "resume.pages"))
         if st.fixed_rows is not None:
             # same dtypes both ways: the restored state is bit-identical
             api.scatter_fixed_rows(self.fixed, st.fixed_rows,
-                                   self._tensor([slot], torch.long))
+                                   self._tensor([slot], torch.long,
+                                                "resume.slot"))
         if st.enc_pages is not None:
             self.pager.reattach_group(slot, "enc", st.enc_pages)
             self.enc_len[slot] = st.enc_len
@@ -700,23 +736,25 @@ class ServingEngine:
         stalled: set = set()
         if self.reservation != "lazy":
             return stalled          # worst-case reservation never grows
-        for i in sorted(self._active_slots(),
-                        key=lambda j: self.slots[j].submit_seq):
-            while self.slots[i] is not None:
-                need = int(self.pos[i]) // self.PS + 1
-                if len(self.pager.slot_pages(i)) >= need:
-                    break
-                if self.pager.can_alloc(1):
-                    try:
-                        self.pager.grow(i, 1)
-                        self.stats.grown_pages += 1
-                    except TransientFault as e:
-                        self._charge_retry(i, str(e))
-                        stalled.add(i)
+        with self._phase("grow"):
+            for i in sorted(self._active_slots(),
+                            key=lambda j: self.slots[j].submit_seq):
+                while self.slots[i] is not None:
+                    need = int(self.pos[i]) // self.PS + 1
+                    if len(self.pager.slot_pages(i)) >= need:
                         break
-                else:
-                    self._preempt(max(self._active_slots(),
-                                      key=lambda j: self.slots[j].submit_seq))
+                    if self.pager.can_alloc(1):
+                        try:
+                            self.pager.grow(i, 1)
+                            self.stats.grown_pages += 1
+                        except TransientFault as e:
+                            self._charge_retry(i, str(e))
+                            stalled.add(i)
+                            break
+                    else:
+                        self._preempt(max(
+                            self._active_slots(),
+                            key=lambda j: self.slots[j].submit_seq))
         return stalled
 
     def _verify_swap_image(self, req: Request) -> bool:
@@ -767,6 +805,12 @@ class ServingEngine:
         return False
 
     def _admit(self) -> None:
+        """Expire deadlines, then admit (:meth:`_admit_queue`)."""
+        with self._phase("admit"):
+            self._expire_deadlines()
+            self._admit_queue()
+
+    def _admit_queue(self) -> None:
         free = [i for i, s in enumerate(self.slots) if s is None]
         # preempted requests sit at the queue head (FCFS); resume them by
         # swap-in before planning fresh prefills, and if the head cannot
@@ -800,8 +844,9 @@ class ServingEngine:
             if pairs:
                 api.copy_pool_page(
                     self.pools, self._tensor([s for s, _ in pairs],
-                                             torch.long),
-                    self._tensor([d for _, d in pairs], torch.long))
+                                             torch.long, "cow.src"),
+                    self._tensor([d for _, d in pairs], torch.long,
+                                 "cow.dst"))
                 for src, _ in pairs:
                     self.pager.drop_hold(src)
                 self.stats.cow_copies += len(pairs)
@@ -871,9 +916,11 @@ class ServingEngine:
             self.stats.pages_shared += len(cached)
         else:
             pages = self.pager.slot_pages(slot, "enc")
-            frames = torch.as_tensor(fr).to(self.device, self.cfg.tdtype)
+            with span("sync.enc.frames", ENCLOSING):
+                frames = torch.as_tensor(fr).to(self.device,
+                                                self.cfg.tdtype)
             kv = api.encode_kv_fn(self.params, frames[None], self.cfg)
-            idx = self._tensor(pages, torch.long)
+            idx = self._tensor(pages, torch.long, "enc.pages")
             pad = npg * self.PS - len(fr)
             for k, pool in self.pools["enc"].items():
                 rows = torch.nn.functional.pad(kv[k][:, 0],
@@ -895,43 +942,53 @@ class ServingEngine:
         fixed-rows state (probed instead, so attention-only probe sequences
         stay as they were); ``swap_corrupt`` flips a byte of a drained
         image after its CRC was taken, caught at swap-in."""
-        for st in self._swapped.values():
-            has_img = st.rows is not None or st.fixed_rows is not None
-            if has_img and not st.on_host:
-                site = ("fixed_drain" if st.fixed_rows is not None
-                        else "swap_drain")
-                if self.faults is not None and self.faults.fires(site):
-                    continue                # the copy is "still in flight"
-                if st.copied is not None:
-                    st.copied.synchronize()
-                st.dev_rows = st.copied = None
-                st.on_host = True
-                st.checksum = api.swap_image_checksum(st.rows, st.fixed_rows)
-            if (st.on_host and has_img and not st.corrupted
-                    and self.faults is not None
-                    and self.faults.fires("swap_corrupt")):
-                st.rows, st.fixed_rows = corrupt_swap_image(st.rows,
-                                                            st.fixed_rows)
-                st.corrupted = True
+        with self._phase("drain"):
+            for st in self._swapped.values():
+                has_img = st.rows is not None or st.fixed_rows is not None
+                if has_img and not st.on_host:
+                    site = ("fixed_drain" if st.fixed_rows is not None
+                            else "swap_drain")
+                    if self.faults is not None and self.faults.fires(site):
+                        continue            # the copy is "still in flight"
+                    if st.copied is not None:
+                        with span("sync.drain.copied", ENCLOSING):
+                            st.copied.synchronize()
+                    st.dev_rows = st.copied = None
+                    st.on_host = True
+                    st.checksum = api.swap_image_checksum(st.rows,
+                                                          st.fixed_rows)
+                if (st.on_host and has_img and not st.corrupted
+                        and self.faults is not None
+                        and self.faults.fires("swap_corrupt")):
+                    st.rows, st.fixed_rows = corrupt_swap_image(
+                        st.rows, st.fixed_rows)
+                    st.corrupted = True
 
     @torch.no_grad()
     def _prefill_chunks(self) -> int:
         """Advance every prefilling slot by its scheduled chunk (one fused
         [n, blen] launch per bucket); sample the first token on rows whose
         chunk completes the prompt.  Returns the chunk rows worked."""
-        items = [(i, int(self.pos[i]), int(self.pref_target[i]))
-                 for i in sorted((j for j in self._active_slots()
-                                  if self.pos[j] < self.pref_target[j]),
-                                 key=lambda j: self.slots[j].submit_seq)]
-        if not items:
-            return 0
-        if self.faults is not None and self.faults.fires("prefill_launch"):
-            # the launch died before any KV write: every chunk retries next
-            # step, the oldest row carrying the bounded charge
-            self._charge_retry(items[0][0], "prefill launch faulted")
-            return 0
-        worked = 0
-        for bkt in self.sched.plan_chunks(items):
+        with self._phase("prefill"):
+            items = [(i, int(self.pos[i]), int(self.pref_target[i]))
+                     for i in sorted((j for j in self._active_slots()
+                                      if self.pos[j] < self.pref_target[j]),
+                                     key=lambda j: self.slots[j].submit_seq)]
+            if not items:
+                return 0
+            if self.faults is not None \
+                    and self.faults.fires("prefill_launch"):
+                # the launch died before any KV write: every chunk retries
+                # next step, the oldest row carrying the bounded charge
+                self._charge_retry(items[0][0], "prefill launch faulted")
+                return 0
+            return sum(self._prefill_bucket(bkt)
+                       for bkt in self.sched.plan_chunks(items))
+
+    def _prefill_bucket(self, bkt) -> int:
+        """One bucket's fused [n, blen] chunk launch, its first tokens and
+        the cache's index of its finished prompts; returns its rows."""
+        with self._phase("prefill.stage"):
             n, blen = len(bkt.slots), bkt.pad_len
             starts = np.asarray(bkt.starts, np.int32)
             lens = np.asarray(bkt.lens, np.int32)
@@ -939,47 +996,53 @@ class ServingEngine:
             for r, slot in enumerate(bkt.slots):
                 prompt = self.slots[slot].prompt
                 toks[r, :lens[r]] = prompt[starts[r]:starts[r] + lens[r]]
+            tok_t = self._tensor(toks, site="prefill.tokens")
+            table_t = self._tensor(self.pager.table()[bkt.slots],
+                                   site="prefill.table")
+            start_t = self._tensor(starts, site="prefill.starts")
+            len_t = self._tensor(lens, site="prefill.lens")
+            last_t = self._tensor(lens - 1, site="prefill.last_idx")
+            leaves = self._leaf_inputs(bkt.slots)
+        with self._phase("prefill.launch"):
             logits = api.prefill_chunk_fn(
-                self.params, {"tokens": self._tensor(toks)}, self.pools,
-                self._tensor(self.pager.table()[bkt.slots]),
-                self._tensor(starts), self._tensor(lens), self.cfg,
-                last_idx=self._tensor(lens - 1),
-                **self._leaf_inputs(bkt.slots))[0]
-            finals = [self.slots[s] if f else None
-                      for s, f in zip(bkt.slots, bkt.final)]
-            if any(bkt.final):
-                firsts = self._sample(logits, finals)
-                now = self._clock()
-            for r, slot in enumerate(bkt.slots):
-                self.pos[slot] += int(lens[r])
-                self.stats.prefilled_tokens += int(lens[r])
-                worked += 1
-                if self._obs:
-                    self.trace.note_chunk(slot, self.slots[slot].uid,
-                                          int(lens[r]))
-                if bkt.final[r]:
-                    req = self.slots[slot]
-                    if req._replay_tok is not None:
-                        # a re-prefill replayed tokens sampled long ago:
-                        # restore the decode feed, append no duplicate
-                        self.last_tok[slot] = req._replay_tok
-                        req._replay_tok = None
-                    else:
-                        first = int(firsts[r])
-                        req.output.append(first)
-                        req.first_token_t = now
-                        self.last_tok[slot] = first
-                        if self._obs:
-                            tl = self.trace.timeline(req.uid)
-                            tl.add(now, "first_token", slot=slot)
-                            tl.first_token_t = now
-                            tl.last_emit_t = now
-                            self._h_ttft.observe(now - req.arrival_t)
-                    if self.cache is not None:
+                self.params, {"tokens": tok_t}, self.pools, table_t, start_t,
+                len_t, self.cfg, last_idx=last_t, **leaves)[0]
+        finals = [self.slots[s] if f else None
+                  for s, f in zip(bkt.slots, bkt.final)]
+        if any(bkt.final):
+            self._sample_key = "prefill.sample"
+            firsts = self._sample(logits, finals)
+            now = self._clock()
+        for r, slot in enumerate(bkt.slots):
+            self.pos[slot] += int(lens[r])
+            self.stats.prefilled_tokens += int(lens[r])
+            if self._obs:
+                self.trace.note_chunk(slot, self.slots[slot].uid,
+                                      int(lens[r]))
+            if bkt.final[r]:
+                req = self.slots[slot]
+                if req._replay_tok is not None:
+                    # a re-prefill replayed tokens sampled long ago:
+                    # restore the decode feed, append no duplicate
+                    self.last_tok[slot] = req._replay_tok
+                    req._replay_tok = None
+                else:
+                    first = int(firsts[r])
+                    req.output.append(first)
+                    req.first_token_t = now
+                    self.last_tok[slot] = first
+                    if self._obs:
+                        tl = self.trace.timeline(req.uid)
+                        tl.add(now, "first_token", slot=slot)
+                        tl.first_token_t = now
+                        tl.last_emit_t = now
+                        self._h_ttft.observe(now - req.arrival_t)
+                if self.cache is not None:
+                    with self._phase("prefill.cache"):
                         self._cache_insert_slot(slot)
-            self.stats.prefill_batches += 1
-            self.stats.chunk_rows.append((n * blen, int(starts.max())))
-        return worked
+        self.stats.prefill_batches += 1
+        self.stats.chunk_rows.append((n * blen, int(starts.max())))
+        return n
 
     # -------------------------------------------------------------- step ---
     def _decode_inputs(self, dec: List[int]):
@@ -1015,11 +1078,13 @@ class ServingEngine:
         extra = {}
         if self.has_fixed:
             extra.update(fixed=self.fixed,
-                         slots=self._tensor(slots, torch.long))
+                         slots=self._tensor(slots, torch.long,
+                                            "prefill.slots"))
         if self.has_enc:
             extra.update(enc_table=self._tensor(
-                self.pager.table("enc")[slots]),
-                enc_len=self._tensor(self.enc_len[slots]))
+                self.pager.table("enc")[slots], site="prefill.enc_table"),
+                enc_len=self._tensor(self.enc_len[slots],
+                                     site="prefill.enc_len"))
         return extra
 
     @torch.no_grad()
@@ -1028,42 +1093,43 @@ class ServingEngine:
         tables (preempting under pressure), advance prefilling slots by one
         budgeted chunk round, decode one token for every decoding slot, then
         finish the step's swap-out copies.  Returns the rows worked (decode
-        slots + chunk rows)."""
-        self._step_idx += 1
-        self._retry_pending = False
-        if self._obs:
-            self.trace.begin_step(self._step_idx)
-            pc0 = dict(self.pager.counts)
-        pre_injected = 0
-        if self.faults is not None:
-            self.faults.begin_step(self._step_idx)
-            pre_injected = self.faults.total_injected
-        self._expire_deadlines()
-        worked = self._step_inner()
-        if self.cache is not None:
-            # evictions happen during admission too: mirror on every step
-            self.stats.pages_evicted = self.cache.stats.evicted_pages
-        if self.faults is not None:
-            self.stats.faults_injected = self.faults.total_injected
-            # a fire this step or an active pressure window makes a zero-work
-            # step a fault's back-off, not a stall
-            if (self.faults.total_injected > pre_injected
-                    or self.faults.pressure_active()):
-                self._retry_pending = True
-        self._drain_swap_buffers()
-        if self._obs:
-            pc1 = self.pager.counts
-            used = (self.pager.num_pages - 1) - self.pager.free_pages
-            self.metrics.gauge("pool_used_pages").set(used)
-            self.metrics.gauge("active_slots").set(
-                sum(s is not None for s in self.slots))
-            self.trace.end_step(
-                self._last_dec,
-                pages_used=used, pages_free=self.pager.free_pages,
-                pages_grown=pc1["grown"] - pc0["grown"],
-                pages_cow=pc1["cow"] - pc0["cow"],
-                pages_evicted=pc1["evicted"] - pc0["evicted"])
-        return worked
+        slots + chunk rows).  Its host phases tile it (``_phase``)."""
+        with self._phase("step"):
+            self._step_idx += 1
+            self._retry_pending = False
+            if self._obs:
+                self.trace.begin_step(self._step_idx)
+                pc0 = dict(self.pager.counts)
+            pre_injected = 0
+            if self.faults is not None:
+                self.faults.begin_step(self._step_idx)
+                pre_injected = self.faults.total_injected
+            worked = self._step_inner()
+            if self.cache is not None:
+                # evictions happen during admission too: mirror on every step
+                self.stats.pages_evicted = self.cache.stats.evicted_pages
+            if self.faults is not None:
+                self.stats.faults_injected = self.faults.total_injected
+                # a fire this step or an active pressure window makes a
+                # zero-work step a fault's back-off, not a stall
+                if (self.faults.total_injected > pre_injected
+                        or self.faults.pressure_active()):
+                    self._retry_pending = True
+            self._drain_swap_buffers()
+            if self._obs:
+                with self._phase("observe"):
+                    pc1 = self.pager.counts
+                    used = (self.pager.num_pages - 1) - self.pager.free_pages
+                    self.metrics.gauge("pool_used_pages").set(used)
+                    self.metrics.gauge("active_slots").set(
+                        sum(s is not None for s in self.slots))
+                    self.trace.end_step(
+                        self._last_dec,
+                        pages_used=used, pages_free=self.pager.free_pages,
+                        pages_grown=pc1["grown"] - pc0["grown"],
+                        pages_cow=pc1["cow"] - pc0["cow"],
+                        pages_evicted=pc1["evicted"] - pc0["evicted"])
+            return worked
 
     def _step_inner(self) -> int:
         self._last_dec = []
@@ -1075,44 +1141,58 @@ class ServingEngine:
                if i not in stalled and self.pos[i] >= self.pref_target[i]]
         if not dec:
             return chunked
-        # pager tripwires: no active slot points at the trash page, every
-        # refcount matches the tables + holds, and the page under each write
-        # cursor is private
-        try:
-            KV.assert_live_tables(
-                self.pager.table(), self.pos, self.PS,
-                [s is not None and i not in stalled
-                 for i, s in enumerate(self.slots)],
-                refs=self.pager.refs(), held=self.pager.held(),
-                cached=self.pager.cached_mask(),
-                aux_tables=tuple(self.pager.table(g)
-                                 for g in self.pager.groups if g != "kv"))
-        except KV.PagerInvariantError as e:
-            if self.strict or e.slot is None:
-                raise
-            # quarantine: fail the offending request, free what it held,
-            # skip this launch; the next step checks again from scratch
-            self._evict_slot(int(e.slot), "failed",
-                             f"pager invariant violated: {e}")
-            self._retry_pending = True
-            return chunked
-        if self.faults is not None and self.faults.fires("decode_launch"):
-            # the launch died before dispatch (nothing launched, written or
-            # sampled), so the retry next step is sound; the oldest decode
-            # slot carries the bounded charge
-            oldest = min(dec, key=lambda j: self.slots[j].submit_seq)
-            self._charge_retry(oldest, "decode launch faulted")
-            return chunked
-        inputs = self._decode_inputs(dec)
+        with self._phase("decode.stage"):
+            # pager tripwires: no active slot points at the trash page,
+            # every refcount matches the tables + holds, and the page under
+            # each write cursor is private
+            try:
+                KV.assert_live_tables(
+                    self.pager.table(), self.pos, self.PS,
+                    [s is not None and i not in stalled
+                     for i, s in enumerate(self.slots)],
+                    refs=self.pager.refs(), held=self.pager.held(),
+                    cached=self.pager.cached_mask(),
+                    aux_tables=tuple(self.pager.table(g)
+                                     for g in self.pager.groups
+                                     if g != "kv"))
+            except KV.PagerInvariantError as e:
+                if self.strict or e.slot is None:
+                    raise
+                # quarantine: fail the offending request, free what it
+                # held, skip this launch; the next step checks again from
+                # scratch
+                self._evict_slot(int(e.slot), "failed",
+                                 f"pager invariant violated: {e}")
+                self._retry_pending = True
+                return chunked
+            if self.faults is not None and self.faults.fires("decode_launch"):
+                # the launch died before dispatch (nothing launched, written
+                # or sampled), so the retry next step is sound; the oldest
+                # decode slot carries the bounded charge
+                oldest = min(dec, key=lambda j: self.slots[j].submit_seq)
+                self._charge_retry(oldest, "decode launch faulted")
+                return chunked
+            inputs = self._decode_inputs(dec)
+            if self.decode_graph is None:
+                inputs = tuple(self._tensor(a, torch.bool if a.dtype == bool
+                                            else torch.int32) for a in inputs)
         if self.decode_graph is not None:
+            # the graph stages its inputs and replays in phases of its own
             logits = self.decode_graph(*inputs)
         else:
-            logits = self._decode_step(*(
-                self._tensor(a, torch.bool if a.dtype == bool
-                             else torch.int32) for a in inputs))
+            with self._phase("decode.launch"):
+                logits = self._decode_step(*inputs)
         dset = set(dec)
         rows = [self.slots[i] if i in dset else None for i in range(self.B)]
+        self._sample_key = "sample"
         nxt = self._sample(logits, rows)
+        with self._phase("emit"):
+            self._emit(dec, nxt)
+        return len(dec) + chunked
+
+    def _emit(self, dec: List[int], nxt: np.ndarray) -> None:
+        """Append each decoding slot's sampled token; finish and free the
+        slots whose request is done."""
         self.stats.steps += 1
         self.stats.max_active = max(self.stats.max_active, len(dec))
         self.stats.active_slot_steps += len(dec)
@@ -1148,7 +1228,6 @@ class ServingEngine:
                 self.pos[i] = self.last_tok[i] = self.pref_target[i] = 0
                 self.enc_len[i] = 0
                 self.pager.free_slot(i)
-        return len(dec) + chunked
 
     # ----------------------------------------------------------- reports ---
     def _deadline_left_s(self, r: Request, now: float) -> Optional[float]:

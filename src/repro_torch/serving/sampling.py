@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.serving.trace import ENCLOSING, span
+
 NEG = -1e30
 
 
@@ -39,7 +41,9 @@ def sample_per_slot(logits: torch.Tensor, gen: torch.Generator,
     own temperature from its own top-k / top-p filtered distribution."""
     greedy = logits.argmax(dim=-1)
     stoch_rows = temperatures > 0
-    if not bool(stoch_rows.any()):
+    with span("sync.sample.any", ENCLOSING):   # reads the flag back
+        stoch = bool(stoch_rows.any())
+    if not stoch:
         return greedy
     t = torch.where(stoch_rows, temperatures, torch.ones_like(temperatures))
     scaled = filter_top_k_top_p(logits.to(torch.float32) / t[:, None],

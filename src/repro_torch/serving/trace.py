@@ -26,16 +26,95 @@ for lifecycle marks, and ``s``/``f`` flow events stitching a request's
 preempt to its resume across tracks.  Load the file in Perfetto
 (https://ui.perfetto.dev) or ``chrome://tracing``.  Field ordering and float
 rounding are fixed so the export is byte-stable under a fake clock (golden
-tested)."""
+tested).
+
+:class:`span` is the program's one span and host-time helper (port-only:
+the reference has none).  While ``torch.profiler`` records, it opens a
+``record_function`` of its name, so the engine's phases (``engine.*``),
+the calls that block the host on the device (``sync.*``) and the eager
+model step's sub-layers (``model.*``) land in the profiler's Chrome trace
+beside the device's kernels, on its clock, as ``user_annotation`` events.
+With no profiler recording it dispatches nothing.  Given ``into`` (the
+engine's ``EngineStats``) it always adds the span's self host seconds
+(its wall time on ``clock`` less that of counted spans nested in it) to
+``into.host_s[key]`` and one call to ``into.host_n[key]``, so the counted
+spans' self times sum to the outermost one's wall time."""
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-__all__ = ["RequestTimeline", "StepRecord", "TraceRecorder",
-           "to_chrome_trace", "write_chrome_trace"]
+import torch
+
+__all__ = ["ENCLOSING", "RequestTimeline", "StepRecord", "TraceRecorder",
+           "span", "to_chrome_trace", "write_chrome_trace"]
+
+# ----------------------------------------------------- spans and phases ---
+#: ``span(..., into=ENCLOSING)`` counts into the stats and clock of the
+#: innermost counted span open on this thread (nothing when none is open)
+ENCLOSING = object()
+
+#: the profiler's own flag: about 0.1 us a test, where a
+#: ``record_function`` costs about 10 us even with no profiler running
+_profiling = torch._C._autograd._profiler_enabled
+_local = threading.local()
+
+
+def _open() -> list:
+    """This thread's stack of open counted spans."""
+    st = getattr(_local, "stack", None)
+    if st is None:
+        st = _local.stack = []
+    return st
+
+
+class span:
+    """``with span(name, into=None, clock=None, key=None):`` — a profiler
+    span named ``name`` while a profiler records and, with ``into``, the
+    self host seconds and one call under ``key`` (default ``name``) in
+    ``into.host_s`` / ``into.host_n``, timed on ``clock``.  It touches no
+    tensor and no generator: tokens are the same with it on or off."""
+
+    __slots__ = ("name", "into", "clock", "key", "_rf", "_t0", "_inner")
+
+    def __init__(self, name: str, into: Any = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 key: Optional[str] = None):
+        self.name = name
+        self.key = name if key is None else key
+        if into is ENCLOSING:
+            st = _open()
+            into, clock = (st[-1].into, st[-1].clock) if st else (None, None)
+        self.into = into
+        self.clock = clock
+        self._rf = None
+
+    def __enter__(self) -> "span":
+        if _profiling():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if self.into is not None:
+            _open().append(self)
+            self._inner = 0.0
+            self._t0 = self.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.into is not None:
+            dt = self.clock() - self._t0
+            st = _open()
+            st.pop()
+            if st:
+                st[-1]._inner += dt
+            h, k = self.into, self.key
+            h.host_s[k] = h.host_s.get(k, 0.0) + (dt - self._inner)
+            h.host_n[k] = h.host_n.get(k, 0) + 1
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
 
 
 @dataclasses.dataclass
